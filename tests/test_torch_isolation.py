@@ -1,0 +1,110 @@
+"""The port stands alone and hides no fallback: `tinyvc_tpu_torch` and
+`chip_smoke.py` import nothing of JAX or `tinyvc_tpu`; the entry points refuse
+to run on a machine without CUDA unless the CPU is asked for; and the kernel
+build is the one-``nvcc`` recipe for ``sm_90a``."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODELS = os.path.join(ROOT, "models", "two_speaker")
+
+BLOCKER = textwrap.dedent("""
+    import importlib, importlib.abc, pkgutil, sys
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "tinyvc_tpu", "triton")
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked import of " + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    sys.path.insert(0, {root!r})
+    import tinyvc_tpu_torch
+    names = ["chip_smoke"] + [m.name for m in pkgutil.walk_packages(
+        tinyvc_tpu_torch.__path__, "tinyvc_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+    assert not leaked, leaked
+    print(len(names))
+""")
+
+
+def test_port_imports_nothing_of_jax():
+    proc = subprocess.run([sys.executable, "-c", BLOCKER.format(root=ROOT)],
+                          capture_output=True, text=True, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 20  # every module was imported
+
+
+def test_default_device_is_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    from tinyvc_tpu_torch.infer.generator import VoiceConverter
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        VoiceConverter({}, {})
+
+
+def _cli(args, cwd):
+    return subprocess.run([sys.executable, "-m", "tinyvc_tpu_torch.cli.infer", *args],
+                          capture_output=True, text=True, cwd=cwd, timeout=300,
+                          env={**os.environ, "PYTHONPATH": ROOT})
+
+
+def test_cli_needs_cuda_unless_cpu_is_asked_for(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    from tinyvc_tpu_torch.cli import infer as cli
+    from tinyvc_tpu_torch.kernels import noise, oscillator, resample
+    from tinyvc_tpu_torch.utils.audio_io import load_audio, save_wav
+
+    inputs, outputs = tmp_path / "in", tmp_path / "out"
+    inputs.mkdir()
+    wave = load_audio(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"))[:24000]
+    save_wav(str(inputs / "utt.wav"), wave)
+    args = ["-i", str(inputs), "-o", str(outputs),
+            "-encp", os.path.join(MODELS, "encoder_B.npz"),
+            "-decp", os.path.join(MODELS, "decoder_B.npz"),
+            "-idx", os.path.join(MODELS, "index_B.npy"), "-p", "11.99"]
+    proc = _cli(args, tmp_path)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert not (outputs / "utt.wav").exists()
+
+    counters = (oscillator.oscillator_bank, noise.oscillate_noise_hashed, resample.upsample_linear)
+    before = [c.launches for c in counters]
+    cli.main(args + ["--device", "cpu"])
+    out = load_audio(str(outputs / "utt.wav"))
+    assert out.shape == wave.shape and np.isfinite(out).all() and np.abs(out).max() > 0.01
+    assert [c.launches for c in counters] == before == [0, 0, 0]
+
+
+def test_kernel_build_recipe():
+    from tinyvc_tpu_torch.kernels import build
+
+    cmd = build.build_command(build.KERNEL_DIR / "_build" / "x" / build.LIB_NAME)
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-gencode" in cmd
+    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+    assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
+    sources = build.sources()
+    assert {s.name for s in sources} == {"oscillator.cu", "noise.cu", "resample.cu"}
+    assert all(str(s) in cmd for s in sources)  # one nvcc call for every kernel
+    for path in build.CSRC.iterdir():
+        assert "#include <torch" not in path.read_text(), path
+        assert "#include <ATen" not in path.read_text(), path
+    with open(os.path.join(ROOT, ".gitignore")) as f:
+        assert "tinyvc_tpu_torch/kernels/_build/" in f.read().split()
+    # every C entry point has argtypes, pointers and the stream as c_void_p
+    import ctypes
+
+    for name, argtypes in build.SIGNATURES.items():
+        assert argtypes[-1] is ctypes.c_void_p, name

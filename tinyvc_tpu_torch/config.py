@@ -1,0 +1,69 @@
+"""Typed configuration of the conversion path.
+
+Counterpart of `tinyvc_tpu/config.py`: the same dataclasses with the same
+defaults, copied rather than imported so that this package never reads the
+JAX package. Only the fields the whole-utterance conversion path reads are
+kept; the TPU lowering switches (``use_pallas``, ``conv_impl``,
+``spectrogram_impl``, ...) have no counterpart here, because this package
+picks its kernels from the device of the tensors it is given.
+
+The slice this package serves is ``TinyVCConfig()`` with
+``decoder.use_fused_filter="off"`` on the JAX side: the U-Net runs layer by
+layer (`tinyvc_tpu/models/decoder.py::FilterNet`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class AudioConfig:
+    sample_rate: int = 24000
+    n_fft: int = 1920
+    hop_size: int = 480  # 20 ms -> 50 frames/s
+    energy_frame_size: int = 64
+
+    @property
+    def fft_bin(self) -> int:
+        return self.n_fft // 2 + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    pitch_channels: int = 128
+    pitch_num_layers: int = 4
+    num_pitch_classes: int = 512
+    classes_per_octave: int = 48
+    min_frequency: float = 20.0
+    pitch_topk: int = 4
+    ssl_channels: int = 384
+    ssl_dilations: Tuple[int, ...] = (1, 3, 9, 1, 1, 1)
+    ssl_dim: int = 768
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderConfig:
+    num_harmonics: int = 14  # plus fundamental -> 15 sines
+    source_channels: int = 128
+    source_kernel_size: int = 7
+    source_num_layers: int = 3
+    filter_channels: Tuple[int, ...] = (384, 192, 96, 48, 24)
+    filter_factors: Tuple[int, ...] = (2, 3, 4, 4, 5)
+    content_channels: int = 768
+
+
+@dataclasses.dataclass(frozen=True)
+class RetrievalConfig:
+    k: int = 4
+    alpha: float = 0.0
+    metric: str = "cos"  # 'cos' | 'IP' | 'L2'
+
+
+@dataclasses.dataclass(frozen=True)
+class TinyVCConfig:
+    audio: AudioConfig = dataclasses.field(default_factory=AudioConfig)
+    encoder: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
+    decoder: DecoderConfig = dataclasses.field(default_factory=DecoderConfig)
+    retrieval: RetrievalConfig = dataclasses.field(default_factory=RetrievalConfig)

@@ -1,0 +1,56 @@
+// Kernel C: integer-factor linear upsampling along time.
+//
+// Replaces tinyvc_tpu/ops/pallas/resample.py::pallas_upsample_t, which the
+// energy estimator calls with factor 64 (tinyvc_tpu/dsp/energy.py). x
+// [rows, T] -> y [rows, T*f] with F.interpolate(mode='linear',
+// align_corners=False) semantics and the edge clamp: output q*f + j reads
+// input q and its neighbour on the side of a = (j + 0.5)/f - 0.5.
+//
+// The TPU kernel writes this as a banded matmul so that it lands on the
+// matrix unit and keeps time on the lanes; it also pads the batch to 8 rows
+// for the sublanes. On the GPU it is a gather of two taps per output, one
+// thread per output, no padding. Bound on the H100: bytes, the output
+// written once (0.6 MB at one row of 153,600 samples, under 0.2 us at
+// 3.35 TB/s); a launch costs more than that at this size.
+//
+// The weights are formed in double and rounded to float, as the plain
+// version's table is, and the three-tap sum uses explicit _rn operations in
+// the plain version's order, so kernel and plain version agree bit for bit.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+__global__ void upsample_linear_kernel(const float* __restrict__ x, float* __restrict__ y,
+                                       long long total, int T, int f) {
+  const long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (n >= total) return;
+  const long long out_len = static_cast<long long>(T) * f;
+  const long long r = n / out_len;
+  const int i = static_cast<int>(n - r * out_len);
+  const int q = i / f;
+  const int j = i - q * f;
+  const double a = (static_cast<double>(j) + 0.5) / f - 0.5;
+  const float w_prev = static_cast<float>(a < 0.0 ? -a : 0.0);
+  const float w_cur = static_cast<float>(1.0 - (a < 0.0 ? -a : a));
+  const float w_next = static_cast<float>(a > 0.0 ? a : 0.0);
+  const float* xr = x + r * T;
+  const float prev = xr[q > 0 ? q - 1 : 0];
+  const float nxt = xr[q + 1 < T ? q + 1 : T - 1];
+  y[n] = __fadd_rn(__fadd_rn(__fmul_rn(prev, w_prev), __fmul_rn(xr[q], w_cur)),
+                   __fmul_rn(nxt, w_next));
+}
+
+}  // namespace
+
+extern "C" int tvc_upsample_linear(const float* x, float* y, long long rows, int T, int f,
+                                   void* stream) {
+  if (rows <= 0 || T <= 0 || f <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = rows * T * static_cast<long long>(f);
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  upsample_linear_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(x, y, total, T, f);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,181 @@
+"""Source-filter DDSP vocoder (counterpart of `tinyvc_tpu/models/decoder.py`):
+SourceNet -> harmonic and noise source -> FilterNet U-Net.
+
+The DSP stage runs kernels A and B (`kernels/oscillator.py`,
+`kernels/noise.py`) on CUDA tensors and their plain versions on CPU tensors;
+the JAX module's ``oscillate_harmonics`` and ``oscillate_noise`` are those
+plain versions, in `dsp/synth.py`.
+The U-Net runs layer by layer, channels-first: the JAX package's
+``use_fused_filter="off"`` path.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import AudioConfig, DecoderConfig
+from ..dsp.interp import downsample_time_int_t, upsample_time_int_t
+from ..kernels.noise import oscillate_noise_hashed
+from ..kernels.oscillator import oscillator_bank
+from .layers import Conv1d, ConvNeXtLayer, Dense, Dense1x1CF, FiLM
+
+
+def _log_f0_feature(f0: torch.Tensor) -> torch.Tensor:
+    """``log(relu(f0) + 1e-6)[..., None]``."""
+    return torch.log(f0.clamp_min(0.0) + 1e-6)[..., None]
+
+
+class SourceNet(nn.Module):
+    """Per-harmonic amplitudes and the noise magnitude filter."""
+
+    def __init__(self, cfg: DecoderConfig = DecoderConfig(), audio: AudioConfig = AudioConfig()):
+        super().__init__()
+        self.hop = audio.hop_size
+        ch = cfg.source_channels
+        self.content_in = Dense(cfg.content_channels, ch)
+        self.energy_in = Dense(1, ch)
+        self.f0_in = Dense(1, ch)
+        for i in range(cfg.source_num_layers):
+            self.add_module(f"layer_{i}", ConvNeXtLayer(ch, cfg.source_kernel_size))
+        self.num_layers = cfg.source_num_layers
+        self.to_amps = Dense(ch, cfg.num_harmonics + 1)
+        self.to_kernel = Dense(ch, audio.fft_bin)
+
+    def forward(self, content: torch.Tensor, f0: torch.Tensor,
+                energy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """content ``[B,F,C]``, f0 ``[B,F]``, energy ``[B,L]`` ->
+        (amps ``[B,F,H+1]``, kernel ``[B,F,fft_bin]``)."""
+        B, L = energy.shape
+        energy_f = energy.reshape(B, L // self.hop, self.hop).amax(dim=-1)
+        x = (self.content_in(content) + self.energy_in(energy_f[..., None])
+             + self.f0_in(_log_f0_feature(f0)))
+        for i in range(self.num_layers):
+            x = getattr(self, f"layer_{i}")(x)
+        amps = F.elu(self.to_amps(x)) + 1.0
+        kernel = F.elu(self.to_kernel(x)) + 1.0
+        return amps, kernel
+
+
+class Downsample(nn.Module):
+    """Linear downsample + residual dilated conv stack, channels-first."""
+
+    def __init__(self, in_features: int, out_features: int, factor: int):
+        super().__init__()
+        self.factor = factor
+        self.down_res = Dense1x1CF(in_features, out_features)
+        self.c1 = Conv1d(in_features, in_features, 3, dilation=1)
+        self.c2 = Conv1d(in_features, in_features, 3, dilation=2)
+        self.c3 = Conv1d(in_features, out_features, 3, dilation=4)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = downsample_time_int_t(x, self.factor)
+        res = self.down_res(x)
+        x = self.c1(F.leaky_relu(x, 0.1))
+        x = self.c2(F.leaky_relu(x, 0.1))
+        x = self.c3(F.leaky_relu(x, 0.1))
+        return x + res
+
+
+class Upsample(nn.Module):
+    """Linear upsample + two FiLM-conditioned residual groups, channels-first."""
+
+    def __init__(self, in_features: int, out_features: int, factor: int):
+        super().__init__()
+        self.factor = factor
+        self.c1 = Conv1d(in_features, in_features, 3, dilation=1)
+        self.c2 = Conv1d(in_features, in_features, 3, dilation=3)
+        self.film1 = FiLM(in_features, in_features)
+        self.c3 = Conv1d(in_features, in_features, 3, dilation=9)
+        self.c4 = Conv1d(in_features, in_features, 3, dilation=27)
+        self.film2 = FiLM(in_features, in_features)
+        self.c5 = Dense1x1CF(in_features, out_features)
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        x = upsample_time_int_t(x, self.factor)
+        res = x
+        x = self.c1(F.leaky_relu(x, 0.1))
+        x = self.c2(F.leaky_relu(x, 0.1))
+        x = self.film1(x, cond) + res
+        res = x
+        x = self.c3(F.leaky_relu(x, 0.1))
+        x = self.c4(F.leaky_relu(x, 0.1))
+        x = self.film2(x, cond) + res
+        return self.c5(x)
+
+
+class FilterNet(nn.Module):
+    """Sample-rate U-Net refining the DSP source into the waveform. The down
+    path takes cat(source, energy); its outputs FiLM-condition the up path."""
+
+    def __init__(self, cfg: DecoderConfig = DecoderConfig()):
+        super().__init__()
+        channels = list(cfg.filter_channels)
+        factors = list(cfg.filter_factors)
+        self.content_in = Dense(cfg.content_channels, channels[0])
+        self.f0_in = Dense(1, channels[0])
+        n_src = cfg.num_harmonics + 3  # harmonics, noise, energy
+        self.down_0 = Conv1d(n_src, channels[-1], 3)
+        cs = list(reversed(channels[1:]))
+        ns = cs[1:] + [channels[0]]
+        for i, (c, n, f) in enumerate(zip(cs, ns, reversed(factors[1:]))):
+            self.add_module(f"down_{i + 1}", Downsample(c, n, f))
+        self.num_down = len(ns)
+        ns_up = channels[1:] + [channels[-1]]
+        for i, (c, n, f) in enumerate(zip(channels, ns_up, factors)):
+            self.add_module(f"up_{i}", Upsample(c, n, f))
+        self.num_up = len(factors)
+        self.output_layer = Conv1d(channels[-1], 1, 7)
+
+    def forward(self, content: torch.Tensor, f0: torch.Tensor, energy: torch.Tensor,
+                source: torch.Tensor) -> torch.Tensor:
+        """content ``[B,F,C]``, f0 ``[B,F]``, energy ``[B,L]``, source
+        ``[B,H+2,L]`` -> waveform ``[B,L]``."""
+        x = (self.content_in(content) + self.f0_in(_log_f0_feature(f0))).transpose(1, 2)
+        src = self.down_0(torch.cat([source, energy[:, None, :]], dim=1))
+        skips = [src]
+        for i in range(self.num_down):
+            src = getattr(self, f"down_{i + 1}")(src)
+            skips.append(src)
+        for i in range(self.num_up):
+            x = getattr(self, f"up_{i}")(x, skips[len(skips) - 1 - i])
+        return self.output_layer(x)[:, 0, :]
+
+
+class Decoder(nn.Module):
+    """SourceNet -> DSP -> FilterNet."""
+
+    def __init__(self, cfg: DecoderConfig = DecoderConfig(), audio: AudioConfig = AudioConfig()):
+        super().__init__()
+        self.audio = audio
+        self.source_net = SourceNet(cfg, audio)
+        self.filter_net = FilterNet(cfg)
+
+    def dsp(self, f0: torch.Tensor, amps: torch.Tensor, kernel: torch.Tensor, seed: int,
+            noise_angle: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Harmonics times amplitudes (kernel A) and filtered noise (kernel
+        B), channels-first: source ``[B, H+2, L]``, fp32. The noise phases
+        are ``noise_angle`` when given, else hashed from ``seed``."""
+        a = self.audio
+        harmonics = oscillator_bank(f0.contiguous(), amps.contiguous(), a.hop_size, a.sample_rate)
+        noise = oscillate_noise_hashed(
+            kernel.contiguous(), seed, a.hop_size, a.n_fft,
+            angle=None if noise_angle is None else noise_angle.contiguous(),
+        )
+        return torch.cat([harmonics, noise[:, None, :]], dim=1)
+
+    def infer(self, content: torch.Tensor, f0: torch.Tensor, energy: torch.Tensor,
+              seed: int, noise_angle: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """content ``[B,F,C]``, f0 ``[B,F]``, energy ``[B,L]`` -> waveform
+        ``[B, L]``."""
+        source = self.infer_source(content, f0, energy, seed, noise_angle)
+        return self.filter_net(content, f0, energy, source)
+
+    def infer_source(self, content: torch.Tensor, f0: torch.Tensor, energy: torch.Tensor,
+                     seed: int, noise_angle: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The DSP source ``[B, H+2, L]`` that :meth:`infer` filters."""
+        amps, kernel = self.source_net(content, f0, energy)
+        return self.dsp(f0, amps, kernel, seed, noise_angle)

@@ -1,0 +1,71 @@
+"""Content encoder and pitch classifier (counterpart of
+`tinyvc_tpu/models/encoder.py`). Layout ``[B, T, C]``: spectrogram frames in,
+768-dim content features and f0 out."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..config import AudioConfig, EncoderConfig
+from ..ops.retrieval import top_k_small
+from .layers import ConvNeXtStack
+
+
+def id2freq(ids: torch.Tensor, classes_per_octave: int = 48, min_frequency: float = 20.0) -> torch.Tensor:
+    """Pitch class ids -> Hz; frequencies <= fmin map to 0."""
+    f = min_frequency * torch.pow(2.0, ids.float() / classes_per_octave)
+    return torch.where(f <= min_frequency, torch.zeros_like(f), f)
+
+
+def decode_f0(logits: torch.Tensor, k: int = 4, classes_per_octave: int = 48,
+              min_frequency: float = 20.0) -> torch.Tensor:
+    """Softmax-weighted mean of the top-k class frequencies:
+    logits ``[B, T, classes]`` -> f0 ``[B, T]``."""
+    vals, idx = top_k_small(logits, k)
+    probs = torch.softmax(vals, dim=-1)
+    f0 = torch.sum(probs * id2freq(idx, classes_per_octave, min_frequency), dim=-1)
+    return torch.where(f0 <= min_frequency, torch.zeros_like(f0), f0)
+
+
+class PitchEstimator(nn.Module):
+    """Spectrogram ``[B, T, bins]`` -> pitch-class logits."""
+
+    def __init__(self, cfg: EncoderConfig, in_features: int):
+        super().__init__()
+        self.stack = ConvNeXtStack(
+            in_features, cfg.pitch_channels, cfg.num_pitch_classes, (1,) * cfg.pitch_num_layers
+        )
+
+    def forward(self, spec: torch.Tensor) -> torch.Tensor:
+        return self.stack(spec)
+
+
+class SSLFeatureEstimator(nn.Module):
+    """Spectrogram ``[B, T, bins]`` -> content features."""
+
+    def __init__(self, cfg: EncoderConfig, in_features: int):
+        super().__init__()
+        self.stack = ConvNeXtStack(in_features, cfg.ssl_channels, cfg.ssl_dim, cfg.ssl_dilations)
+
+    def forward(self, spec: torch.Tensor) -> torch.Tensor:
+        return self.stack(spec)
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: EncoderConfig = EncoderConfig(), audio: AudioConfig = AudioConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.ssl_feature_estimator = SSLFeatureEstimator(cfg, audio.fft_bin)
+        self.pitch_estimator = PitchEstimator(cfg, audio.fft_bin)
+
+    def forward(self, spec: torch.Tensor):
+        """-> (content ``[B, T, ssl_dim]``, pitch logits)."""
+        return self.ssl_feature_estimator(spec), self.pitch_estimator(spec)
+
+    def infer(self, spec: torch.Tensor):
+        """-> (content ``[B, T, ssl_dim]``, f0 ``[B, T]``)."""
+        content, logits = self(spec)
+        f0 = decode_f0(logits, self.cfg.pitch_topk, self.cfg.classes_per_octave,
+                       self.cfg.min_frequency)
+        return content, f0
