@@ -11,13 +11,20 @@ Phases, each timed; any failure exits non-zero:
    ``nvcc`` call.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the conversion path's shapes (B=1, F=320 frames, L=153,600 samples) and at
-   a ragged shape (B=3, F=37), with kernel, plain and library times (CUDA
-   events, median of 25 after warm-up) and the bound from bytes and FLOPs.
+   a ragged shape (B=3 or 2, F=37), with kernel, plain and library times
+   (CUDA events, median of 25 after warm-up) and the bound from bytes and
+   FLOPs. The fused U-Net's kernels (C at its five up stages, D, E, F) run
+   every stage's shapes with the two-speaker decoder's weights; their row
+   sums the stages of one request.
 4. convert: ``VoiceConverter`` on CUDA with the two-speaker weights and kNN
    index, answering three requests (the 6 s demo utterance cold, warm, then
-   a batch of 4); every kernel's launch counter must rise; the output must
-   be finite, as long as the input, within ``WAVE_ATOL`` of the same request
-   on the CPU, and within ``MEL_L1_BOUND`` of the demo's converted rendition.
+   a batch of 4) with the default config, so the fused U-Net; every
+   kernel's launch counter must rise; the output must be finite, as long as
+   the input, within ``WAVE_ATOL`` of the same request on the CPU (fused
+   too, ``use_fused_filter="on"``), and within ``MEL_L1_BOUND`` of the
+   demo's converted rendition. The card's distance to its own
+   layer-by-layer U-Net (``"off"``) is printed, not gated: the two differ
+   near the utterance's ends by design.
 5. profile: warm request latency at B=1 and B=4 and, from ``torch.profiler``,
    the device time of one request by kernel group and the device's idle share.
 
@@ -51,9 +58,14 @@ PITCH_SHIFT = 11.99  # the demo's own setting (demo/two_speaker/README.md)
 #     1.5x the plain version's error) is the tighter gate.
 #  B: same hashed phases bit for bit; a 961-term fp32 DFT sum against
 #     cuFFT's irfft (1e-5, the JAX package's own kernel-vs-istft bound).
-#  C: the same two fp32 products and sums in the same order: bit-exact, the
+#  C, D: the same fp32 products and sums in the same order: bit-exact, the
 #     bound allows one rounding at values <= 1.
-KERNEL_TOL = {"oscillator": 1e-2, "noise": 1e-5, "upsample": 1e-6}
+#  E, F (relative to the plain version's peak): fp32 sums of up to 3*384
+#     terms in another order than cuDNN's (TF32 off on both sides), through
+#     three (E) or four (F) convs, FiLM products and residual adds; the H100
+#     showed at most 7.4e-7 of the peak (1.55e-6 at peak 2.08).
+KERNEL_TOL = {"oscillator": 1e-2, "noise": 1e-5, "upsample": 1e-6, "downsample": 1e-6}
+CHAIN_RTOL = {"down_chain": 1e-5, "up_chain": 1e-5}
 # Whole conversion, card against CPU and port against JAX (the CPU tests hold
 # the port to the same bound): kernel A's phase is closer to the float64
 # truth than the fp32 plain version (by up to ~7e-3 at amplitude 3), and the
@@ -282,6 +294,7 @@ def phase_kernels() -> dict:
         library_ms=_cuda_ms(lambda: F.interpolate(x[:, None], scale_factor=factor,
                                                   mode="linear", align_corners=False)),
     )
+    phase_unet_kernels(results, rng, dev)
     for r in results.values():
         r["bound_ms"], r["bound_by"] = r.pop("bound")
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -290,15 +303,155 @@ def phase_kernels() -> dict:
     return results
 
 
+def _sum_bounds(bounds):
+    """One row's bound over several calls: the sum of each call's bound,
+    named by the kind (bytes or operations) that bounds most of it."""
+    by = {"bytes": 0.0, "operations": 0.0}
+    for ms, kind in bounds:
+        by[kind] += ms
+    return sum(by.values()), max(by, key=by.get)
+
+
+def phase_unet_kernels(results: dict, rng, dev) -> None:
+    """Kernels D, E, F, and C at the U-Net's up stages, each call of one
+    fused U-Net request against its plain version, with the two-speaker
+    decoder's packed weights and N(0, 0.25) activations: at B=1, F=320 (timed,
+    summed into one row per kernel) and at a ragged B=2, F=37."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tinyvc_tpu_torch.config import DecoderConfig
+    from tinyvc_tpu_torch.infer.generator import exact_fp32
+    from tinyvc_tpu_torch.kernels import filter_stage as fs
+    from tinyvc_tpu_torch.kernels.resample import (downsample_linear, downsample_linear_plain,
+                                                   upsample_linear, upsample_linear_plain)
+    from tinyvc_tpu_torch.ops.fused_filternet import fused_weights
+    from tinyvc_tpu_torch.utils.weights import decoder_from_jax, load_npz
+
+    cfg = DecoderConfig()
+    dec = decoder_from_jax(load_npz(os.path.join(ROOT, "models", "two_speaker", "decoder_B.npz")),
+                           cfg).to(dev)
+    n_src = cfg.num_harmonics + 2
+    pack = n_src + 1 + (-(n_src + 1)) % 8
+    w = fused_weights(dec.filter_net, pack)
+    chans, facs = list(cfg.filter_channels), list(cfg.filter_factors)
+    acc = {k: dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bounds=[])
+           for k in ("upsample", "downsample", "down_chain", "up_chain")}
+
+    def randn(*shape):
+        return torch.from_numpy((0.5 * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+    def check(name, case, kernel, plain, tol, relative, timed, bound, library=None):
+        with exact_fp32():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            peak = float(want.abs().max())
+            limit = tol * peak if relative else tol
+            print(f"  {name} {case}: max_abs_err {err:.3e} (tolerance {limit:.3e}"
+                  f"{f' = {tol:.0e} x peak {peak:.3f}' if relative else ''})")
+            _check(err <= limit, f"{name} {case}: error {err} > {limit}")
+            a = acc[name]
+            a["err"] = max(a["err"], err)
+            if timed:
+                ms, plain_ms = _cuda_ms(kernel), _cuda_ms(plain)
+                lib_ms = None if library is None else _cuda_ms(library)
+                print(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                      f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
+                      f"{bound[0]:.4f} ms ({bound[1]})")
+                a["ms"] += ms
+                a["plain"] += plain_ms
+                a["lib"] += lib_ms or 0.0
+                a["bounds"].append(bound)
+
+    def decimate_lib(x, f):
+        if f % 2:
+            return lambda: x[:, f // 2::f].contiguous()
+        return lambda: F.avg_pool1d(x[:, None, f // 2 - 1:], 2, f)[:, 0]
+
+    for B, F_ in ((1, 320), (2, 37)):
+        timed = B == 1
+        L = F_ * 480
+        # stem over the packed source: harmonics and noise, energy, zero rows
+        x = randn(B, pack, L)
+        x[:, n_src] = x[:, n_src].abs()
+        x[:, n_src + 1:] = 0.0
+        cs = w.stem[0].shape[0]
+        check("down_chain", f"stem B={B} [{pack}({n_src + 1}) -> {cs}, {L}]",
+              lambda: fs.conv3(x, *w.stem), lambda: fs.conv3_plain(x, *w.stem),
+              CHAIN_RTOL["down_chain"], True, timed,
+              _bound(4 * (x.numel() + B * cs * L), 2.0 * B * L * cs * 3 * (n_src + 1)))
+        T = L
+        for cin, f, wd in zip(reversed(chans[1:]), reversed(facs[1:]), w.down):
+            xin = randn(B * cin, T)
+            check("downsample", f"B*C={B * cin} T={T} /{f}",
+                  lambda: downsample_linear(xin, f), lambda: downsample_linear_plain(xin, f),
+                  KERNEL_TOL["downsample"], False, timed,
+                  _bound(4 * (xin.numel() + xin.numel() // f),
+                         0.0 if f % 2 else 3.0 * xin.numel() // f),
+                  library=decimate_lib(xin, f))
+            T //= f
+            z = randn(B, cin, T)
+            co = wd[0].shape[0]
+            check("down_chain", f"B={B} [{cin} -> {co}, {T}]",
+                  lambda: fs.downsample_chain(z, *wd), lambda: fs.downsample_chain_plain(z, *wd),
+                  CHAIN_RTOL["down_chain"], True, timed,
+                  _bound(4 * B * T * (cin + co), 2.0 * B * T * (6 * cin * cin + 4 * cin * co)))
+        Tx = F_
+        for i, (c, f, wu) in enumerate(zip(chans, facs, w.up)):
+            xin = randn(B * c, Tx)
+            check("upsample", f"B*C={B * c} T={Tx} x{f}",
+                  lambda: upsample_linear(xin, f), lambda: upsample_linear_plain(xin, f),
+                  KERNEL_TOL["upsample"], False, timed,
+                  _bound(4 * xin.numel() * (1 + f), 5.0 * xin.numel() * f),
+                  library=lambda: F.interpolate(xin[:, None], scale_factor=f, mode="linear",
+                                                align_corners=False))
+            Tx *= f
+            xu, cond = randn(B, c, Tx), randn(B, c, Tx)
+            fold = i == len(chans) - 1
+            co = 1 if fold else wu[4].shape[0]
+            kw = dict(fold_k=wu[4].shape[0], bout=wu[6]) if fold else {}
+            ww = wu[:6]
+            # four k=3 convs and the two FiLMs' [4C, C] product: 32 C^2 per
+            # sample; the output 1x1 (or the folded k=7 conv) 2 * Co' * C
+            check("up_chain", f"B={B} [{c} -> {co}{' folded' if fold else ''}, {Tx}]",
+                  lambda: fs.upsample_chain(xu, cond, *ww, **kw),
+                  lambda: fs.upsample_chain_plain(xu, cond, *ww, **kw),
+                  CHAIN_RTOL["up_chain"], True, timed,
+                  _bound(4 * B * Tx * (2 * c + co),
+                         B * Tx * (32.0 * c * c + 2.0 * wu[4].shape[0] * c)))
+
+    up = results["upsample"]
+    a = acc["upsample"]
+    up.update(max_abs_err=max(up["max_abs_err"], a["err"]), ms=up["ms"] + a["ms"],
+              plain_ms=up["plain_ms"] + a["plain"], library_ms=up["library_ms"] + a["lib"],
+              bound=_sum_bounds([up["bound"]] + a["bounds"]))
+    kernels_dir = "tinyvc_tpu_torch/kernels/csrc"
+    for name, source, replaces, lib in (
+        ("downsample", "resample.cu", "tinyvc_tpu/ops/pallas/resample.py:198", True),
+        ("down_chain", "filter_stage.cu", "tinyvc_tpu/ops/pallas/filter_stage.py:595", False),
+        ("up_chain", "filter_stage.cu", "tinyvc_tpu/ops/pallas/filter_stage.py:354", False),
+    ):
+        a = acc[name]
+        results[name] = dict(
+            name=name, route="cuda", source=f"{kernels_dir}/{source}", replaces=replaces,
+            max_abs_err=a["err"], ms=a["ms"], plain_ms=a["plain"],
+            bound=_sum_bounds(a["bounds"]), library_ms=a["lib"] if lib else None,
+        )
+
+
 def phase_convert(card: str) -> dict:
     import numpy as np
     import torch
 
+    from tinyvc_tpu_torch.config import DecoderConfig, TinyVCConfig
     from tinyvc_tpu_torch.dsp.mel import log_mel_l1
     from tinyvc_tpu_torch.infer.generator import VoiceConverter
+    from tinyvc_tpu_torch.kernels.filter_stage import conv3, downsample_chain, upsample_chain
     from tinyvc_tpu_torch.kernels.noise import oscillate_noise_hashed
     from tinyvc_tpu_torch.kernels.oscillator import oscillator_bank
-    from tinyvc_tpu_torch.kernels.resample import upsample_linear
+    from tinyvc_tpu_torch.kernels.resample import downsample_linear, upsample_linear
     from tinyvc_tpu_torch.utils.audio_io import load_audio
     from tinyvc_tpu_torch.utils.weights import load_index, load_npz
 
@@ -312,7 +465,8 @@ def phase_convert(card: str) -> dict:
     vc = VoiceConverter(enc, dec, device="cuda")
     target = torch.from_numpy(index).to(vc.device)  # the speaker's dictionary, moved once
 
-    wrappers = (oscillator_bank, oscillate_noise_hashed, upsample_linear)
+    wrappers = (oscillator_bank, oscillate_noise_hashed, upsample_linear, downsample_linear,
+                conv3, downsample_chain, upsample_chain)
     for w in wrappers:
         w.launches = 0
     outs = []
@@ -332,11 +486,29 @@ def phase_convert(card: str) -> dict:
     for name, n in launches.items():
         _check(n > 0, f"{name} was not launched on the conversion path")
 
-    cpu = VoiceConverter(enc, dec, device="cpu").convert(wave, index, PITCH_SHIFT, seed=SEED)
+    def config(flag):
+        return TinyVCConfig(decoder=DecoderConfig(use_fused_filter=flag))
+
+    # the CPU's "auto" is the layer-by-layer U-Net: hold the card's fused
+    # output to the CPU's fused plain versions
+    cpu = VoiceConverter(enc, dec, cfg=config("on"), device="cpu").convert(
+        wave, index, PITCH_SHIFT, seed=SEED)
     diff = float(np.abs(outs[1] - cpu).max())
-    print(f"  card vs CPU: max_abs_err {diff:.3e} (tolerance {WAVE_ATOL:.0e}); "
+    print(f"  card vs CPU (both fused): max_abs_err {diff:.3e} (tolerance {WAVE_ATOL:.0e}); "
           f"peak {float(np.abs(cpu).max()):.3f}")
     _check(diff <= WAVE_ATOL, f"card output differs from the CPU by {diff}")
+    off = VoiceConverter(enc, dec, cfg=config("off"), device="cuda").convert(
+        wave, target, PITCH_SHIFT, seed=SEED)
+    # the layer-by-layer U-Net pads each conv, the chains pad their input:
+    # the two differ within the deep stages' reach of the ends (40 samples at
+    # 1/240 of the rate is 9,600), by design
+    dev = np.abs(outs[1] - off)
+    bands = (0, 2400, 9600, 19200)
+    print("  card fused vs card layer by layer (not gated): max |diff| "
+          + ", ".join(f"{float(max(dev[a:b].max(), dev[len(dev) - b:len(dev) - a].max())):.3e}"
+                      f" at {a}-{b}" for a, b in zip(bands, bands[1:]))
+          + f", {float(dev[bands[-1]:-bands[-1]].max()):.3e} beyond {bands[-1]} samples "
+          "of the ends")
 
     out = torch.from_numpy(outs[1])
     mel_conv = log_mel_l1(out, torch.from_numpy(load_audio(os.path.join(demo, "converted_A_to_B.wav"))))
@@ -348,6 +520,9 @@ def phase_convert(card: str) -> dict:
         "oscillator": launches["oscillator_bank"],
         "noise": launches["oscillate_noise_hashed"],
         "upsample": launches["upsample_linear"],
+        "downsample": launches["downsample_linear"],
+        "down_chain": launches["conv3"] + launches["downsample_chain"],
+        "up_chain": launches["upsample_chain"],
     }
     return launches, (vc, target, wave)
 
@@ -359,6 +534,9 @@ PROFILE_GROUPS = (
     ("kernel A (oscillator)", ("osc_frame_sums", "osc_synth")),
     ("kernel B (noise)", ("noise_synth",)),
     ("kernel C (upsample)", ("upsample_linear_kernel",)),
+    ("kernel D (downsample)", ("downsample_linear_kernel",)),
+    ("kernel E (stem, down chains)", ("down_chain_step",)),
+    ("kernel F (up chains)", ("up_chain_step",)),
     ("fft", ("fft",)),
     ("convolution", ("fprop", "implicit", "conv")),
     ("gemm", ("gemm",)),
@@ -455,7 +633,7 @@ def main() -> int:
     print(f"== total: {time.perf_counter() - t_all:.2f} s")
 
     rows = []
-    for key in ("oscillator", "noise", "upsample"):
+    for key in ("oscillator", "noise", "upsample", "downsample", "down_chain", "up_chain"):
         r = kernels[key]
         rows.append({k: r[k] for k in ("name", "route", "source", "replaces")}
                     | {"launches": launches[key]}

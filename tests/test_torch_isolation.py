@@ -96,7 +96,8 @@ def test_kernel_build_recipe():
     assert not any("fast_math" in c or "fast-math" in c for c in cmd)
     assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
     sources = build.sources()
-    assert {s.name for s in sources} == {"oscillator.cu", "noise.cu", "resample.cu"}
+    assert {s.name for s in sources} == {"oscillator.cu", "noise.cu", "resample.cu",
+                                        "filter_stage.cu"}
     assert all(str(s) in cmd for s in sources)  # one nvcc call for every kernel
     for path in build.CSRC.iterdir():
         assert "#include <torch" not in path.read_text(), path

@@ -7,9 +7,11 @@ kept; the TPU lowering switches (``use_pallas``, ``conv_impl``,
 ``spectrogram_impl``, ...) have no counterpart here, because this package
 picks its kernels from the device of the tensors it is given.
 
-The slice this package serves is ``TinyVCConfig()`` with
-``decoder.use_fused_filter="off"`` on the JAX side: the U-Net runs layer by
-layer (`tinyvc_tpu/models/decoder.py::FilterNet`).
+``DecoderConfig.use_fused_filter`` keeps the JAX package's meaning:
+"auto" runs the fused U-Net (`ops/fused_filternet.py`, kernels C-F) when the
+decoder's tensors lie on CUDA and the layer-by-layer U-Net
+(`models/decoder.py::FilterNet`) on the CPU, as `_on_cpu_backend()` picks
+for JAX; "on" and "off" force one or the other on either device.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ class DecoderConfig:
     filter_channels: Tuple[int, ...] = (384, 192, 96, 48, 24)
     filter_factors: Tuple[int, ...] = (2, 3, 4, 4, 5)
     content_channels: int = 768
+    use_fused_filter: str = "auto"  # 'auto' | 'on' | 'off'
 
 
 @dataclasses.dataclass(frozen=True)

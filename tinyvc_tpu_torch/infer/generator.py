@@ -1,10 +1,10 @@
 """Whole-utterance conversion (counterpart of `tinyvc_tpu/infer/generator.py`).
 
 ``convert_fn`` is the pipeline: spectrogram -> encoder -> kNN match -> pitch
-shift -> decoder, with the energy estimate alongside. ``VoiceConverter``
-holds the weights on one device and pads each request to its 64-frame
-bucket, as the JAX package does (the padding changes the GRN statistics, so
-it is part of the result).
+shift -> decoder (:func:`decode_infer`), with the energy estimate alongside.
+``VoiceConverter`` holds the weights on one device and pads each request to
+its 64-frame bucket, as the JAX package does (the padding changes the GRN
+statistics, so it is part of the result).
 
 Numerics: the JAX package's fp32 profile is exact fp32, so every
 convolution and matmul here runs with TF32 off (see :func:`exact_fp32`).
@@ -25,6 +25,7 @@ from ..dsp.pitch import shift_frequency
 from ..dsp.stft import spectrogram
 from ..models.decoder import Decoder
 from ..models.encoder import Encoder
+from ..ops.fused_filternet import filternet_fused_apply
 from ..ops.retrieval import match_features
 from ..utils.weights import decoder_from_jax, encoder_from_jax
 
@@ -48,6 +49,40 @@ def encode_fn(encoder: Encoder, wave: torch.Tensor, cfg: TinyVCConfig):
     wave = autopad_waveform(wave, cfg.audio.hop_size)
     spec = spectrogram(wave, cfg.audio.n_fft, cfg.audio.hop_size)
     return encoder.infer(spec)
+
+
+def decode_infer(
+    decoder: Decoder,
+    content: torch.Tensor,
+    f0: torch.Tensor,
+    energy: torch.Tensor,
+    seed: int,
+    cfg: TinyVCConfig,
+    noise_angle: Optional[torch.Tensor] = None,
+    stages: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """``Decoder.infer`` with the U-Net picked by
+    ``cfg.decoder.use_fused_filter``: "on", or "auto" on CUDA tensors, runs
+    the fused U-Net (`ops/fused_filternet.py`, kernels C-F) on the packed
+    source; "off", or "auto" on CPU tensors, the layer-by-layer
+    :class:`FilterNet`. ``stages`` receives the source ``[B, H+2, L]``."""
+    flag = cfg.decoder.use_fused_filter
+    if flag not in ("auto", "on", "off"):
+        raise ValueError(f"use_fused_filter must be 'auto', 'on' or 'off', got {flag!r}")
+    use_fused = flag == "on" or (flag == "auto" and energy.device.type == "cuda")
+    n_src = cfg.decoder.num_harmonics + 2  # harmonics + noise
+    if use_fused:
+        pack_width = n_src + 1 + (-(n_src + 1)) % 8
+        amps, kernel = decoder.source_net(content, f0, energy)
+        source = decoder.dsp(f0, amps, kernel, seed, noise_angle,
+                             pack_energy=energy, pack_width=pack_width)
+        out = filternet_fused_apply(decoder.filter_net, cfg.decoder, content, f0, energy, source)
+    else:
+        source = decoder.infer_source(content, f0, energy, seed, noise_angle)
+        out = decoder.filter_net(content, f0, energy, source)
+    if stages is not None:
+        stages["source"] = source[:, :n_src]
+    return out
 
 
 def convert_fn(
@@ -74,11 +109,9 @@ def convert_fn(
     r = cfg.retrieval
     matched = match_features(content, target, k=r.k, alpha=r.alpha, metric=r.metric)
     f0 = shift_frequency(f0, pitch_shift)
-    source = decoder.infer_source(matched, f0, energy, seed, noise_angle)
-    out = decoder.filter_net(matched, f0, energy, source)
+    out = decode_infer(decoder, matched, f0, energy, seed, cfg, noise_angle, stages)
     if stages is not None:
-        stages.update(spec=spec, content=content, f0=f0, matched=matched,
-                      energy=energy, source=source)
+        stages.update(spec=spec, content=content, f0=f0, matched=matched, energy=energy)
     return out
 
 

@@ -36,6 +36,10 @@ SIGNATURES = {
     "tvc_oscillator": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "tvc_noise": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "tvc_upsample_linear": [_P, _P, _LL, _I, _I, _P],
+    "tvc_downsample_linear": [_P, _P, _LL, _I, _I, _P],
+    "tvc_conv3": [_P] * 4 + [_I] * 5 + [_P],
+    "tvc_down_chain": [_P] * 11 + [_I] * 5 + [_P],
+    "tvc_up_chain": [_P] * 11 + [_I] * 6 + [_P],
 }
 
 _lib = None

@@ -1,21 +1,28 @@
-// Kernel C: integer-factor linear upsampling along time.
+// Kernels C and D: integer-factor linear resampling along time.
 //
-// Replaces tinyvc_tpu/ops/pallas/resample.py::pallas_upsample_t, which the
-// energy estimator calls with factor 64 (tinyvc_tpu/dsp/energy.py). x
-// [rows, T] -> y [rows, T*f] with F.interpolate(mode='linear',
-// align_corners=False) semantics and the edge clamp: output q*f + j reads
-// input q and its neighbour on the side of a = (j + 0.5)/f - 0.5.
+// C replaces tinyvc_tpu/ops/pallas/resample.py::pallas_upsample_t, which the
+// energy estimator calls with factor 64 (tinyvc_tpu/dsp/energy.py) and the
+// fused U-Net's five up stages with factors 2, 3, 4, 4, 5 on B*C rows
+// (tinyvc_tpu/ops/fused_filternet.py). x [rows, T] -> y [rows, T*f] with
+// F.interpolate(mode='linear', align_corners=False) semantics and the edge
+// clamp: output q*f + j reads input q and its neighbour on the side of
+// a = (j + 0.5)/f - 0.5.
 //
-// The TPU kernel writes this as a banded matmul so that it lands on the
-// matrix unit and keeps time on the lanes; it also pads the batch to 8 rows
-// for the sublanes. On the GPU it is a gather of two taps per output, one
-// thread per output, no padding. Bound on the H100: bytes, the output
-// written once (0.6 MB at one row of 153,600 samples, under 0.2 us at
-// 3.35 TB/s); a launch costs more than that at this size.
+// D replaces pallas_downsample_t, the fused U-Net's four decimations
+// (factors 5, 4, 4, 3 on B*C rows): x [rows, T] -> y [rows, T/f], output q
+// the centre input sample q*f + (f-1)/2 for odd f, the mean of the two centre
+// samples q*f + f/2 - 1 and q*f + f/2 for even f.
 //
-// The weights are formed in double and rounded to float, as the plain
-// version's table is, and the three-tap sum uses explicit _rn operations in
-// the plain version's order, so kernel and plain version agree bit for bit.
+// The TPU kernels write both as banded matmuls so that they land on the
+// matrix unit and keep time on the lanes; they also pad the batch to 8 rows
+// for the sublanes. On the GPU each is a gather of one or two taps per
+// output, one thread per output, no padding. Bound on the H100: bytes (the
+// input read once, the output written once): 0.6 MB for the energy upsample
+// and 17.7 MB for the largest U-Net resample (D on [24, 153600] / 5), 5 us.
+//
+// C forms its weights in double and rounds them to float, as the plain
+// version's table is; C and D use explicit _rn operations in the plain
+// version's order, so kernel and plain version agree bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -52,5 +59,37 @@ extern "C" int tvc_upsample_linear(const float* x, float* y, long long rows, int
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   upsample_linear_kernel<<<static_cast<unsigned>(blocks), threads, 0,
                            static_cast<cudaStream_t>(stream)>>>(x, y, total, T, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+__global__ void downsample_linear_kernel(const float* __restrict__ x, float* __restrict__ y,
+                                         long long total, int T, int f) {
+  const long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (n >= total) return;
+  const int out_len = T / f;
+  const long long r = n / out_len;
+  const int q = static_cast<int>(n - r * out_len);
+  const float* xr = x + r * T + static_cast<long long>(q) * f;
+  if (f & 1) {
+    y[n] = xr[(f - 1) / 2];
+  } else {
+    const int c = f / 2 - 1;
+    y[n] = __fadd_rn(__fmul_rn(xr[c], 0.5f), __fmul_rn(xr[c + 1], 0.5f));
+  }
+}
+
+}  // namespace
+
+extern "C" int tvc_downsample_linear(const float* x, float* y, long long rows, int T, int f,
+                                     void* stream) {
+  if (rows <= 0 || f <= 0 || T < f) return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = rows * static_cast<long long>(T / f);
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  downsample_linear_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(x, y, total, T, f);
   return static_cast<int>(cudaGetLastError());
 }

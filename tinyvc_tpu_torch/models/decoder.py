@@ -5,8 +5,11 @@ The DSP stage runs kernels A and B (`kernels/oscillator.py`,
 `kernels/noise.py`) on CUDA tensors and their plain versions on CPU tensors;
 the JAX module's ``oscillate_harmonics`` and ``oscillate_noise`` are those
 plain versions, in `dsp/synth.py`.
-The U-Net runs layer by layer, channels-first: the JAX package's
-``use_fused_filter="off"`` path.
+:class:`FilterNet` is the U-Net layer by layer, channels-first: the JAX
+package's ``use_fused_filter="off"`` path, which the CPU takes by default.
+The fused U-Net of the serving path, which CUDA takes by default, is
+`ops/fused_filternet.py::filternet_fused_apply` over the same parameters
+(`infer/generator.py::decode_infer` picks one).
 """
 
 from __future__ import annotations
@@ -155,17 +158,29 @@ class Decoder(nn.Module):
         self.filter_net = FilterNet(cfg)
 
     def dsp(self, f0: torch.Tensor, amps: torch.Tensor, kernel: torch.Tensor, seed: int,
-            noise_angle: Optional[torch.Tensor] = None) -> torch.Tensor:
+            noise_angle: Optional[torch.Tensor] = None,
+            pack_energy: Optional[torch.Tensor] = None, pack_width: int = 0) -> torch.Tensor:
         """Harmonics times amplitudes (kernel A) and filtered noise (kernel
         B), channels-first: source ``[B, H+2, L]``, fp32. The noise phases
-        are ``noise_angle`` when given, else hashed from ``seed``."""
+        are ``noise_angle`` when given, else hashed from ``seed``.
+
+        With ``pack_energy`` ``[B, L]``, the energy row and zero rows up to
+        ``pack_width`` rows follow: the fused stem's packed input
+        (`tinyvc_tpu/models/decoder.py:439-446`)."""
         a = self.audio
         harmonics = oscillator_bank(f0.contiguous(), amps.contiguous(), a.hop_size, a.sample_rate)
         noise = oscillate_noise_hashed(
             kernel.contiguous(), seed, a.hop_size, a.n_fft,
             angle=None if noise_angle is None else noise_angle.contiguous(),
         )
-        return torch.cat([harmonics, noise[:, None, :]], dim=1)
+        parts = [harmonics, noise[:, None, :]]
+        if pack_energy is not None:
+            B, L = pack_energy.shape
+            parts.append(pack_energy[:, None, :].to(harmonics.dtype))
+            npad = pack_width - (harmonics.shape[1] + 2)
+            if npad > 0:
+                parts.append(harmonics.new_zeros((B, npad, L)))
+        return torch.cat(parts, dim=1)
 
     def infer(self, content: torch.Tensor, f0: torch.Tensor, energy: torch.Tensor,
               seed: int, noise_angle: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -10,17 +10,23 @@ inverse of the transposes in `tinyvc_tpu/utils/torch_compat.py`:
 - depthwise conv kernel ``[K, 1, C]``  -> weight ``[C, 1, K]``
 - full conv kernel ``[K, in, out]``    -> weight ``[out, in, K]``
 - ``bias``, ``gamma``, ``beta``        -> unchanged
+
+The fused U-Net (`ops/fused_filternet.py`) takes the FilterNet's weights in
+the packed layouts of `tinyvc_tpu/ops/pallas/filter_stage.py`;
+:func:`pack_filter_net` builds them from the port's own modules.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import dataclasses
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from ..config import AudioConfig, DecoderConfig, EncoderConfig
-from ..models.decoder import Decoder
+from ..models.decoder import Decoder, Downsample, FilterNet, Upsample
+from ..models.layers import Conv1d
 from ..models.encoder import Encoder
 
 
@@ -85,3 +91,79 @@ def decoder_from_jax(tree: Mapping[str, Any], cfg: DecoderConfig = DecoderConfig
     model = Decoder(cfg, audio)
     model.load_state_dict(state_dict_from_jax(tree), strict=True)
     return model.eval()
+
+
+# ---------------------------------------------------------------------------
+# packed weights of the fused U-Net
+# ---------------------------------------------------------------------------
+
+
+def conv_weights_t(conv: Conv1d) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A conv's weight ``[Co, Cin, K]`` -> ``[Co, K*Cin]`` tap-major and its
+    bias -> ``[Co, 1]`` (`filter_stage.py::_conv_weights_t`)."""
+    w = conv.weight.detach()
+    return (w.permute(0, 2, 1).reshape(w.shape[0], -1).contiguous(),
+            conv.bias.detach()[:, None].clone())
+
+
+def upsample_params_to_tuple(up: Upsample) -> Tuple[torch.Tensor, ...]:
+    """(wconv ``[4, C, 3C]``, bconv ``[4, C, 1]``, wfilm ``[4C, C]``, bfilm
+    ``[4C, 1]``, w5 ``[Co, C]``, b5 ``[Co, 1]``) of an Upsample
+    (`filter_stage.py::upsample_params_to_tuple`)."""
+    convs = [conv_weights_t(getattr(up, n)) for n in ("c1", "c2", "c3", "c4")]
+    films = [up.film1.to_scale, up.film1.to_shift, up.film2.to_scale, up.film2.to_shift]
+    return (
+        torch.stack([w for w, _ in convs]).contiguous(),
+        torch.stack([b for _, b in convs]).contiguous(),
+        torch.cat([f.weight.detach() for f in films]).contiguous(),
+        torch.cat([f.bias.detach() for f in films])[:, None].contiguous(),
+        up.c5.weight.detach().clone(),
+        up.c5.bias.detach()[:, None].clone(),
+    )
+
+
+def downsample_params_to_tuple(down: Downsample) -> Tuple[torch.Tensor, ...]:
+    """(wres ``[Co, Cin]``, bres, w1, b1, w2, b2, w3, b3) of a Downsample
+    (`filter_stage.py::downsample_params_to_tuple`)."""
+    out = [down.down_res.weight.detach().clone(), down.down_res.bias.detach()[:, None].clone()]
+    for name in ("c1", "c2", "c3"):
+        out.extend(conv_weights_t(getattr(down, name)))
+    return tuple(out)
+
+
+def fold_output_conv(w5: torch.Tensor, b5: torch.Tensor, output_layer: Conv1d):
+    """Fold the k-tap output conv into the last up stage's 1x1
+    (`fused_filternet.py:286-296`): ``w5c = w_out @ w5`` ``[k, C]``,
+    ``b5c = w_out @ b5`` ``[k, 1]`` and ``bout`` ``[1, 1]``."""
+    w_out = output_layer.weight.detach()[0].T  # [k, Co]
+    return ((w_out @ w5).contiguous(), (w_out @ b5).contiguous(),
+            output_layer.bias.detach().reshape(1, 1).clone())
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedFilterWeights:
+    """A FilterNet's weights in the fused U-Net's layouts, on its device."""
+
+    stem: Tuple[torch.Tensor, torch.Tensor]  # [Cs, 3*pack_width], [Cs, 1]
+    down: Tuple[Tuple[torch.Tensor, ...], ...]  # per Downsample
+    up: Tuple[Tuple[torch.Tensor, ...], ...]  # per Upsample; the last one folded
+
+
+def pack_filter_net(net: FilterNet, pack_width: int) -> FusedFilterWeights:
+    """Pack ``net``'s weights for `ops/fused_filternet.py`. The stem's input
+    columns are zero-padded from its true channel count to ``pack_width``,
+    the zero rows `models/decoder.py::Decoder.dsp` appends (as
+    `filter_stage.py::fused_conv3_t` pads them)."""
+    with torch.no_grad():
+        w0, b0 = conv_weights_t(net.down_0)
+        co, cin = w0.shape[0], net.down_0.weight.shape[1]
+        if pack_width < cin:
+            raise ValueError(f"pack_width {pack_width} < the stem's {cin} channels")
+        w0 = torch.nn.functional.pad(w0.reshape(co, 3, cin), (0, pack_width - cin))
+        down = tuple(downsample_params_to_tuple(getattr(net, f"down_{i + 1}"))
+                     for i in range(net.num_down))
+        up = [upsample_params_to_tuple(getattr(net, f"up_{i}")) for i in range(net.num_up)]
+        wconv, bconv, wfilm, bfilm, w5, b5 = up[-1]
+        up[-1] = (wconv, bconv, wfilm, bfilm, *fold_output_conv(w5, b5, net.output_layer))
+        return FusedFilterWeights((w0.reshape(co, 3 * pack_width).contiguous(), b0),
+                                  down, tuple(up))
