@@ -7,26 +7,38 @@ Phases, each timed; any failure exits non-zero:
 
 1. env: Python, torch and CUDA versions, ``nvcc --version``, and the card's
    name and power limit from ``nvidia-smi``.
-2. build: the CUDA kernels of `tinyvc_tpu_torch/kernels/csrc/` with one
-   ``nvcc`` call.
+2. build: the CUDA kernels of `tinyvc_tpu_torch/kernels/csrc/`, one ``nvcc``
+   per source, all started together, and one link.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the conversion path's shapes (B=1, F=320 frames, L=153,600 samples) and at
    a ragged shape (B=3 or 2, F=37), with kernel, plain and library times
    (CUDA events, median of 25 after warm-up) and the bound from bytes and
    FLOPs. The fused U-Net's kernels (C at its five up stages, D, E, F) run
-   every stage's shapes with the two-speaker decoder's weights; their row
-   sums the stages of one request.
+   every stage's shapes with the two-speaker decoder's weights, in fp32 and
+   in bf16; their rows sum the stages of one request. The spectrogram
+   kernel G runs at the serving profile's B=8 (it runs only at B*F >= 2048),
+   the kNN kernel H at B=1 and B=8 against the 2048-row dictionary (and a
+   ragged B=2, F=37 against 300 rows).
 4. convert: ``VoiceConverter`` on CUDA with the two-speaker weights and kNN
-   index, answering three requests (the 6 s demo utterance cold, warm, then
-   a batch of 4) with the default config, so the fused U-Net; every
+   index. The fp32 default config answers three requests (the 6 s demo
+   utterance cold, warm, then a batch of 4), so the fused U-Net; every
    kernel's launch counter must rise; the output must be finite, as long as
    the input, within ``WAVE_ATOL`` of the same request on the CPU (fused
    too, ``use_fused_filter="on"``), and within ``MEL_L1_BOUND`` of the
    demo's converted rendition. The card's distance to its own
    layer-by-layer U-Net (``"off"``) is printed, not gated: the two differ
-   near the utterance's ends by design.
-5. profile: warm request latency at B=1 and B=4 and, from ``torch.profiler``,
-   the device time of one request by kernel group and the device's idle share.
+   near the utterance's ends by design. Then ``serving_config()`` answers
+   B=1 (kernel H runs, the spectrogram is the FFT's) and B=8 (kernel G
+   runs too): the bf16 launch counters of C-F and those of G and H must
+   rise, G's must stay 0 at B=1; each request's stages are held to the
+   CPU's serving functions on the card's own input to each stage
+   (spectrogram, kNN, SourceNet, U-Net; ``SERVING_STAGE_RTOL``), and the
+   output to the CPU's serving output, to the card's fp32 output
+   (``SERVING_MEL_L1_BOUND``) and to the converted rendition. With two or
+   more cards, one request runs on the last card while card 0 is current.
+5. profile: warm request latency at B=1 and B=4 (fp32) and at B=1 and B=8
+   (serving) and, from ``torch.profiler``, the device time of one request
+   by kernel group and the device's idle share.
 
 The last two lines are one JSON object of per-kernel numbers and the
 ``{"ok": true, "device": ...}`` result. Needs CUDA and the rest of the repo;
@@ -64,8 +76,23 @@ PITCH_SHIFT = 11.99  # the demo's own setting (demo/two_speaker/README.md)
 #     terms in another order than cuDNN's (TF32 off on both sides), through
 #     three (E) or four (F) convs, FiLM products and residual adds; the H100
 #     showed at most 7.4e-7 of the peak (1.55e-6 at peak 2.08).
-KERNEL_TOL = {"oscillator": 1e-2, "noise": 1e-5, "upsample": 1e-6, "downsample": 1e-6}
-CHAIN_RTOL = {"down_chain": 1e-5, "up_chain": 1e-5}
+#  C, D in bf16: two products of bf16 values (exact in fp32), one fp32 sum,
+#     one rounding to bf16, the same on both sides: bit-exact.
+#  E, F in bf16 (relative to the peak): bf16 operands summed in fp32 in
+#     another order than cuDNN's; an intermediate that straddles a bf16
+#     rounding boundary moves one bf16 step, and the outputs are stored in
+#     bf16: one bf16 step (2**-8) at the peak.
+#  G: 1920-term fp32 DFT sums in another order than cuBLAS's (which splits
+#     the sum at some shapes): 5e-6 of the peak (the H100 showed 1.4e-6).
+#  H: fp32 similarities in another order than cuBLAS's may reorder a near
+#     tie: neighbours must agree except where the plain version's
+#     similarities of the two choices differ by under KNN_TIE; where they
+#     agree, the mean of the same bf16 rows in the same order: 1e-6.
+KERNEL_TOL = {"oscillator": 1e-2, "noise": 1e-5, "upsample": 1e-6, "downsample": 1e-6,
+              "upsample_bf16": 0.0, "downsample_bf16": 0.0, "knn": 1e-6}
+CHAIN_RTOL = {"down_chain": 1e-5, "up_chain": 1e-5, "down_chain_bf16": 2.0**-8,
+              "up_chain_bf16": 2.0**-8, "spectrogram": 5e-6}
+KNN_TIE = 1e-5
 # Whole conversion, card against CPU and port against JAX (the CPU tests hold
 # the port to the same bound): kernel A's phase is closer to the float64
 # truth than the fp32 plain version (by up to ~7e-3 at amplitude 3), and the
@@ -73,12 +100,39 @@ CHAIN_RTOL = {"down_chain": 1e-5, "up_chain": 1e-5}
 # (~0.5).
 WAVE_ATOL = 1e-3
 # Log-mel L1 of the port's 6 s output against demo/two_speaker/
-# converted_A_to_B.wav. The CPU test measures the port there (0.354 to 0.357
-# over noise seeds 0-3); the source itself is 2.46 away.
+# converted_A_to_B.wav. The CPU test measures the port there: 0.2426 with
+# seed 0, which draws the rendition's own noise stream (JAX's PRNGKey(0));
+# 0.354 to 0.357 with other noise; the source itself is 2.46 away.
 MEL_L1_BOUND = 0.40
+# Log-mel L1 of the serving profile's 6 s output against the fp32 profile's,
+# both on the card. The JAX package's own serving output is 0.0906 from its
+# fp32 output on this demo (tests/test_torch_serving.py measures both
+# packages on the CPU); its 0.03 ceiling (tests/test_mixed_precision.py)
+# holds for random weights on noise, not for these weights on speech.
+SERVING_MEL_L1_BOUND = 0.09
+# Stages of a serving request on the card, each against the CPU's serving
+# function on the card's own input to that stage, relative to the CPU
+# output's peak (log-mel distances cannot tell a bf16 function from the fp32
+# one). The spectrogram and the kNN stages: G's and H's kernel tolerances
+# above, which the fp32 rfft and retrieval would break. SourceNet's
+# amplitudes and noise filter: bf16 products summed in another order than
+# the CPU's (cuBLAS may split the sums at B=8's 2560 frames); a rounding that
+# flips one bf16 step carries through the later ConvNeXt layers and the fp32
+# heads: two bf16 steps (2**-7); the H100 showed at most 3.3e-3, and the fp32
+# SourceNet is 1.0e-2 to 2.5e-2 away, so each must also be nearer the CPU's
+# bf16 SourceNet than its fp32 one. The fused U-Net's waveform (row 0) is
+# chaotic in bf16: its source is rounded to bf16 on entry, and on the CPU a
+# 1e-6 relative perturbation of the source moves the output by 9.5e-3 of the
+# peak, the fp32 U-Net is 1.1e-2 away (tests/test_torch_serving.py::
+# test_bf16_fused_unet_is_chaotic), so it cannot tell bf16 from fp32 and is
+# held to 2**-6 only (the H100 showed 1.16e-2); its kernels are held to
+# their plain versions on equal inputs in the kernels phase.
+SERVING_STAGE_RTOL = {"amps": 2.0**-7, "noise_kernel": 2.0**-7, "out": 2.0**-6}
+SERVING_STAGE_NEARER_BF16 = ("amps", "noise_kernel")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 
 
 def _phase(name: str):
@@ -108,9 +162,13 @@ def _cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _bound(nbytes: float, flops: float):
+def _bound(nbytes: float, flops: float, peak: float = FP32_FLOPS, fp32_flops: float = 0.0):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations' time, ``flops`` over ``peak`` plus
+    ``fp32_flops`` (work that stays fp32 beside bf16 products) over the
+    fp32 peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = (flops / peak + fp32_flops / FP32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -295,6 +353,8 @@ def phase_kernels() -> dict:
                                                   mode="linear", align_corners=False)),
     )
     phase_unet_kernels(results, rng, dev)
+    phase_unet_kernels(results, rng, dev, bf16=True)
+    phase_gh_kernels(results, rng, dev)
     for r in results.values():
         r["bound_ms"], r["bound_by"] = r.pop("bound")
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -312,11 +372,14 @@ def _sum_bounds(bounds):
     return sum(by.values()), max(by, key=by.get)
 
 
-def phase_unet_kernels(results: dict, rng, dev) -> None:
+def phase_unet_kernels(results: dict, rng, dev, bf16: bool = False) -> None:
     """Kernels D, E, F, and C at the U-Net's up stages, each call of one
     fused U-Net request against its plain version, with the two-speaker
     decoder's packed weights and N(0, 0.25) activations: at B=1, F=320 (timed,
-    summed into one row per kernel) and at a ragged B=2, F=37."""
+    summed into one row per kernel) and at a ragged B=2, F=37. With ``bf16``,
+    the serving profile's forms: bf16 activations, the up chains storing bf16
+    but for the folded last one; rows ``<name>_bf16``, bounded by the bf16
+    tensor-core peak where the products could use it."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -336,15 +399,20 @@ def phase_unet_kernels(results: dict, rng, dev) -> None:
     pack = n_src + 1 + (-(n_src + 1)) % 8
     w = fused_weights(dec.filter_net, pack)
     chans, facs = list(cfg.filter_channels), list(cfg.filter_factors)
-    acc = {k: dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bounds=[])
-           for k in ("upsample", "downsample", "down_chain", "up_chain")}
+    sfx = "_bf16" if bf16 else ""
+    dt = torch.bfloat16 if bf16 else torch.float32
+    isz = 2 if bf16 else 4  # bytes of an activation
+    mm_peak = BF16_FLOPS if bf16 else FP32_FLOPS
+    names = ("upsample", "downsample", "down_chain", "up_chain")
+    acc = {k + sfx: dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bounds=[]) for k in names}
 
     def randn(*shape):
-        return torch.from_numpy((0.5 * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+        return torch.from_numpy((0.5 * rng.standard_normal(shape)).astype(np.float32)).to(dev, dt)
 
     def check(name, case, kernel, plain, tol, relative, timed, bound, library=None):
+        name += sfx
         with exact_fp32():
-            got, want = kernel(), plain()
+            got, want = kernel().float(), plain().float()
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             peak = float(want.abs().max())
@@ -380,15 +448,16 @@ def phase_unet_kernels(results: dict, rng, dev) -> None:
         cs = w.stem[0].shape[0]
         check("down_chain", f"stem B={B} [{pack}({n_src + 1}) -> {cs}, {L}]",
               lambda: fs.conv3(x, *w.stem), lambda: fs.conv3_plain(x, *w.stem),
-              CHAIN_RTOL["down_chain"], True, timed,
-              _bound(4 * (x.numel() + B * cs * L), 2.0 * B * L * cs * 3 * (n_src + 1)))
+              CHAIN_RTOL["down_chain" + sfx], True, timed,
+              _bound(isz * (x.numel() + B * cs * L), 2.0 * B * L * cs * 3 * (n_src + 1),
+                     mm_peak))
         T = L
         for cin, f, wd in zip(reversed(chans[1:]), reversed(facs[1:]), w.down):
             xin = randn(B * cin, T)
             check("downsample", f"B*C={B * cin} T={T} /{f}",
                   lambda: downsample_linear(xin, f), lambda: downsample_linear_plain(xin, f),
-                  KERNEL_TOL["downsample"], False, timed,
-                  _bound(4 * (xin.numel() + xin.numel() // f),
+                  KERNEL_TOL["downsample" + sfx], False, timed,
+                  _bound(isz * (xin.numel() + xin.numel() // f),
                          0.0 if f % 2 else 3.0 * xin.numel() // f),
                   library=decimate_lib(xin, f))
             T //= f
@@ -396,49 +465,199 @@ def phase_unet_kernels(results: dict, rng, dev) -> None:
             co = wd[0].shape[0]
             check("down_chain", f"B={B} [{cin} -> {co}, {T}]",
                   lambda: fs.downsample_chain(z, *wd), lambda: fs.downsample_chain_plain(z, *wd),
-                  CHAIN_RTOL["down_chain"], True, timed,
-                  _bound(4 * B * T * (cin + co), 2.0 * B * T * (6 * cin * cin + 4 * cin * co)))
+                  CHAIN_RTOL["down_chain" + sfx], True, timed,
+                  _bound(isz * B * T * (cin + co), 2.0 * B * T * (6 * cin * cin + 4 * cin * co),
+                         mm_peak))
         Tx = F_
         for i, (c, f, wu) in enumerate(zip(chans, facs, w.up)):
             xin = randn(B * c, Tx)
             check("upsample", f"B*C={B * c} T={Tx} x{f}",
                   lambda: upsample_linear(xin, f), lambda: upsample_linear_plain(xin, f),
-                  KERNEL_TOL["upsample"], False, timed,
-                  _bound(4 * xin.numel() * (1 + f), 5.0 * xin.numel() * f),
+                  KERNEL_TOL["upsample" + sfx], False, timed,
+                  _bound(isz * xin.numel() * (1 + f), 5.0 * xin.numel() * f),
                   library=lambda: F.interpolate(xin[:, None], scale_factor=f, mode="linear",
                                                 align_corners=False))
             Tx *= f
             xu, cond = randn(B, c, Tx), randn(B, c, Tx)
             fold = i == len(chans) - 1
             co = 1 if fold else wu[4].shape[0]
-            kw = dict(fold_k=wu[4].shape[0], bout=wu[6]) if fold else {}
+            kw = dict(fold_k=wu[4].shape[0], bout=wu[6]) if fold else dict(out_dtype=dt)
+            osz = 4 if fold else isz
             ww = wu[:6]
             # four k=3 convs and the two FiLMs' [4C, C] product: 32 C^2 per
-            # sample; the output 1x1 (or the folded k=7 conv) 2 * Co' * C
+            # sample, and the output 1x1's 2 * Co' * C, at the products' peak;
+            # the folded k=7 conv's 2 * 7 * C, fp32 in either profile, at the
+            # fp32 peak
+            k5 = wu[4].shape[0]
+            out_flops = 2.0 * B * Tx * k5 * c
             check("up_chain", f"B={B} [{c} -> {co}{' folded' if fold else ''}, {Tx}]",
                   lambda: fs.upsample_chain(xu, cond, *ww, **kw),
                   lambda: fs.upsample_chain_plain(xu, cond, *ww, **kw),
-                  CHAIN_RTOL["up_chain"], True, timed,
-                  _bound(4 * B * Tx * (2 * c + co),
-                         B * Tx * (32.0 * c * c + 2.0 * wu[4].shape[0] * c)))
+                  CHAIN_RTOL["up_chain" + sfx], True, timed,
+                  _bound(isz * B * Tx * 2 * c + osz * B * Tx * co,
+                         B * Tx * 32.0 * c * c + (0.0 if fold else out_flops), mm_peak,
+                         fp32_flops=out_flops if fold else 0.0))
 
-    up = results["upsample"]
-    a = acc["upsample"]
-    up.update(max_abs_err=max(up["max_abs_err"], a["err"]), ms=up["ms"] + a["ms"],
-              plain_ms=up["plain_ms"] + a["plain"], library_ms=up["library_ms"] + a["lib"],
-              bound=_sum_bounds([up["bound"]] + a["bounds"]))
     kernels_dir = "tinyvc_tpu_torch/kernels/csrc"
-    for name, source, replaces, lib in (
-        ("downsample", "resample.cu", "tinyvc_tpu/ops/pallas/resample.py:198", True),
-        ("down_chain", "filter_stage.cu", "tinyvc_tpu/ops/pallas/filter_stage.py:595", False),
-        ("up_chain", "filter_stage.cu", "tinyvc_tpu/ops/pallas/filter_stage.py:354", False),
-    ):
-        a = acc[name]
-        results[name] = dict(
-            name=name, route="cuda", source=f"{kernels_dir}/{source}", replaces=replaces,
+    a = acc["upsample" + sfx]
+    if not bf16:
+        up = results["upsample"]
+        up.update(max_abs_err=max(up["max_abs_err"], a["err"]), ms=up["ms"] + a["ms"],
+                  plain_ms=up["plain_ms"] + a["plain"], library_ms=up["library_ms"] + a["lib"],
+                  bound=_sum_bounds([up["bound"]] + a["bounds"]))
+    rows = [("downsample", "resample.cu", "tinyvc_tpu/ops/pallas/resample.py:198", True),
+            ("down_chain", "filter_stage.cu", "tinyvc_tpu/ops/pallas/filter_stage.py:595", False),
+            ("up_chain", "filter_stage.cu", "tinyvc_tpu/ops/pallas/filter_stage.py:354", False)]
+    if bf16:
+        rows.insert(0, ("upsample", "resample.cu", "tinyvc_tpu/ops/pallas/resample.py:180", True))
+    for name, source, replaces, lib in rows:
+        a = acc[name + sfx]
+        results[name + sfx] = dict(
+            name=name + sfx, route="cuda", source=f"{kernels_dir}/{source}", replaces=replaces,
             max_abs_err=a["err"], ms=a["ms"], plain_ms=a["plain"],
             bound=_sum_bounds(a["bounds"]), library_ms=a["lib"] if lib else None,
         )
+
+
+def _demo_wave(B: int):
+    """The 6 s demo utterance, ``B`` times, each copy shifted by 480*b
+    samples (a circular roll), ``[B, 153600]`` fp32 numpy."""
+    import numpy as np
+
+    from tinyvc_tpu_torch.utils.audio_io import load_audio
+
+    wave = load_audio(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"))
+    return np.stack([np.roll(wave, 480 * b) for b in range(B)])
+
+
+def phase_gh_kernels(results: dict, rng, dev) -> None:
+    """Kernel G at the serving profile's B=8 (and a ragged B=2, F=37), and
+    kernel H at B=1 (timed) and B=8 against the 2048-row dictionary, cos,
+    at B=1 with IP and L2 and alpha 0.5, and at a ragged B=2, F=37 against
+    300 rows."""
+    import numpy as np
+    import torch
+
+    from tinyvc_tpu_torch.dsp.padding import pad_to_bucket
+    from tinyvc_tpu_torch.dsp.stft import spectrogram as fft_spectrogram
+    from tinyvc_tpu_torch.infer.generator import exact_fp32
+    from tinyvc_tpu_torch.kernels import knn
+    from tinyvc_tpu_torch.kernels import spectrogram as sp
+    from tinyvc_tpu_torch.ops.retrieval import match_features
+    from tinyvc_tpu_torch.utils.weights import load_index
+
+    n_fft, hop, bins = 1920, 480, 961
+    with exact_fp32():
+        errs = []
+        for B, F_ in ((8, 320), (2, 37)):
+            # the request as the converter pads it (F=320), or its first 37 frames
+            x = torch.from_numpy(pad_to_bucket(_demo_wave(B), hop)[0][:, :F_ * hop].copy()).to(dev)
+            got, want = sp.spectrogram(x), sp.spectrogram_plain(x)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            peak = float(want.abs().max())
+            tol = CHAIN_RTOL["spectrogram"] * peak
+            lib_err = float((got - fft_spectrogram(x)).abs().max())
+            print(f"  spectrogram B={B} F={F_}: max_abs_err {err:.3e} (tolerance {tol:.3e} = "
+                  f"{CHAIN_RTOL['spectrogram']:.0e} x peak {peak:.3f}); torch.fft vs kernel "
+                  f"{lib_err:.3e}")
+            _check(err <= tol, f"spectrogram B={B}: error {err} > {tol}")
+            errs.append(err)
+            if B == 8:
+                main_g = x
+        x = main_g
+        B, L = x.shape
+        frames = B * (L // hop)
+        results["spectrogram"] = dict(
+            name="spectrogram", route="cuda", source="tinyvc_tpu_torch/kernels/csrc/spectrogram.cu",
+            replaces="tinyvc_tpu/ops/pallas/spectrogram.py:165", max_abs_err=max(errs),
+            ms=_cuda_ms(lambda: sp.spectrogram(x)),
+            plain_ms=_cuda_ms(lambda: sp.spectrogram_plain(x)),
+            # the work an FFT-based spectrogram needs, not the kernel's DFT
+            # product: per frame the window (1 per sample), a real FFT
+            # (2.5 n log2 n, half a complex FFT's 5 n log2 n) and the magnitude
+            # (two products, an add and a square root per bin); bytes: the wave
+            # in once, the magnitudes out once
+            bound=_bound(4 * (x.numel() + frames * bins),
+                         frames * (n_fft + 2.5 * n_fft * math.log2(n_fft) + 4 * bins)),
+            library_ms=_cuda_ms(lambda: fft_spectrogram(x)),
+        )
+
+        ref = torch.from_numpy(load_index(os.path.join(ROOT, "models", "two_speaker",
+                                                       "index_B.npy"))).to(dev)
+        N, C = ref.shape
+        errs = []
+        # the last case is ragged: 37 frames, a 300-row slice of the dictionary
+        for B, F_, n, metric, alpha in ((1, 320, N, "cos", 0.0), (8, 320, N, "cos", 0.0),
+                                        (1, 320, N, "IP", 0.5), (1, 320, N, "L2", 0.5),
+                                        (2, 37, 300, "cos", 0.5)):
+            # content-like frames: dictionary rows plus noise
+            dic = ref[:n]
+            pick = torch.from_numpy(rng.integers(0, n, (B, F_))).to(dev)
+            noise = torch.from_numpy(rng.standard_normal((B, F_, C)).astype(np.float32)).to(dev)
+            src = (dic[pick] + 0.05 * noise).contiguous()
+            got, gi = knn.match_features_knn(src, dic, metric=metric, alpha=alpha,
+                                             return_indices=True)
+            want, wi = knn.match_features_knn_plain(src, dic, metric=metric, alpha=alpha,
+                                                    return_indices=True)
+            torch.cuda.synchronize()
+            errs.append(_check_knn(f"knn {metric} alpha={alpha} B={B} F={F_} N={n}", src, dic,
+                                   metric, got, gi, want, wi))
+            if B == 1 and metric == "cos" and n == N:
+                main_h = src
+        src = main_h
+        R = src.shape[0] * src.shape[1]
+        # the wrapper prepares a dictionary once (kernels/knn.py::
+        # prepared_dictionary); the row's times are those of a prepared one
+        print(f"  knn: dictionary preparation, once per dictionary, "
+              f"{_cuda_ms(lambda: knn._dictionary(ref, 'cos')):.4f} ms")
+        results["knn"] = dict(
+            name="knn", route="cuda", source="tinyvc_tpu_torch/kernels/csrc/knn.cu",
+            replaces="tinyvc_tpu/ops/pallas/knn.py:104", max_abs_err=max(errs),
+            ms=_cuda_ms(lambda: knn.match_features_knn(src, ref)),
+            plain_ms=_cuda_ms(lambda: knn.match_features_knn_plain(src, ref)),
+            # the [R, C] x [C, N] similarity product; bytes: source and
+            # dictionary in, matched frames out
+            bound=_bound(4 * (2 * R * C + N * C), 2.0 * R * N * C),
+            library_ms=_cuda_ms(lambda: match_features(src, ref)),
+        )
+        src8 = torch.from_numpy(rng.standard_normal((8, 320, C)).astype(np.float32)).to(dev)
+        src8 = (ref[torch.from_numpy(rng.integers(0, N, (8, 320))).to(dev)] + 0.05 * src8)
+        print(f"  knn B=8: kernel {_cuda_ms(lambda: knn.match_features_knn(src8, ref)):.4f} ms, "
+              f"library {_cuda_ms(lambda: match_features(src8, ref)):.4f} ms, bound "
+              f"{_bound(4 * (2 * 8 * 320 * C + N * C), 2.0 * 8 * 320 * N * C)[0]:.4f} ms")
+
+
+def _check_knn(label: str, src, dic, metric: str, got, gi, want, wi) -> float:
+    """Kernel H's output ``got`` and neighbours ``gi`` against its plain
+    version's ``want``, ``wi`` on the same ``src`` and dictionary ``dic``:
+    the neighbours agree but on frames where the plain similarities of the
+    two choices differ by under ``KNN_TIE`` (a reordered near tie), and on
+    the frames where they agree the outputs agree within
+    ``KERNEL_TOL["knn"]``. Compared on the CPU; returns the error."""
+    import torch
+
+    src, dic, got, gi, want, wi = (t.cpu() for t in (src, dic, got, gi, want, wi))
+    same = (gi == wi).all(-1)
+    if not bool(same.all()):
+        xs = src.float()
+        if metric == "cos":
+            xs = xs / (xs.norm(dim=-1, keepdim=True) + 1e-6)
+        rs = dic / (dic.norm(dim=-1, keepdim=True) + 1e-6) if metric == "cos" else dic
+        sims = torch.matmul(xs, rs.T)
+        if metric == "L2":
+            sims = 2.0 * sims - (dic * dic).sum(-1)
+        gap = (sims.gather(-1, gi).sort(-1).values
+               - sims.gather(-1, wi).sort(-1).values).abs()[~same]
+        print(f"  {label}: {int((~same).sum())} of {same.numel()} frames pick other "
+              f"neighbours, similarity gap {float(gap.max()):.3e}")
+        _check(float(gap.max()) < KNN_TIE, f"{label}: neighbours differ by "
+               f"{float(gap.max())} in similarity")
+    err = float((got - want).abs()[same].max())
+    print(f"  {label}: neighbours equal on {float(same.float().mean()):.4f} of frames, "
+          f"max_abs_err {err:.3e} (tolerance {KERNEL_TOL['knn']:.0e})")
+    _check(err <= KERNEL_TOL["knn"], f"{label}: error {err}")
+    return err
 
 
 def phase_convert(card: str) -> dict:
@@ -524,7 +743,192 @@ def phase_convert(card: str) -> dict:
         "down_chain": launches["conv3"] + launches["downsample_chain"],
         "up_chain": launches["upsample_chain"],
     }
-    return launches, (vc, target, wave)
+    serving_launches, serving, serving_b8 = phase_convert_serving(card, enc, dec, index, target,
+                                                                  wave, outs[1])
+    launches.update(serving_launches)
+    phase_second_device(enc, dec, index, wave, outs[1], serving_b8)
+    return launches, (vc, target, wave), serving
+
+
+def phase_convert_serving(card: str, enc, dec, index, target, wave, fp32_out):
+    """``serving_config()`` on the card: B=1 (kernel H, the FFT spectrogram)
+    then B=8 (kernel G too); returns the launches of that run for G, H and
+    the bf16 forms of C-F, the converter and its B=8 output."""
+    import numpy as np
+    import torch
+
+    from tinyvc_tpu_torch.config import DecoderConfig, TinyVCConfig, serving_config
+    from tinyvc_tpu_torch.dsp.mel import log_mel_l1
+    from tinyvc_tpu_torch.infer.generator import VoiceConverter
+    from tinyvc_tpu_torch.kernels.filter_stage import conv3, downsample_chain, upsample_chain
+    from tinyvc_tpu_torch.kernels.knn import match_features_knn
+    from tinyvc_tpu_torch.kernels.resample import downsample_linear, upsample_linear
+    from tinyvc_tpu_torch.kernels.spectrogram import spectrogram
+    from tinyvc_tpu_torch.utils.audio_io import load_audio
+    from tinyvc_tpu_torch.utils.weights import decoder_from_jax
+
+    demo = os.path.join(ROOT, "demo", "two_speaker")
+    seconds = wave.shape[0] / 24000.0
+    vc = VoiceConverter(enc, dec, cfg=serving_config(), device="cuda")
+    bf16_wrappers = (upsample_linear, downsample_linear, conv3, downsample_chain, upsample_chain)
+    for w in bf16_wrappers + (spectrogram, match_features_knn):
+        w.launches = 0
+    for w in bf16_wrappers:
+        w.launches_bf16 = 0
+    outs, stages = {}, {1: {}, 8: {}}
+    for B in (1, 8):
+        x = wave if B == 1 else _demo_wave(B)
+        t0 = time.perf_counter()
+        out = vc.convert(x, target, PITCH_SHIFT, seed=SEED, stages=stages[B])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"  serving request B={B} (cold): {dt * 1e3:.1f} ms, "
+              f"{B * seconds / dt:.1f} audio-s/s ({card})")
+        _check(out.shape == x.shape, f"serving output shape {out.shape} != input {x.shape}")
+        _check(bool(np.isfinite(out).all()), "non-finite serving output")
+        outs[B] = out
+        if B == 1:
+            _check(spectrogram.launches == 0, "kernel G ran at B*F = 320 < 2048")
+    launches = {w.__name__: w.launches_bf16 for w in bf16_wrappers}
+    launches.update(spectrogram=spectrogram.launches, knn=match_features_knn.launches)
+    print(f"  launches during the two serving requests: {launches}")
+    for name, n in launches.items():
+        _check(n > 0, f"{name} was not launched on the serving path")
+    # the batch's rows are the demo rolled by 480*b samples: row 0 is the demo;
+    # it differs from B=1 by G's spectrogram against the FFT's, carried
+    # through bf16 roundings, so each request is held stage by stage instead
+    b1 = outs[1]
+    print(f"  serving B=8 row 0 vs B=1 (not gated): max |diff| "
+          f"{float(np.abs(outs[8][0] - b1).max()):.3e}")
+    cpu_decs = {name: (decoder_from_jax(dec, dcfg, vc.cfg.audio), dcfg)
+                for name, dcfg in (("bf16", DecoderConfig(compute_dtype="bfloat16",
+                                                          use_fused_filter="on")),
+                                   ("fp32", DecoderConfig(use_fused_filter="on")))}
+    for B in (1, 8):
+        _check_serving_stages(f"serving B={B}", stages[B], vc.cfg, target, index, cpu_decs)
+
+    # the same request on the CPU: fused too, the spectrogram kernel's plain
+    # version is not on this path (B*F < 2048), kNN's is
+    cfg_cpu = serving_config()
+    cfg_cpu = TinyVCConfig(decoder=DecoderConfig(compute_dtype="bfloat16",
+                                                 use_fused_filter="on"),
+                           audio=cfg_cpu.audio, retrieval=cfg_cpu.retrieval)
+    cpu = VoiceConverter(enc, dec, cfg=cfg_cpu, device="cpu").convert(
+        wave, index, PITCH_SHIFT, seed=SEED)
+    mel_cpu = log_mel_l1(torch.from_numpy(b1), torch.from_numpy(cpu))
+    print(f"  serving card vs CPU (both fused): log-mel L1 {mel_cpu:.4f} (bound "
+          f"{SERVING_MEL_L1_BOUND}), max |diff| {float(np.abs(b1 - cpu).max()):.3e}")
+    _check(mel_cpu < SERVING_MEL_L1_BOUND, f"serving card vs CPU log-mel L1 {mel_cpu}")
+    mel_fp32 = log_mel_l1(torch.from_numpy(b1), torch.from_numpy(fp32_out))
+    print(f"  serving vs fp32 on the card: log-mel L1 {mel_fp32:.4f} (bound "
+          f"{SERVING_MEL_L1_BOUND}), max |diff| {float(np.abs(b1 - fp32_out).max()):.3e}")
+    _check(mel_fp32 < SERVING_MEL_L1_BOUND, f"serving vs fp32 log-mel L1 {mel_fp32}")
+    mel_conv = log_mel_l1(torch.from_numpy(b1),
+                          torch.from_numpy(load_audio(os.path.join(demo, "converted_A_to_B.wav"))))
+    print(f"  serving log-mel L1 vs converted_A_to_B.wav {mel_conv:.4f} (bound {MEL_L1_BOUND})")
+    _check(mel_conv < MEL_L1_BOUND, f"serving log-mel L1 {mel_conv} >= {MEL_L1_BOUND}")
+    return {
+        "upsample_bf16": launches["upsample_linear"],
+        "downsample_bf16": launches["downsample_linear"],
+        "down_chain_bf16": launches["conv3"] + launches["downsample_chain"],
+        "up_chain_bf16": launches["upsample_chain"],
+        "spectrogram": launches["spectrogram"],
+        "knn": launches["knn"],
+    }, vc, outs[8]
+
+
+def _check_serving_stages(label: str, st: dict, cfg, target, index, cpu_decs: dict) -> None:
+    """One serving request's stages ``st`` (``VoiceConverter.convert``'s
+    ``stages``), each against the CPU on the card's own input to it: the
+    spectrogram against the FFT's on the card (kernel G's tolerance), the
+    matched frames against kernel H's plain version (H's rules), SourceNet
+    and the fused U-Net (row 0) against ``cpu_decs``' bf16 and fp32
+    decoders (``SERVING_STAGE_RTOL``; SourceNet also nearer bf16). Prints
+    every comparison before it checks any."""
+    import torch
+
+    from tinyvc_tpu_torch.dsp.stft import spectrogram as fft_spectrogram
+    from tinyvc_tpu_torch.kernels import knn
+    from tinyvc_tpu_torch.ops.fused_filternet import filternet_fused_apply
+
+    a, r = cfg.audio, cfg.retrieval
+    failed = []
+    with torch.inference_mode():
+        want = fft_spectrogram(st["input"], a.n_fft, a.hop_size)
+        err, peak = float((st["spec"] - want).abs().max()), float(want.abs().max())
+        tol = CHAIN_RTOL["spectrogram"] * peak
+        print(f"  {label} spectrogram vs the FFT's: max_abs_err {err:.3e} (tolerance "
+              f"{tol:.3e} = {CHAIN_RTOL['spectrogram']:.0e} x peak {peak:.3f})")
+        if err > tol:
+            failed.append(f"spectrogram {err}")
+
+        # the path's matched frames are kernel H's; its neighbours come from
+        # one more call on the same input, after the launches were counted
+        again, gi = knn.match_features_knn(st["content"], target, r.k, r.alpha, r.metric,
+                                           return_indices=True)
+        if not torch.equal(again, st["matched"]):
+            failed.append("matched frames are not kernel H's output")
+        ref = torch.from_numpy(index)
+        want, wi = knn.match_features_knn_plain(st["content"].cpu(), ref, r.k, r.alpha,
+                                                r.metric, return_indices=True)
+        _check_knn(f"{label} knn vs plain on the CPU", st["content"], ref, r.metric,
+                   st["matched"], gi, want, wi)
+
+        ins = [st[k].cpu() for k in ("matched", "f0", "energy")]
+        src = st["source"][:1].cpu()
+        n_src, L = src.shape[1:]
+        pack = n_src + 1 + (-(n_src + 1)) % 8
+        packed = torch.cat([src, ins[2][:1, None], src.new_zeros((1, pack - n_src - 1, L))], 1)
+        cpu = {}
+        for name, (d, dcfg) in cpu_decs.items():
+            amps, kern = d.source_net(*ins)
+            out = filternet_fused_apply(d.filter_net, dcfg, ins[0][:1], ins[1][:1],
+                                        ins[2][:1], packed)
+            cpu[name] = dict(amps=amps, noise_kernel=kern, out=out)
+        card = dict(amps=st["amps"], noise_kernel=st["noise_kernel"], out=st["out"][:1])
+        for key, got in card.items():
+            got = got.float().cpu()
+            rel = {n: float((got - v[key]).abs().max() / v[key].abs().max())
+                   for n, v in cpu.items()}
+            rms = {n: float((got - v[key]).square().mean().sqrt() / v[key].square().mean().sqrt())
+                   for n, v in cpu.items()}
+            tol = SERVING_STAGE_RTOL[key]
+            print(f"  {label} {key}{' (row 0)' if key == 'out' else ''}: card vs CPU bf16 "
+                  f"{rel['bf16']:.3e} of the peak (tolerance {tol:.3e}), rms {rms['bf16']:.3e}; "
+                  f"vs CPU fp32 {rel['fp32']:.3e}, rms {rms['fp32']:.3e}")
+            nearer = key not in SERVING_STAGE_NEARER_BF16 or rel["bf16"] < rel["fp32"]
+            if not rel["bf16"] <= tol or not nearer:
+                failed.append(f"{key} {rel}")
+    _check(not failed, f"{label} stages: {failed}")
+
+
+def phase_second_device(enc, dec, index, wave, fp32_out, serving_b8_out) -> None:
+    """With two or more cards: the fp32 B=1 request and the serving B=8
+    request (every kernel, A-H) on the last card while card 0 is current,
+    each held to card 0's output: every launch must run under its tensor's
+    device, on that device's stream."""
+    import numpy as np
+    import torch
+
+    from tinyvc_tpu_torch.config import serving_config
+    from tinyvc_tpu_torch.infer.generator import VoiceConverter
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"  second-device check: not applicable, {n} card")
+        return
+    torch.cuda.set_device(0)
+    dev = f"cuda:{n - 1}"
+    for cfg, x, want in ((None, wave, fp32_out), (serving_config(), _demo_wave(8), serving_b8_out)):
+        vc = VoiceConverter(enc, dec, cfg=cfg, device=dev)
+        out = vc.convert(x, torch.from_numpy(index).to(vc.device), PITCH_SHIFT, seed=SEED)
+        torch.cuda.synchronize(n - 1)
+        diff = float(np.abs(out - want).max())
+        label = "fp32 B=1" if cfg is None else "serving B=8"
+        print(f"  {label} request on {dev} with cuda:0 current: max |diff| to cuda:0 "
+              f"{diff:.3e} (tolerance {WAVE_ATOL:.0e})")
+        _check(torch.cuda.current_device() == 0, "the current device changed")
+        _check(diff <= WAVE_ATOL, f"{dev} output differs from cuda:0 by {diff}")
 
 
 # Kernel-name fragments -> group for the profile; the first match wins.
@@ -537,6 +941,8 @@ PROFILE_GROUPS = (
     ("kernel D (downsample)", ("downsample_linear_kernel",)),
     ("kernel E (stem, down chains)", ("down_chain_step",)),
     ("kernel F (up chains)", ("up_chain_step",)),
+    ("kernel G (spectrogram)", ("spectrogram_dft",)),
+    ("kernel H (kNN)", ("knn_topk", "knn_mean")),
     ("fft", ("fft",)),
     ("convolution", ("fprop", "implicit", "conv")),
     ("gemm", ("gemm",)),
@@ -552,10 +958,11 @@ def _profile_group(name: str) -> str:
     return "elementwise, reductions, device copies"
 
 
-def phase_profile(card: str, vc, target, wave, requests: int = 5) -> None:
-    """Where a warm request's time goes, at B=1 and B=4: the median host
-    latency of ``requests`` requests (each ends in a synchronise), then one
-    request under ``torch.profiler`` with its kernel time by group. Idle
+def phase_profile(card: str, vc, target, wave, batches=(1, 4), label: str = "fp32",
+                  requests: int = 5) -> None:
+    """Where a warm request's time goes, at each of ``batches``: the median
+    host latency of ``requests`` requests (each ends in a synchronise), then
+    one request under ``torch.profiler`` with its kernel time by group. Idle
     share = 1 - kernel time of the profiled request / median latency; the
     port runs on one stream, so kernels do not overlap."""
     from collections import defaultdict
@@ -564,7 +971,7 @@ def phase_profile(card: str, vc, target, wave, requests: int = 5) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for B in (1, 4):
+    for B in batches:
         x = wave if B == 1 else np.stack([wave] * B)
         audio_s = B * wave.shape[0] / 24000.0
         for _ in range(2):
@@ -576,7 +983,7 @@ def phase_profile(card: str, vc, target, wave, requests: int = 5) -> None:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         med = statistics.median(times)
-        print(f"  B={B}: warm request median {med * 1e3:.3f} ms over {requests} "
+        print(f"  {label} B={B}: warm request median {med * 1e3:.3f} ms over {requests} "
               f"(min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
               f"{audio_s / med:.2f} audio-s/s ({card})")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -590,9 +997,10 @@ def phase_profile(card: str, vc, target, wave, requests: int = 5) -> None:
                 k[1] += 1
         busy = sum(v[0] for v in kernels.values())
         if busy == 0.0:
-            print(f"  B={B}: the profiler recorded no device time; breakdown not measured")
+            print(f"  {label} B={B}: the profiler recorded no device time; breakdown not measured")
             continue
-        print(f"  B={B}: device busy {busy:.3f} ms in {sum(v[1] for v in kernels.values())} "
+        print(f"  {label} B={B}: device busy {busy:.3f} ms in "
+              f"{sum(v[1] for v in kernels.values())} "
               f"kernels, idle share {1.0 - busy / (med * 1e3):.3f}")
         groups = defaultdict(float)
         for name, (ms, _) in kernels.items():
@@ -625,15 +1033,18 @@ def main() -> int:
     kernels = phase_kernels()
     _done("kernels", t0)
     t0 = _phase("convert")
-    launches, ctx = phase_convert(card)
+    launches, ctx, serving = phase_convert(card)
     _done("convert", t0)
     t0 = _phase("profile")
     phase_profile(card, *ctx)
+    phase_profile(card, serving, *ctx[1:], batches=(1, 8), label="serving")
     _done("profile", t0)
     print(f"== total: {time.perf_counter() - t_all:.2f} s")
 
     rows = []
-    for key in ("oscillator", "noise", "upsample", "downsample", "down_chain", "up_chain"):
+    for key in ("oscillator", "noise", "upsample", "downsample", "down_chain", "up_chain",
+                "spectrogram", "knn", "upsample_bf16", "downsample_bf16", "down_chain_bf16",
+                "up_chain_bf16"):
         r = kernels[key]
         rows.append({k: r[k] for k in ("name", "route", "source", "replaces")}
                     | {"launches": launches[key]}

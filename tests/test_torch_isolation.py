@@ -1,7 +1,8 @@
 """The port stands alone and hides no fallback: `tinyvc_tpu_torch` and
 `chip_smoke.py` import nothing of JAX or `tinyvc_tpu`; the entry points refuse
 to run on a machine without CUDA unless the CPU is asked for; and the kernel
-build is the one-``nvcc`` recipe for ``sm_90a``."""
+build is one ``nvcc`` per source for ``sm_90a``, started together, and one
+link."""
 
 import os
 import subprocess
@@ -91,14 +92,19 @@ def test_cli_needs_cuda_unless_cpu_is_asked_for(tmp_path):
 def test_kernel_build_recipe():
     from tinyvc_tpu_torch.kernels import build
 
-    cmd = build.build_command(build.KERNEL_DIR / "_build" / "x" / build.LIB_NAME)
-    assert "arch=compute_90a,code=sm_90a" in cmd and "-gencode" in cmd
-    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
-    assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
+    out = build.KERNEL_DIR / "_build" / "x" / build.LIB_NAME
+    compiles, link = build.build_commands(out)
     sources = build.sources()
     assert {s.name for s in sources} == {"oscillator.cu", "noise.cu", "resample.cu",
-                                        "filter_stage.cu"}
-    assert all(str(s) in cmd for s in sources)  # one nvcc call for every kernel
+                                        "filter_stage.cu", "spectrogram.cu", "knn.cu"}
+    assert len(compiles) == len(sources)  # one nvcc call for each kernel source
+    for cmd, src in zip(compiles, sources):
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-gencode" in cmd
+        assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+        assert {"-c", "-O3", "-std=c++17"} <= set(cmd) and cmd[-1] == str(src)
+    objects = [cmd[cmd.index("-o") + 1] for cmd in compiles]
+    assert "-shared" in link and link[link.index("-o") + 1] == str(out)
+    assert link[-len(objects):] == objects
     for path in build.CSRC.iterdir():
         assert "#include <torch" not in path.read_text(), path
         assert "#include <ATen" not in path.read_text(), path

@@ -1,0 +1,436 @@
+"""The bf16 serving profile (``serving_config()``) of the port against the
+JAX package's, on the CPU with the Pallas kernels in interpret mode: the
+bf16 plain versions of kernels C-F against the JAX kernels with
+``dtype_name="bfloat16"``, SourceNet and the layer-by-layer U-Net in bf16,
+the whole ``convert_fn`` (fused U-Net, spectrogram kernel forced) at small
+widths, the gates of the spectrogram and kNN kernels, and the profile's
+deviation from fp32 on the demo against JAX's own."""
+
+import dataclasses
+import math
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from tinyvc_tpu import config as jcfg
+from tinyvc_tpu.infer.generator import convert_fn as j_convert_fn
+from tinyvc_tpu.models import Decoder as JDecoder
+from tinyvc_tpu.models import Encoder as JEncoder
+from tinyvc_tpu.models import decoder as j_decoder
+from tinyvc_tpu.ops.pallas import filter_stage as jfs
+from tinyvc_tpu.ops.pallas.resample import pallas_downsample_t, pallas_upsample_t
+from tinyvc_tpu.utils.model_store import _load_params_npz
+from tinyvc_tpu_torch import config as pcfg
+from tinyvc_tpu_torch.dsp.mel import log_mel_l1
+from tinyvc_tpu_torch.infer import generator
+from tinyvc_tpu_torch.kernels import filter_stage, knn, resample
+from tinyvc_tpu_torch.kernels import spectrogram as kernel_g
+from tinyvc_tpu_torch.models.encoder import Encoder
+from tinyvc_tpu_torch.ops.fused_filternet import filternet_fused_apply
+from tinyvc_tpu_torch.utils.audio_io import load_audio
+from tinyvc_tpu_torch.utils.weights import decoder_from_jax, encoder_from_jax, load_npz
+from torch_parity import random_params
+
+BF16 = torch.bfloat16
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODELS = os.path.join(ROOT, "models", "two_speaker")
+ENC = dict(pitch_channels=16, pitch_num_layers=2, ssl_channels=24, ssl_dilations=(1, 3),
+           ssl_dim=32)
+DEC = dict(num_harmonics=4, source_channels=16, source_num_layers=2,
+           filter_channels=(32, 16, 8, 8, 8), content_channels=32)
+
+
+def _uniform(rng, shape, fan_in):
+    b = 1.0 / np.sqrt(fan_in)
+    return rng.uniform(-b, b, shape).astype(np.float32)
+
+
+def _bf16(rng, shape, scale=0.5):
+    """numpy fp32 values that are exact in bf16, and the torch bf16 tensor."""
+    x = torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(BF16)
+    return x.float().numpy(), x
+
+
+def _jbf16(a):
+    return jnp.asarray(a).astype(jnp.bfloat16)
+
+
+def _f32(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.float32)) if not isinstance(x, torch.Tensor) \
+        else x.float().numpy()
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max()) / float(np.abs(want).max())
+
+
+# --- kernels C and D in bf16 ------------------------------------------------
+
+
+@pytest.mark.parametrize("factor", (2, 3, 4, 5))
+def test_bf16_upsample_matches_pallas(rng, factor):
+    """Two products of bf16 values (exact in fp32) summed once, rounded to
+    bf16 once, on both sides: bit for bit. The weights of f=3 and f=5 are
+    rounded to bf16 first."""
+    x, xt = _bf16(rng, (3, 321))
+    want = _f32(pallas_upsample_t(_jbf16(x[None]), factor, interpret=True))[0, :, :factor * 321]
+    got = resample.upsample_linear(xt, factor)
+    assert got.dtype == BF16
+    np.testing.assert_array_equal(_f32(got), want)
+
+
+@pytest.mark.parametrize("factor", (3, 4, 5))
+def test_bf16_downsample_matches_pallas(rng, factor):
+    x, xt = _bf16(rng, (3, 997))
+    want = _f32(pallas_downsample_t(_jbf16(x[None]), factor, interpret=True))[0, :, :997 // factor]
+    got = resample.downsample_linear(xt, factor)
+    assert got.dtype == BF16
+    np.testing.assert_array_equal(_f32(got), want)  # a pick, or 0.5 a + 0.5 b, rounded once
+
+
+# --- kernels E and F in bf16 ------------------------------------------------
+#
+# Tolerances. Both sides take bf16 operands and sum in fp32, in other
+# orders; an fp32 intermediate that lands on the other side of a bf16
+# rounding boundary moves one bf16 step (2**-8 relative) before the next
+# product, and the chains carry that on. Outputs stored in bf16 differ by a
+# step where the fp32 results straddle a boundary. Measured below: at most
+# 2**-8 of the peak; the bound is 2**-7 of the peak.
+
+BF16_CHAIN_REL = 2.0**-7
+
+
+@pytest.mark.parametrize("T", (512, 300))
+def test_bf16_stem_matches_pallas(rng, T):
+    B, n, width, Co = 2, 17, 24, 24
+    x = np.zeros((B, width, T), np.float32)
+    x[:, :n] = _bf16(rng, (B, n, T))[0]
+    w, b = _uniform(rng, (Co, 3 * n), 3 * n), 0.1 * _uniform(rng, (Co, 1), 1)
+    want = _f32(jfs.fused_conv3_t(_jbf16(x), jnp.asarray(w), jnp.asarray(b),
+                                  dtype_name="bfloat16", t_blk=256, interpret=True, w_cin=n))
+    w_packed = np.pad(w.reshape(Co, 3, n), ((0, 0), (0, 0), (0, width - n))).reshape(Co, -1)
+    got = filter_stage.conv3(torch.from_numpy(x).to(BF16), torch.from_numpy(w_packed),
+                             torch.from_numpy(b))
+    assert got.dtype == BF16
+    assert _rel(_f32(got), want) <= BF16_CHAIN_REL
+
+
+@pytest.mark.parametrize("T", (512, 300))
+def test_bf16_downsample_chain_matches_pallas(rng, T):
+    B, Cin, Co = 2, 8, 16
+    z, zt = _bf16(rng, (B, Cin, T + 7))
+    w = (_uniform(rng, (Co, Cin), Cin), 0.1 * _uniform(rng, (Co, 1), 1),
+         _uniform(rng, (Cin, 3 * Cin), 3 * Cin), 0.1 * _uniform(rng, (Cin, 1), 1),
+         _uniform(rng, (Cin, 3 * Cin), 3 * Cin), 0.1 * _uniform(rng, (Cin, 1), 1),
+         _uniform(rng, (Co, 3 * Cin), 3 * Cin), 0.1 * _uniform(rng, (Co, 1), 1))
+    want = _f32(jfs.fused_downsample_chain_t(_jbf16(z), *(jnp.asarray(a) for a in w),
+                                             dtype_name="bfloat16", t_blk=256, interpret=True,
+                                             out_len=T))
+    got = filter_stage.downsample_chain(zt, *(torch.from_numpy(a) for a in w), out_len=T)
+    assert got.dtype == BF16 and got.shape == (B, Co, T)
+    assert _rel(_f32(got), want) <= BF16_CHAIN_REL
+
+
+@pytest.mark.parametrize("fold_k,T", ((0, 512), (0, 300), (7, 512), (7, 300)))
+def test_bf16_upsample_chain_matches_pallas(rng, fold_k, T):
+    B, C, Co = 2, 8, 16
+    xu, xut = _bf16(rng, (B, C, T + 10))
+    cond, condt = _bf16(rng, (B, C, T))
+    w = [_uniform(rng, (4, C, 3 * C), 3 * C), 0.1 * _uniform(rng, (4, C, 1), 1),
+         _uniform(rng, (4 * C, C), C), 0.1 * _uniform(rng, (4 * C, 1), 1),
+         _uniform(rng, (fold_k or Co, C), C), 0.1 * _uniform(rng, (fold_k or Co, 1), 1)]
+    bout = np.full((1, 1), 0.05, np.float32) if fold_k else None
+    want = _f32(jfs.fused_upsample_chain_t(
+        _jbf16(xu), _jbf16(cond), *(jnp.asarray(a) for a in w), dtype_name="bfloat16",
+        t_blk=256, interpret=True, fold_k=fold_k,
+        bout=None if bout is None else jnp.asarray(bout)))
+    kw = dict(fold_k=fold_k, bout=None if bout is None else torch.from_numpy(bout))
+    got = filter_stage.upsample_chain(xut, condt, *(torch.from_numpy(a) for a in w), **kw)
+    assert got.dtype == torch.float32 and got.shape == (B, 1 if fold_k else Co, T)
+    assert _rel(got.numpy(), want) <= BF16_CHAIN_REL
+    if not fold_k:  # the bf16 store equals the cast of the fp32 result
+        stored = filter_stage.upsample_chain(xut, condt, *(torch.from_numpy(a) for a in w),
+                                             out_dtype=BF16)
+        np.testing.assert_array_equal(_f32(stored), _f32(got.to(BF16)))
+    assert filter_stage.upsample_chain.launches == 0
+
+
+# --- SourceNet and the layer-by-layer U-Net in bf16 -------------------------
+
+
+def _decoder_pair(dtype):
+    jc = jcfg.DecoderConfig(**DEC, use_fused_filter="off", compute_dtype=dtype)
+    dec = j_decoder.Decoder(jc, jcfg.AudioConfig())
+    F, L = 8, 8 * 480
+    params = random_params(dec, jnp.zeros((1, F, 32)), jnp.full((1, F), 100.0),
+                           jnp.zeros((1, L)), jax.random.PRNGKey(0),
+                           noise_angle=jnp.zeros((1, F, 961)))
+    return dec, params, decoder_from_jax(params, pcfg.DecoderConfig(**DEC, compute_dtype=dtype))
+
+
+def test_bf16_source_net_and_filter_net_match_jax(rng):
+    dec, params, port = _decoder_pair("bfloat16")
+    B, F = 2, 10
+    L = F * 480
+    content = rng.standard_normal((B, F, 32)).astype(np.float32)
+    f0 = rng.uniform(60, 300, (B, F)).astype(np.float32)
+    energy = rng.uniform(0, 0.5, (B, L)).astype(np.float32)
+    amps, kern = jax.jit(lambda p, c, f, e: dec.apply(
+        p, c, f, e, method=lambda m, c, f, e: m.source_net(c, f, e)))(params, content, f0, energy)
+    with torch.inference_mode():
+        got_a, got_k = port.source_net(*(torch.from_numpy(a) for a in (content, f0, energy)))
+    assert got_a.dtype == got_k.dtype == torch.float32  # the heads run fp32
+    # bf16 trunk, rounded at the places flax rounds; XLA may keep excess
+    # precision across some of them. Measured 3.4e-3 and 2.0e-3 of the peak,
+    # against 4.7e-3 and 5.5e-3 between JAX's own bf16 and fp32 trunks.
+    assert _rel(got_a.numpy(), np.asarray(amps)) <= 1e-2
+    assert _rel(got_k.numpy(), np.asarray(kern)) <= 1e-2
+    # the bf16 trunk is not the fp32 one
+    _, p32, port32 = _decoder_pair("float32")
+    with torch.inference_mode():
+        fp32_a, _ = port32.source_net(*(torch.from_numpy(a) for a in (content, f0, energy)))
+    assert _rel(fp32_a.numpy(), got_a.numpy()) > 1e-4
+
+    source = (0.3 * rng.standard_normal((B, DEC["num_harmonics"] + 2, L))).astype(np.float32)
+    want = np.asarray(jax.jit(lambda p, c, f, e, s: dec.apply(
+        p, c, f, e, s, method=lambda m, c, f, e, s: m.filter_net(
+            c, f, e, s, source_channels_first=True)))(params, content, f0, energy, source))
+    with torch.inference_mode():
+        got = port.filter_net(*(torch.from_numpy(a) for a in (content, f0, energy, source)))
+    assert got.dtype == torch.float32
+    # ten bf16 conv stages (measured 3.6e-3 of the peak)
+    assert _rel(got.numpy(), want) <= 2e-2
+
+
+def test_encoder_refuses_bf16():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Encoder(pcfg.EncoderConfig(compute_dtype="bfloat16"))
+
+
+# --- the whole slice ---------------------------------------------------------
+
+
+def _small_serving(rng, F, spectrogram_impl="pallas"):
+    def cfgs(mod, dtype):
+        return mod.TinyVCConfig(
+            audio=mod.AudioConfig(spectrogram_impl=spectrogram_impl),
+            encoder=mod.EncoderConfig(**ENC),
+            decoder=mod.DecoderConfig(**DEC, use_fused_filter="on", compute_dtype=dtype))
+
+    E = JEncoder(jcfg.EncoderConfig(**ENC))
+    jd = JDecoder(jcfg.DecoderConfig(**DEC), jcfg.AudioConfig())
+    L = F * 480
+    enc_p = random_params(E, jnp.zeros((1, F, 961)))
+    head = enc_p["params"]["pitch_estimator"]["stack"]["output_layer"]
+    head["bias"] = head["bias"] + 8.0 * np.exp(-(((np.arange(512) - 140) / 20.0) ** 2))
+    dec_p = random_params(jd, jnp.zeros((1, F, 32)), jnp.full((1, F), 100.0), jnp.zeros((1, L)),
+                          jnp.zeros((2,), jnp.uint32), noise_angle=jnp.zeros((1, F, 961)))
+    return cfgs, enc_p, dec_p
+
+
+def _jax_convert(cfg, enc_p, dec_p, wave, target, pitch, angle):
+    E, D = JEncoder(cfg.encoder), JDecoder(cfg.decoder, cfg.audio)
+    return np.asarray(jax.jit(lambda ep, dp, w, t, a: j_convert_fn(
+        E, D, ep, dp, w, t, jnp.float32(pitch), jax.random.PRNGKey(0), cfg, noise_angle=a))(
+            enc_p, dec_p, wave, target, angle))
+
+
+def _port_convert(cfg, enc_p, dec_p, wave, target, pitch, angle):
+    with torch.inference_mode(), generator.exact_fp32():
+        out = generator.convert_fn(
+            encoder_from_jax(enc_p, cfg.encoder), decoder_from_jax(dec_p, cfg.decoder, cfg.audio),
+            torch.from_numpy(wave), torch.from_numpy(target), pitch, 0, cfg,
+            noise_angle=torch.from_numpy(angle))
+    return out.numpy()
+
+
+def test_serving_convert_matches_jax(rng):
+    """``convert_fn`` under the serving profile, fused U-Net on and the
+    spectrogram kernel forced, at small widths with random weights: per
+    utterance, the port's bf16 output is no further from JAX's bf16 output,
+    in log-mel L1, than JAX's bf16 output is from JAX's own fp32 output.
+
+    Each bf16 rounding that lands on the other side of a boundary grows
+    through the oscillator and the U-Net, so two bf16 renditions of one
+    function are about as far apart as either is from fp32. Measured: port
+    to JAX bf16 0.0665 and 0.0560, JAX bf16 to JAX fp32 0.0677 and 0.0651
+    (waveform max |diff| 3.5e-3 and 4.2e-3 at a peak of 0.38); the port's
+    fp32 is 7e-5 from JAX's. The JAX package's 0.03 ceiling
+    (`tests/test_mixed_precision.py`) is not met by JAX's own bf16 output
+    on these inputs, so it is not asserted here."""
+    F = 16
+    cfgs, enc_p, dec_p = _small_serving(rng, F)
+    t = np.arange(F * 480) / 24000
+    wave = (0.3 * np.sin(2 * np.pi * rng.uniform(90, 250, (2, 1)) * t)
+            + 0.02 * rng.standard_normal((2, F * 480))).astype(np.float32)
+    target = rng.standard_normal((60, 32)).astype(np.float32)
+    angle = rng.uniform(-math.pi, math.pi, (2, F, 961)).astype(np.float32)
+    j_bf16 = _jax_convert(cfgs(jcfg, "bfloat16"), enc_p, dec_p, wave, target, 5.0, angle)
+    j_fp32 = _jax_convert(cfgs(jcfg, "float32"), enc_p, dec_p, wave, target, 5.0, angle)
+    before = (kernel_g.spectrogram.launches, knn.match_features_knn.launches)
+    got = _port_convert(cfgs(pcfg, "bfloat16"), enc_p, dec_p, wave, target, 5.0, angle)
+    assert (kernel_g.spectrogram.launches, knn.match_features_knn.launches) == before
+    assert got.shape == j_bf16.shape and np.isfinite(got).all()
+    for i in range(2):
+        port_dev = log_mel_l1(torch.from_numpy(got[i]), torch.from_numpy(j_bf16[i]))
+        jax_dev = log_mel_l1(torch.from_numpy(j_fp32[i]), torch.from_numpy(j_bf16[i]))
+        assert port_dev <= jax_dev, (i, port_dev, jax_dev)
+    # the waveform: within JAX's own bf16-to-fp32 distance, 1e-2 of the peak
+    assert np.abs(got - j_bf16).max() <= 1e-2 * np.abs(j_bf16).max()
+
+
+def test_gates_pick_the_kernels(monkeypatch):
+    """Which function each gate runs, by spies on the two kernels' entry
+    points and their XLA counterparts: G only under bf16 on CUDA tensors at
+    B*F >= 2048 (or forced), H only under bf16 with one 2-D dictionary of at
+    most 12 MiB in fp32 and ``impl != "xla"``."""
+    calls = []
+
+    def spy(name):
+        return lambda *a, **k: calls.append(name) or name
+
+    monkeypatch.setattr(generator.spectrogram_kernel, "spectrogram", spy("G"))
+    monkeypatch.setattr(generator, "spectrogram", spy("rfft"))
+    monkeypatch.setattr(generator, "match_features_knn", spy("H"))
+    monkeypatch.setattr(generator, "match_features", spy("xla"))
+
+    class Wave:  # a stand-in for a [B, L] tensor on a device
+        def __init__(self, B, F, device):
+            self.shape, self.device = (B, F * 480), torch.device(device)
+
+    serving, fp32 = pcfg.serving_config(), pcfg.TinyVCConfig()
+
+    def spec(cfg, B, F, device, impl="auto"):
+        cfg = dataclasses.replace(cfg, audio=dataclasses.replace(cfg.audio,
+                                                                 spectrogram_impl=impl))
+        return generator.serving_spectrogram(Wave(B, F, device), cfg)
+
+    assert spec(serving, 8, 256, "cuda") == "G"
+    assert spec(serving, 8, 255, "cuda") == "rfft"  # B*F = 2040 < 2048
+    assert spec(serving, 8, 256, "cpu") == "rfft"
+    assert spec(fp32, 8, 256, "cuda") == "rfft"
+    assert spec(fp32, 1, 16, "cpu", "pallas") == "G"
+    assert spec(serving, 8, 256, "cuda", "xla") == "rfft"
+    with pytest.raises(ValueError):
+        spec(serving, 1, 16, "cpu", "fast")
+
+    content = torch.zeros(1, 4, 768)
+
+    def match(cfg, target, impl="auto"):
+        cfg = dataclasses.replace(cfg, retrieval=dataclasses.replace(cfg.retrieval, impl=impl))
+        return generator.serving_match_features(content, target, cfg)
+
+    assert match(serving, torch.zeros(4096, 768)) == "H"  # 12 MiB exactly
+    assert match(serving, torch.zeros(4097, 768)) == "xla"
+    assert match(serving, torch.zeros(2, 16, 768)) == "xla"  # one dictionary per row
+    assert match(serving, torch.zeros(16, 768), "xla") == "xla"
+    assert match(fp32, torch.zeros(16, 768)) == "xla"
+
+
+def test_serving_deviation_on_the_demo_is_below_jax_own():
+    """The serving profile's log-mel L1 from the fp32 profile on the 6 s demo,
+    with one explicit noise angle: JAX's (layer-by-layer U-Net on the CPU)
+    and the port's fused U-Net, the card's path, in its plain versions.
+    `chip_smoke.py` holds the card's serving output to
+    ``SERVING_MEL_L1_BOUND``, no looser than JAX's own deviation measured
+    here (0.0906; the port's is 0.0537): the JAX package's 0.03 ceiling
+    (`tests/test_mixed_precision.py`) holds for its random weights on
+    noise, not for these weights on speech."""
+    wave = load_audio(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"))[None]
+    F = wave.shape[1] // 480
+    angle = np.random.default_rng(0).uniform(-math.pi, math.pi, (1, F, 961)).astype(np.float32)
+    index = np.load(os.path.join(MODELS, "index_B.npy")).astype(np.float32)
+    enc_j, dec_j = (_load_params_npz(os.path.join(MODELS, f"{n}_B.npz"))
+                    for n in ("encoder", "decoder"))
+    enc_p, dec_p = (load_npz(os.path.join(MODELS, f"{n}_B.npz")) for n in ("encoder", "decoder"))
+    j = [_jax_convert(c, enc_j, dec_j, wave, index, chip_smoke.PITCH_SHIFT, angle)[0]
+         for c in (jcfg.TinyVCConfig(), jcfg.serving_config())]
+    fused = pcfg.DecoderConfig(use_fused_filter="on")
+    p = [_port_convert(pcfg.TinyVCConfig(decoder=dataclasses.replace(fused, compute_dtype=dt)),
+                       enc_p, dec_p, wave, index, chip_smoke.PITCH_SHIFT, angle)[0]
+         for dt in ("float32", "bfloat16")]
+    jax_dev = log_mel_l1(torch.from_numpy(j[0]), torch.from_numpy(j[1]))
+    port_dev = log_mel_l1(torch.from_numpy(p[0]), torch.from_numpy(p[1]))
+    assert chip_smoke.SERVING_MEL_L1_BOUND <= jax_dev, jax_dev
+    assert port_dev <= chip_smoke.SERVING_MEL_L1_BOUND, (port_dev, jax_dev)
+
+
+def test_chip_smoke_stage_checks_run_on_cpu(rng):
+    """`chip_smoke.py::_check_serving_stages` on a small serving request on
+    the CPU (the spectrogram kernel forced, kernel H by its gate, both in
+    their plain versions): every stage is then the CPU's own, so it passes
+    with the spectrogram and kNN stages equal, and the bf16 stages nearer
+    the bf16 decoder than the fp32 one. Also: both U-Net branches record
+    SourceNet's amplitudes in ``stages``."""
+    F = 16
+    cfgs, enc_p, dec_p = _small_serving(rng, F)
+    cfg = cfgs(pcfg, "bfloat16")
+    t = np.arange(F * 480) / 24000
+    wave = (0.3 * np.sin(2 * np.pi * 140.0 * t)
+            + 0.02 * rng.standard_normal(F * 480)).astype(np.float32)
+    index = rng.standard_normal((60, 32)).astype(np.float32)
+    target = torch.from_numpy(index)
+    vc = generator.VoiceConverter(enc_p, dec_p, cfg=cfg, device="cpu")
+    st = {}
+    out = vc.convert(wave, target, 5.0, seed=0, stages=st)
+    assert out.shape == wave.shape and st["out"].shape[0] == 1
+    assert st["amps"].dtype == torch.float32  # the heads run fp32
+    cpu_decs = {name: (decoder_from_jax(dec_p, d, cfg.audio), d)
+                for name, d in (("bf16", cfg.decoder),
+                                ("fp32", dataclasses.replace(cfg.decoder,
+                                                             compute_dtype="float32")))}
+    chip_smoke._check_serving_stages("cpu", st, vc.cfg, target, index, cpu_decs)
+
+    off = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder,
+                                                               use_fused_filter="off"))
+    st_off = {}
+    generator.VoiceConverter(enc_p, dec_p, cfg=off, device="cpu").convert(
+        wave, target, 5.0, seed=0, stages=st_off)
+    assert torch.equal(st_off["amps"], st["amps"])
+    assert torch.equal(st_off["source"], st["source"])
+
+
+def test_bf16_fused_unet_is_chaotic():
+    """Why `chip_smoke.py` holds the serving U-Net's waveform only to
+    ``SERVING_STAGE_RTOL["out"]`` and does not ask it to be nearer bf16 than
+    fp32: with the two-speaker weights on a 1 s crop of the demo (CPU,
+    fused plain versions), a 1e-6 relative perturbation of the source moves
+    the bf16 U-Net's output by 9.5e-3 of its peak, about as far as the fp32
+    U-Net is from it (1.1e-2; both vary a little with the CPU's thread
+    count): the source is rounded to bf16 on entry, so the function is
+    defined only to that spread."""
+    wave = load_audio(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"))[24000:48000]
+    index = np.load(os.path.join(MODELS, "index_B.npy")).astype(np.float32)
+    enc_p, dec_p = (load_npz(os.path.join(MODELS, f"{n}_B.npz")) for n in ("encoder", "decoder"))
+    cfg = pcfg.serving_config()
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder,
+                                                               use_fused_filter="on"))
+    st = {}
+    generator.VoiceConverter(enc_p, dec_p, cfg=cfg, device="cpu").convert(
+        wave, torch.from_numpy(index), chip_smoke.PITCH_SHIFT, seed=chip_smoke.SEED, stages=st)
+    src, energy = st["source"], st["energy"]
+    n_src, L = src.shape[1:]
+    pack = n_src + 1 + (-(n_src + 1)) % 8
+
+    def unet(dcfg, source):
+        d = decoder_from_jax(dec_p, dcfg, cfg.audio)
+        packed = torch.cat([source, energy[:, None], source.new_zeros((1, pack - n_src - 1, L))],
+                           1)
+        with torch.inference_mode():
+            return filternet_fused_apply(d.filter_net, dcfg, st["matched"], st["f0"], energy,
+                                         packed)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    base = unet(cfg.decoder, src)
+    noise = torch.randn(src.shape, generator=torch.Generator().manual_seed(0))
+    moved = rel(unet(cfg.decoder, src * (1.0 + 1e-6 * noise)), base)
+    fp32 = rel(unet(dataclasses.replace(cfg.decoder, compute_dtype="float32"), src), base)
+    assert 0.5 * fp32 < moved <= chip_smoke.SERVING_STAGE_RTOL["out"], (moved, fp32)
+    assert fp32 <= chip_smoke.SERVING_STAGE_RTOL["out"], fp32

@@ -80,8 +80,9 @@ def test_full_utterance_log_mel_against_demo(weights):
     ref = torch.from_numpy(load_audio(os.path.join(DEMO, "converted_A_to_B.wav")))
     mel_conv = log_mel_l1(torch.from_numpy(out), ref)
     mel_src = log_mel_l1(torch.from_numpy(out), torch.from_numpy(source))
-    # measured on the CPU: 0.3538 against the JAX rendition (the TPU's fused
-    # serving path, another noise stream), 2.457 against the source
+    # measured on the CPU: 0.2426 against the JAX rendition (the TPU's fused
+    # path; seed 0 now draws the noise of its default PRNGKey(0), where the
+    # port's own hash seed 0 gave 0.3538), 2.457 against the source
     assert mel_conv < chip_smoke.MEL_L1_BOUND, mel_conv
-    assert abs(mel_conv - 0.3538) < 0.01, mel_conv
+    assert abs(mel_conv - 0.2426) < 0.01, mel_conv
     assert mel_src > 2.0, mel_src

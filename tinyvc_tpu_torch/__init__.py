@@ -6,6 +6,6 @@ imports torch, numpy and scipy only; `tinyvc_tpu` stays the reference and is
 never imported here.
 """
 
-from .config import TinyVCConfig
+from .config import TinyVCConfig, serving_config
 
-__all__ = ["TinyVCConfig"]
+__all__ = ["TinyVCConfig", "serving_config"]

@@ -3,9 +3,17 @@
 Counterpart of `tinyvc_tpu/config.py`: the same dataclasses with the same
 defaults, copied rather than imported so that this package never reads the
 JAX package. Only the fields the whole-utterance conversion path reads are
-kept; the TPU lowering switches (``use_pallas``, ``conv_impl``,
-``spectrogram_impl``, ...) have no counterpart here, because this package
-picks its kernels from the device of the tensors it is given.
+kept; most TPU lowering switches (``use_pallas``, ``conv_impl``, ...) have
+no counterpart here, because this package picks its kernels from the device
+of the tensors it is given.
+
+``compute_dtype`` ("float32" | "bfloat16") keeps the JAX package's meaning;
+:func:`serving_config` runs the decoder in bf16 and keeps the encoder, and
+so the kNN feature space, in fp32. ``AudioConfig.spectrogram_impl`` and
+``RetrievalConfig.impl`` keep the JAX spellings, so one config dict reads
+the same in both packages: "pallas" means the hand-written spectrogram
+kernel G here (`kernels/spectrogram.py`), and "auto" picks it, and the kNN
+kernel H, by the JAX package's gates (`infer/generator.py`).
 
 ``DecoderConfig.use_fused_filter`` keeps the JAX package's meaning:
 "auto" runs the fused U-Net (`ops/fused_filternet.py`, kernels C-F) when the
@@ -26,6 +34,7 @@ class AudioConfig:
     n_fft: int = 1920
     hop_size: int = 480  # 20 ms -> 50 frames/s
     energy_frame_size: int = 64
+    spectrogram_impl: str = "auto"  # 'auto' | 'pallas' (kernel G) | 'xla' (torch.fft)
 
     @property
     def fft_bin(self) -> int:
@@ -43,6 +52,7 @@ class EncoderConfig:
     ssl_channels: int = 384
     ssl_dilations: Tuple[int, ...] = (1, 3, 9, 1, 1, 1)
     ssl_dim: int = 768
+    compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +65,7 @@ class DecoderConfig:
     filter_factors: Tuple[int, ...] = (2, 3, 4, 4, 5)
     content_channels: int = 768
     use_fused_filter: str = "auto"  # 'auto' | 'on' | 'off'
+    compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +73,7 @@ class RetrievalConfig:
     k: int = 4
     alpha: float = 0.0
     metric: str = "cos"  # 'cos' | 'IP' | 'L2'
+    impl: str = "auto"  # 'auto' (kernel H where its gate holds) | 'xla' (ops/retrieval.py)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,3 +82,10 @@ class TinyVCConfig:
     encoder: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
     decoder: DecoderConfig = dataclasses.field(default_factory=DecoderConfig)
     retrieval: RetrievalConfig = dataclasses.field(default_factory=RetrievalConfig)
+
+
+def serving_config() -> TinyVCConfig:
+    """The recommended inference profile (`tinyvc_tpu/config.py:252-258`):
+    the encoder, and so the kNN feature space, in fp32; the decoder's
+    SourceNet and U-Net in bf16."""
+    return TinyVCConfig(decoder=DecoderConfig(compute_dtype="bfloat16"))

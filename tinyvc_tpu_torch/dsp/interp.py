@@ -48,20 +48,25 @@ def _tent_weights(f: int) -> np.ndarray:
 def upsample_time_int_t(x: torch.Tensor, factor: int) -> torch.Tensor:
     """``[..., T]`` -> ``[..., T*factor]``: integer-factor linear upsampling
     (the tent filter of `tinyvc_tpu/dsp/interp.py::upsample_time_int_t`)
-    with the edge clamp."""
+    with the edge clamp. A bf16 ``x`` gets bf16-rounded weights, as the JAX
+    function casts its kernel to ``x.dtype``; the products (exact) and the
+    sum are fp32, the result bf16."""
     if factor == 1:
         return x
-    w = torch.from_numpy(_tent_weights(factor)).to(x.device, x.dtype)
+    w = torch.from_numpy(_tent_weights(factor)).to(x.device)
+    out_dtype = x.dtype
+    if x.dtype == torch.bfloat16:
+        w, x = w.to(torch.bfloat16).float(), x.float()
     prev = torch.cat([x[..., :1], x[..., :-1]], dim=-1)[..., None]
     nxt = torch.cat([x[..., 1:], x[..., -1:]], dim=-1)[..., None]
     y = prev * w[0] + x[..., None] * w[1] + nxt * w[2]
-    return y.reshape(*x.shape[:-1], x.shape[-1] * factor)
+    return y.reshape(*x.shape[:-1], x.shape[-1] * factor).to(out_dtype)
 
 
 def downsample_time_int_t(x: torch.Tensor, factor: int) -> torch.Tensor:
     """``[..., T]`` -> ``[..., T//factor]``: integer-factor linear
     downsampling (centre sample for odd factors, mean of the two centre
-    samples for even ones)."""
+    samples for even ones, in fp32 for a bf16 ``x``)."""
     if factor == 1:
         return x
     T = x.shape[-1] // factor
@@ -69,4 +74,5 @@ def downsample_time_int_t(x: torch.Tensor, factor: int) -> torch.Tensor:
     if factor % 2:
         return blocks[..., (factor - 1) // 2]
     c = factor // 2 - 1
-    return blocks[..., c] * 0.5 + blocks[..., c + 1] * 0.5
+    a, b = blocks[..., c].float(), blocks[..., c + 1].float()
+    return (a * 0.5 + b * 0.5).to(x.dtype)

@@ -1,10 +1,16 @@
 """Whole-utterance conversion (counterpart of `tinyvc_tpu/infer/generator.py`).
 
-``convert_fn`` is the pipeline: spectrogram -> encoder -> kNN match -> pitch
-shift -> decoder (:func:`decode_infer`), with the energy estimate alongside.
+``convert_fn`` is the pipeline: spectrogram (:func:`serving_spectrogram`)
+-> encoder -> kNN match (:func:`serving_match_features`) -> pitch shift ->
+decoder (:func:`decode_infer`), with the energy estimate alongside.
 ``VoiceConverter`` holds the weights on one device and pads each request to
 its 64-frame bucket, as the JAX package does (the padding changes the GRN
 statistics, so it is part of the result).
+
+Profiles: ``TinyVCConfig()`` is fp32 throughout; ``serving_config()`` runs
+the decoder in bf16 (SourceNet's dense and ConvNeXt layers, the U-Net and
+its resamples, kernels C-F in bf16) and, by the JAX package's gates, the
+spectrogram kernel G and the kNN kernel H.
 
 Numerics: the JAX package's fp32 profile is exact fp32, so every
 convolution and matmul here runs with TF32 off (see :func:`exact_fp32`).
@@ -23,31 +29,78 @@ from ..dsp.energy import estimate_energy
 from ..dsp.padding import autopad_waveform, pad_to_bucket
 from ..dsp.pitch import shift_frequency
 from ..dsp.stft import spectrogram
+from ..kernels import spectrogram as spectrogram_kernel
+from ..kernels.knn import match_features_knn
 from ..models.decoder import Decoder
 from ..models.encoder import Encoder
 from ..ops.fused_filternet import filternet_fused_apply
 from ..ops.retrieval import match_features
+from ..utils.prng import kernel_b_seed
 from ..utils.weights import decoder_from_jax, encoder_from_jax
+
+KNN_KERNEL_MAX_BYTES = 12 * 2**20  # the JAX gate: the fp32 dictionary fits VMEM
 
 
 @contextlib.contextmanager
 def exact_fp32():
-    """Run cuDNN convolutions and CUDA matmuls in full fp32 (TF32 off) for
-    the duration, restoring the matmul flag afterwards. TF32 keeps ~3
-    decimal digits, enough to flip kNN neighbours."""
+    """Run cuDNN convolutions and CUDA matmuls in full fp32 (TF32 off), and
+    bf16 matmuls with fp32 reductions, for the duration, restoring the
+    matmul flags afterwards. TF32 keeps ~3 decimal digits, enough to flip
+    kNN neighbours."""
+    matmul = torch.backends.cuda.matmul
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        prev = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
+        prev = matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction
+        matmul.allow_tf32 = False
+        matmul.allow_bf16_reduced_precision_reduction = False
         try:
             yield
         finally:
-            torch.backends.cuda.matmul.allow_tf32 = prev
+            matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction = prev
+
+
+def serving_spectrogram(wave: torch.Tensor, cfg: TinyVCConfig) -> torch.Tensor:
+    """The spectrogram of the serving path (`tinyvc_tpu/infer/generator.py
+    ::serving_spectrogram`): ``cfg.audio.spectrogram_impl`` "pallas" takes
+    kernel G (its plain version on CPU tensors), "xla" the fp32 rfft of
+    `dsp/stft.py`; "auto" takes kernel G under the bf16 decoder, on CUDA
+    tensors, at ``B*F >= 2048`` frames, where the JAX package takes its
+    kernel (under bf16, off the CPU backend, at the same size)."""
+    impl = cfg.audio.spectrogram_impl
+    if impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"spectrogram_impl must be 'auto', 'pallas' or 'xla', got {impl!r}")
+    B, F = wave.shape[0], wave.shape[1] // cfg.audio.hop_size
+    if impl == "auto":
+        use_kernel = (cfg.decoder.compute_dtype == "bfloat16" and wave.device.type == "cuda"
+                      and B * F >= 2048)
+    else:
+        use_kernel = impl == "pallas"
+    fn = spectrogram_kernel.spectrogram if use_kernel else spectrogram
+    return fn(wave, cfg.audio.n_fft, cfg.audio.hop_size)
+
+
+def serving_match_features(content: torch.Tensor, target: torch.Tensor,
+                           cfg: TinyVCConfig) -> torch.Tensor:
+    """kNN matching of the serving path (`tinyvc_tpu/infer/generator.py
+    ::serving_match_features`): kernel H (`kernels/knn.py`, a mean of
+    bf16-rounded dictionary rows) when ``cfg.retrieval.impl`` is not "xla",
+    the dictionary is one 2-D ``[N, C]`` of at most 12 MiB in fp32 and the
+    decoder runs in bf16; else the fp32 `ops/retrieval.py`. The gate decides
+    which function runs, as in the JAX package."""
+    r = cfg.retrieval
+    if r.impl not in ("auto", "xla"):
+        raise ValueError(f"retrieval impl must be 'auto' or 'xla', got {r.impl!r}")
+    use_kernel = (r.impl != "xla" and target.dim() == 2
+                  and target.shape[0] * target.shape[1] * 4 <= KNN_KERNEL_MAX_BYTES
+                  and cfg.decoder.compute_dtype == "bfloat16")
+    if use_kernel:
+        return match_features_knn(content, target, k=r.k, alpha=r.alpha, metric=r.metric)
+    return match_features(content, target, k=r.k, alpha=r.alpha, metric=r.metric)
 
 
 def encode_fn(encoder: Encoder, wave: torch.Tensor, cfg: TinyVCConfig):
     """wave ``[B, L]`` -> (content ``[B, F, C]``, f0 ``[B, F]``)."""
     wave = autopad_waveform(wave, cfg.audio.hop_size)
-    spec = spectrogram(wave, cfg.audio.n_fft, cfg.audio.hop_size)
+    spec = serving_spectrogram(wave, cfg)
     return encoder.infer(spec)
 
 
@@ -56,7 +109,7 @@ def decode_infer(
     content: torch.Tensor,
     f0: torch.Tensor,
     energy: torch.Tensor,
-    seed: int,
+    noise_seed: int,
     cfg: TinyVCConfig,
     noise_angle: Optional[torch.Tensor] = None,
     stages: Optional[Dict[str, torch.Tensor]] = None,
@@ -65,23 +118,26 @@ def decode_infer(
     ``cfg.decoder.use_fused_filter``: "on", or "auto" on CUDA tensors, runs
     the fused U-Net (`ops/fused_filternet.py`, kernels C-F) on the packed
     source; "off", or "auto" on CPU tensors, the layer-by-layer
-    :class:`FilterNet`. ``stages`` receives the source ``[B, H+2, L]``."""
+    :class:`FilterNet`. ``noise_seed`` is kernel B's int32 seed itself
+    (:meth:`VoiceConverter.convert` derives it from the JAX key).
+    ``stages`` receives SourceNet's harmonic amplitudes ``amps`` and noise
+    filter ``noise_kernel`` and the source ``[B, H+2, L]``."""
     flag = cfg.decoder.use_fused_filter
     if flag not in ("auto", "on", "off"):
         raise ValueError(f"use_fused_filter must be 'auto', 'on' or 'off', got {flag!r}")
     use_fused = flag == "on" or (flag == "auto" and energy.device.type == "cuda")
     n_src = cfg.decoder.num_harmonics + 2  # harmonics + noise
+    amps, kernel = decoder.source_net(content, f0, energy)
     if use_fused:
         pack_width = n_src + 1 + (-(n_src + 1)) % 8
-        amps, kernel = decoder.source_net(content, f0, energy)
-        source = decoder.dsp(f0, amps, kernel, seed, noise_angle,
+        source = decoder.dsp(f0, amps, kernel, noise_seed, noise_angle,
                              pack_energy=energy, pack_width=pack_width)
         out = filternet_fused_apply(decoder.filter_net, cfg.decoder, content, f0, energy, source)
     else:
-        source = decoder.infer_source(content, f0, energy, seed, noise_angle)
+        source = decoder.dsp(f0, amps, kernel, noise_seed, noise_angle)
         out = decoder.filter_net(content, f0, energy, source)
     if stages is not None:
-        stages["source"] = source[:, :n_src]
+        stages.update(amps=amps, noise_kernel=kernel, source=source[:, :n_src])
     return out
 
 
@@ -91,7 +147,7 @@ def convert_fn(
     wave: torch.Tensor,
     target: torch.Tensor,
     pitch_shift: float,
-    seed: int,
+    noise_seed: int,
     cfg: TinyVCConfig,
     noise_angle: Optional[torch.Tensor] = None,
     stages: Optional[Dict[str, torch.Tensor]] = None,
@@ -99,19 +155,20 @@ def convert_fn(
     """``[B, L]`` waveforms and a ``[N, C]`` (or ``[B, N, C]``) dictionary ->
     converted ``[B, L']`` with L' = L rounded up to a whole frame.
 
-    ``seed`` seeds the hashed noise phases; ``noise_angle`` ``[B, F, bins]``
-    replaces them. ``stages``, when given, receives the intermediate tensors
-    (spec, content, f0, matched, energy, source) for inspection."""
+    ``noise_seed`` is kernel B's int32 seed of the hashed noise phases;
+    ``noise_angle`` ``[B, F, bins]`` replaces them. ``stages``, when given,
+    receives the intermediate tensors (the frame-padded input, spec, content,
+    f0, matched, energy, amps, noise_kernel, source, out) for inspection."""
     wave = autopad_waveform(wave, cfg.audio.hop_size)
-    spec = spectrogram(wave, cfg.audio.n_fft, cfg.audio.hop_size)
+    spec = serving_spectrogram(wave, cfg)
     energy = estimate_energy(wave, cfg.audio.energy_frame_size)
     content, f0 = encoder.infer(spec)
-    r = cfg.retrieval
-    matched = match_features(content, target, k=r.k, alpha=r.alpha, metric=r.metric)
+    matched = serving_match_features(content, target, cfg)
     f0 = shift_frequency(f0, pitch_shift)
-    out = decode_infer(decoder, matched, f0, energy, seed, cfg, noise_angle, stages)
+    out = decode_infer(decoder, matched, f0, energy, noise_seed, cfg, noise_angle, stages)
     if stages is not None:
-        stages.update(spec=spec, content=content, f0=f0, matched=matched, energy=energy)
+        stages.update(input=wave, spec=spec, content=content, f0=f0, matched=matched,
+                      energy=energy, out=out)
     return out
 
 
@@ -174,17 +231,29 @@ class VoiceConverter:
         target: np.ndarray | torch.Tensor,
         pitch_shift: float = 0.0,
         seed: int = 0,
+        stages: Optional[Dict[str, torch.Tensor]] = None,
     ) -> np.ndarray:
         """``[B, L]`` or ``[L]`` waveform -> converted waveform of the same
-        shape. ``seed`` (an int) seeds the noise phases. ``target`` is the
-        ``[N, C]`` dictionary; pass it as a tensor on this converter's device
-        (as :meth:`build_dictionary` returns it) to keep it from being copied
-        there with every request."""
+        shape. ``target`` is the ``[N, C]`` dictionary; pass it as a tensor
+        on this converter's device (as :meth:`build_dictionary` returns it)
+        to keep it from being copied there with every request.
+
+        ``seed`` means what ``key=jax.random.PRNGKey(seed)`` means to the
+        JAX package's ``VoiceConverter.convert`` (whose default key is
+        ``PRNGKey(0)``): kernel B gets the int32 ``jax.random.randint(key,
+        (), 0, int32 max)`` that the JAX decoder draws for its noise kernel
+        (`tinyvc_tpu/models/decoder.py:427-429`), computed here without JAX
+        for threefry2x32 keys with ``jax_threefry_partitionable`` on and x64
+        off (`utils/prng.py::kernel_b_seed`). So ``convert(seed=s)`` draws the
+        noise that the JAX package draws on the TPU with ``PRNGKey(s)``.
+
+        ``stages``, when given, receives :func:`convert_fn`'s intermediate
+        tensors of the bucket-padded request, on the device."""
         squeeze = np.asarray(wave).ndim == 1
         x, L = self._padded(wave)
         target = torch.as_tensor(target, dtype=torch.float32).to(self.device)
         with exact_fp32():
             out = convert_fn(self.encoder, self.decoder, x, target, float(pitch_shift),
-                             int(seed), self.cfg)
+                             kernel_b_seed(seed), self.cfg, stages=stages)
         out = out[:, :L].cpu().numpy()
         return out[0] if squeeze else out

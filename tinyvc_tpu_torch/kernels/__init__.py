@@ -14,8 +14,14 @@
 - F, `filter_stage.py`: the U-Net's Upsample chains, the last with the
   output conv folded in
   (replaces `tinyvc_tpu/ops/pallas/filter_stage.py::fused_upsample_chain_t`)
+- G, `spectrogram.py`: the magnitude spectrogram as a windowed DFT product
+  (replaces `tinyvc_tpu/ops/pallas/spectrogram.py::pallas_spectrogram`)
+- H, `knn.py`: kNN matching against one dictionary, with the mean of its
+  bf16-rounded rows
+  (replaces `tinyvc_tpu/ops/pallas/knn.py::pallas_match_features`)
 
-Each wrapper takes its plain version for tensors on the CPU and launches its
-kernel for CUDA tensors, or raises. `build.py` compiles `csrc/*.cu` with one
-``nvcc`` call at first use.
+C-F also take bf16 tensors, the serving profile's forms. Each wrapper takes
+its plain version for tensors on the CPU and launches its kernel for CUDA
+tensors, or raises. `build.py` compiles `csrc/*.cu` at first use, one
+``nvcc`` per source, and launches every kernel under its tensor's device.
 """

@@ -1,10 +1,13 @@
-"""Build and load the CUDA kernels of `csrc/`.
+"""Build, load and launch the CUDA kernels of `csrc/`.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` file for ``sm_90a`` into one
-shared library with a plain C interface, at first use, into
+At first use, one ``nvcc`` per ``csrc/*.cu`` file, all started together,
+compiles each for ``sm_90a`` into an object, and one more links them into a
+shared library with a plain C interface,
 ``_build/<hash of the sources>/libtinyvc_kernels.so``. No source includes
 PyTorch's headers, so the build takes seconds; the library is loaded with
 ``ctypes`` and every pointer and the stream are passed as ``c_void_p``.
+Every wrapper launches through :func:`launch`, which runs the call under
+the tensor's device and on that device's current stream.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import List
+from typing import Iterable, List, Tuple
 
 import torch
 
@@ -26,7 +29,7 @@ BUILD_DIR = KERNEL_DIR / "_build"
 LIB_NAME = "libtinyvc_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills of each kernel
 ]
 
@@ -35,11 +38,13 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 SIGNATURES = {
     "tvc_oscillator": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "tvc_noise": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "tvc_upsample_linear": [_P, _P, _LL, _I, _I, _P],
-    "tvc_downsample_linear": [_P, _P, _LL, _I, _I, _P],
-    "tvc_conv3": [_P] * 4 + [_I] * 5 + [_P],
-    "tvc_down_chain": [_P] * 11 + [_I] * 5 + [_P],
-    "tvc_up_chain": [_P] * 11 + [_I] * 6 + [_P],
+    "tvc_upsample_linear": [_P, _P, _LL, _I, _I, _I, _P],
+    "tvc_downsample_linear": [_P, _P, _LL, _I, _I, _I, _P],
+    "tvc_conv3": [_P] * 4 + [_I] * 6 + [_P],
+    "tvc_down_chain": [_P] * 11 + [_I] * 6 + [_P],
+    "tvc_up_chain": [_P] * 11 + [_I] * 8 + [_P],
+    "tvc_spectrogram": [_P] * 4 + [_I] * 4 + [_P],
+    "tvc_knn": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
 }
 
 _lib = None
@@ -74,12 +79,20 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def build_command(out: Path, nvcc: str = "nvcc") -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *[str(s) for s in sources()]]
+def build_commands(out: Path, nvcc: str = "nvcc") -> Tuple[List[List[str]], List[str]]:
+    """(one compile command per source, the link command) for ``out``; the
+    objects go beside it."""
+    objects = [out.parent / f"{s.stem}.{os.getpid()}.o" for s in sources()]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                for s, o in zip(sources(), objects)]
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(out),
+            *[str(o) for o in objects]]
+    return compiles, link
 
 
 def build() -> Path:
-    """Compile the library unless this source hash is already built."""
+    """Compile the library unless this source hash is already built: every
+    source at once, one ``nvcc`` each, then the link."""
     global build_seconds, build_log
     out = library_path()
     if out.exists():
@@ -87,14 +100,26 @@ def build() -> Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(build_command(tmp, nvcc_path()), capture_output=True, text=True)
+    nvcc = nvcc_path()
+    compiles, link = build_commands(tmp, nvcc)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(cmd[-1], p.returncode, log) for cmd, p, log in zip(compiles, procs, logs)
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{src} (exit code {rc}):\n{log}" for src, rc, log in failed))
+    proc = subprocess.run(link, capture_output=True, text=True)
+    for cmd in compiles:
+        os.remove(cmd[cmd.index("-o") + 1])
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}{proc.stdout}"
+            f"nvcc link failed with exit code {proc.returncode}:\n{proc.stderr}{proc.stdout}"
         )
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stderr + proc.stdout
+    build_log = "".join(logs) + proc.stderr + proc.stdout
     return out
 
 
@@ -111,23 +136,28 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def check_input(name: str, t: torch.Tensor, ndim: int) -> None:
-    """Raise unless ``t`` is a contiguous float32 CUDA tensor of ``ndim`` dims."""
+def check_input(name: str, t: torch.Tensor, ndim: int,
+                dtypes: Iterable[torch.dtype] = (torch.float32,)) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``ndim`` dims and
+    of one of ``dtypes`` (the types the kernel takes; nothing is converted)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got device {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    dtypes = tuple(dtypes)
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: expected {' or '.join(map(str, dtypes))}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def check_status(rc: int, kernel: str) -> None:
+def launch(kernel: str, t: torch.Tensor, *args) -> None:
+    """Call the library's C function ``kernel`` with ``args`` (tensors are
+    passed as their data pointers) and the current stream of ``t``'s device,
+    with that device current for the call; raise on a non-zero status."""
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(t.device):
+        rc = getattr(library(), kernel)(*ptrs, torch.cuda.current_stream(t.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{kernel}: launch failed with cudaError {rc}")
 

@@ -23,12 +23,23 @@
 // C forms its weights in double and rounds them to float, as the plain
 // version's table is; C and D use explicit _rn operations in the plain
 // version's order, so kernel and plain version agree bit for bit.
+//
+// bf16 (the serving profile, tinyvc_tpu/config.py::serving_config): input
+// and output are bf16, and C's two tap weights are rounded to bf16, as the
+// TPU kernel casts its band matrix (resample.py:116) and the XLA tent conv
+// its kernel (dsp/interp.py:141-205). The rounding of the weights of f = 3
+// and 5 is part of the result. Products of two bf16 values are exact in
+// fp32; the sum is fp32, rounded to bf16 once. D's 0.5 is exact in bf16.
+// Half the bytes of fp32, so half the bound.
 
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
+
 namespace {
 
-__global__ void upsample_linear_kernel(const float* __restrict__ x, float* __restrict__ y,
+template <typename S>
+__global__ void upsample_linear_kernel(const S* __restrict__ x, S* __restrict__ y,
                                        long long total, int T, int f) {
   const long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (n >= total) return;
@@ -38,58 +49,78 @@ __global__ void upsample_linear_kernel(const float* __restrict__ x, float* __res
   const int q = i / f;
   const int j = i - q * f;
   const double a = (static_cast<double>(j) + 0.5) / f - 0.5;
-  const float w_prev = static_cast<float>(a < 0.0 ? -a : 0.0);
-  const float w_cur = static_cast<float>(1.0 - (a < 0.0 ? -a : a));
-  const float w_next = static_cast<float>(a > 0.0 ? a : 0.0);
-  const float* xr = x + r * T;
-  const float prev = xr[q > 0 ? q - 1 : 0];
-  const float nxt = xr[q + 1 < T ? q + 1 : T - 1];
-  y[n] = __fadd_rn(__fadd_rn(__fmul_rn(prev, w_prev), __fmul_rn(xr[q], w_cur)),
-                   __fmul_rn(nxt, w_next));
+  float w_prev = static_cast<float>(a < 0.0 ? -a : 0.0);
+  float w_cur = static_cast<float>(1.0 - (a < 0.0 ? -a : a));
+  float w_next = static_cast<float>(a > 0.0 ? a : 0.0);
+  if constexpr (sizeof(S) == 2) {
+    w_prev = round_bf16(w_prev);
+    w_cur = round_bf16(w_cur);
+    w_next = round_bf16(w_next);
+  }
+  const S* xr = x + r * T;
+  const float prev = to_f32(xr[q > 0 ? q - 1 : 0]);
+  const float cur = to_f32(xr[q]);
+  const float nxt = to_f32(xr[q + 1 < T ? q + 1 : T - 1]);
+  y[n] = from_f32<S>(__fadd_rn(__fadd_rn(__fmul_rn(prev, w_prev), __fmul_rn(cur, w_cur)),
+                               __fmul_rn(nxt, w_next)));
 }
 
 }  // namespace
 
-extern "C" int tvc_upsample_linear(const float* x, float* y, long long rows, int T, int f,
-                                   void* stream) {
+// x, y: fp32, or bf16 when bf16 != 0
+extern "C" int tvc_upsample_linear(const void* x, void* y, long long rows, int T, int f,
+                                   int bf16, void* stream) {
   if (rows <= 0 || T <= 0 || f <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long total = rows * T * static_cast<long long>(f);
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  upsample_linear_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(x, y, total, T, f);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    upsample_linear_kernel<<<static_cast<unsigned>(blocks), threads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), total, T, f);
+  else
+    upsample_linear_kernel<<<static_cast<unsigned>(blocks), threads, 0, st>>>(
+        static_cast<const float*>(x), static_cast<float*>(y), total, T, f);
   return static_cast<int>(cudaGetLastError());
 }
 
 namespace {
 
-__global__ void downsample_linear_kernel(const float* __restrict__ x, float* __restrict__ y,
+template <typename S>
+__global__ void downsample_linear_kernel(const S* __restrict__ x, S* __restrict__ y,
                                          long long total, int T, int f) {
   const long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (n >= total) return;
   const int out_len = T / f;
   const long long r = n / out_len;
   const int q = static_cast<int>(n - r * out_len);
-  const float* xr = x + r * T + static_cast<long long>(q) * f;
+  const S* xr = x + r * T + static_cast<long long>(q) * f;
   if (f & 1) {
     y[n] = xr[(f - 1) / 2];
   } else {
     const int c = f / 2 - 1;
-    y[n] = __fadd_rn(__fmul_rn(xr[c], 0.5f), __fmul_rn(xr[c + 1], 0.5f));
+    y[n] = from_f32<S>(
+        __fadd_rn(__fmul_rn(to_f32(xr[c]), 0.5f), __fmul_rn(to_f32(xr[c + 1]), 0.5f)));
   }
 }
 
 }  // namespace
 
-extern "C" int tvc_downsample_linear(const float* x, float* y, long long rows, int T, int f,
-                                     void* stream) {
+// x, y: fp32, or bf16 when bf16 != 0
+extern "C" int tvc_downsample_linear(const void* x, void* y, long long rows, int T, int f,
+                                     int bf16, void* stream) {
   if (rows <= 0 || f <= 0 || T < f) return static_cast<int>(cudaErrorInvalidValue);
   const long long total = rows * static_cast<long long>(T / f);
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  downsample_linear_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(x, y, total, T, f);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    downsample_linear_kernel<<<static_cast<unsigned>(blocks), threads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), total, T, f);
+  else
+    downsample_linear_kernel<<<static_cast<unsigned>(blocks), threads, 0, st>>>(
+        static_cast<const float*>(x), static_cast<float*>(y), total, T, f);
   return static_cast<int>(cudaGetLastError());
 }

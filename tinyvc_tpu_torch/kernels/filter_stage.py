@@ -23,6 +23,15 @@ The plain versions below are that; the layer-by-layer U-Net
 axis the chain serves (the untrimmed interpolation or decimation output);
 only its first ``T`` samples are read.
 
+Precision follows the chain input's dtype. fp32 is the JAX package's fp32
+profile. bf16 is the serving profile (``dtype_name="bfloat16"``,
+`ops/pallas/filter_stage.py::_conv_cf`, ``_chain``, ``_chain_down``): the
+chain input and ``cond`` are bf16; every conv, FiLM and 1x1 product takes
+bf16 operands (the fp32 activation and the fp32 weights rounded to bf16 as
+they enter it) with fp32 accumulation; leaky ReLU, biases, FiLM, residuals
+and the folded output conv stay fp32. E returns bf16, F fp32 (or bf16 with
+``out_dtype``, which rounds as a cast after it would).
+
 CPU tensors take the plain versions; CUDA tensors launch the kernels, or
 raise. Each wrapper counts its calls that launched (``launches``); one call
 is 1 CUDA launch for the stem, 3 for a down chain and 5 for an up chain.
@@ -41,17 +50,26 @@ DILATIONS_UP = (1, 3, 9, 27)
 DILATIONS_DOWN = (1, 2, 4)
 R_UP = sum(DILATIONS_UP)  # 40, the up chain's reach on each side
 R_DOWN = sum(DILATIONS_DOWN)  # 7
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _lrelu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.1)
 
 
-def _conv_valid(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, d: int) -> torch.Tensor:
-    """Unpadded dilated conv of ``[B, Cin, T]`` with packed ``w [Co, K*Cin]``."""
+def _operand(t: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """``t`` as a product operand: rounded to bf16 (and kept in fp32, where
+    a product of two such values is exact) under bf16, else as it is."""
+    return t.to(torch.bfloat16).float() if bf16 else t
+
+
+def _conv_valid(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, d: int,
+                bf16: bool = False) -> torch.Tensor:
+    """Unpadded dilated conv of ``[B, Cin, T]`` with packed ``w [Co, K*Cin]``,
+    on bf16-rounded operands under ``bf16``; fp32 sums."""
     co, cin = w.shape[0], x.shape[1]
-    weight = w.reshape(co, -1, cin).transpose(1, 2)
-    return F.conv1d(x, weight, b.reshape(-1), dilation=d)
+    weight = _operand(w, bf16).reshape(co, -1, cin).transpose(1, 2)
+    return F.conv1d(_operand(x, bf16), weight, b.reshape(-1), dilation=d)
 
 
 def _edge_pad(x: torch.Tensor, T: int, r: int) -> torch.Tensor:
@@ -64,54 +82,60 @@ def _edge_pad(x: torch.Tensor, T: int, r: int) -> torch.Tensor:
 
 
 def conv3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The stem: ``[B, Cin, T]`` -> ``[B, Co, T]``, one k=3 conv with
-    ``w [Co, 3*Cin]``."""
-    return _conv_valid(_edge_pad(x, x.shape[-1], 1), w, b, 1)
+    """The stem: ``[B, Cin, T]`` -> ``[B, Co, T]`` (in ``x``'s dtype), one
+    k=3 conv with ``w [Co, 3*Cin]``."""
+    bf16 = x.dtype == torch.bfloat16
+    y = _conv_valid(_edge_pad(x.float(), x.shape[-1], 1), w, b, 1, bf16)
+    return y.to(x.dtype)
 
 
 def downsample_chain_plain(
     z: torch.Tensor, wres, bres, w1, b1, w2, b2, w3, b3, out_len: Optional[int] = None,
 ) -> torch.Tensor:
-    """One Downsample body: ``[B, Cin, >=T]`` -> ``[B, Co, T]``:
-    ``1x1(z) + conv_d4(lrelu(conv_d2(lrelu(conv_d1(lrelu(z))))))``."""
+    """One Downsample body: ``[B, Cin, >=T]`` -> ``[B, Co, T]`` (in ``z``'s
+    dtype): ``1x1(z) + conv_d4(lrelu(conv_d2(lrelu(conv_d1(lrelu(z))))))``."""
+    bf16 = z.dtype == torch.bfloat16
     T = z.shape[-1] if out_len is None else out_len
-    x = _edge_pad(z, T, R_DOWN)
-    res = torch.matmul(wres, x[..., R_DOWN:R_DOWN + T]) + bres
+    x = _edge_pad(z.float(), T, R_DOWN)
+    res = torch.matmul(_operand(wres, bf16), x[..., R_DOWN:R_DOWN + T]) + bres
     h = x
     for w, b, d in zip((w1, w2, w3), (b1, b2, b3), DILATIONS_DOWN):
-        h = _conv_valid(_lrelu(h), w, b, d)
-    return h + res
+        h = _conv_valid(_lrelu(h), w, b, d, bf16)
+    return (h + res).to(z.dtype)
 
 
 def upsample_chain_plain(
     xu: torch.Tensor, cond: torch.Tensor, wconv, bconv, wfilm, bfilm, w5, b5,
     fold_k: int = 0, bout: Optional[torch.Tensor] = None,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """One Upsample body: ``xu [B, C, >=T]``, ``cond [B, C, T]`` ->
     ``[B, Co, T]``, or ``[B, 1, T]`` with ``fold_k`` (then ``w5 [k, C]``,
     ``b5 [k, 1]`` are the folded output-conv weights and ``bout [1, 1]`` its
-    bias)."""
+    bias, and the product is fp32 also under bf16)."""
+    bf16 = xu.dtype == torch.bfloat16
     B, C, T = cond.shape
     half = (fold_k - 1) // 2 if fold_k else 0
     R = R_UP + half
-    x = _edge_pad(xu, T, R)
-    films = torch.matmul(wfilm, _edge_pad(cond, T, R)) + bfilm  # [B, 4C, T + 2R]
+    x = _edge_pad(xu.float(), T, R)
+    films = torch.matmul(_operand(wfilm, bf16), _edge_pad(cond.float(), T, R)) + bfilm
 
     def film(h, off, j, res):
         n = h.shape[-1]
         return (h * films[:, 2 * j * C:(2 * j + 1) * C, off:off + n]
                 + films[:, (2 * j + 1) * C:(2 * j + 2) * C, off:off + n] + res[..., :n])
 
-    h = _conv_valid(_lrelu(x), wconv[0], bconv[0], 1)  # columns from 1
-    h = _conv_valid(_lrelu(h), wconv[1], bconv[1], 3)  # from 4
+    h = _conv_valid(_lrelu(x), wconv[0], bconv[0], 1, bf16)  # columns from 1
+    h = _conv_valid(_lrelu(h), wconv[1], bconv[1], 3, bf16)  # from 4
     h = film(h, 4, 0, x[..., 4:])
     res = h
-    h = _conv_valid(_lrelu(h), wconv[2], bconv[2], 9)  # from 13
-    h = _conv_valid(_lrelu(h), wconv[3], bconv[3], 27)  # from 40
+    h = _conv_valid(_lrelu(h), wconv[2], bconv[2], 9, bf16)  # from 13
+    h = _conv_valid(_lrelu(h), wconv[3], bconv[3], 27, bf16)  # from 40
     h = film(h, R_UP, 1, res[..., R_UP - 4:])
-    p = torch.matmul(w5, h) + b5
     if not fold_k:
-        return p  # columns [40, 40 + T): exactly [0, T)
+        # columns [40, 40 + T): exactly [0, T)
+        return (torch.matmul(_operand(w5, bf16), _operand(h, bf16)) + b5).to(out_dtype)
+    p = torch.matmul(w5, h) + b5
     # folded output conv: out[t] = sum_j p[j, t + j - half], p from column 40
     out = p[:, 0:1, 0:T]
     for j in range(1, fold_k):
@@ -135,36 +159,37 @@ def _check_shape(name: str, t: torch.Tensor, shape) -> None:
 
 
 def conv3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The stem (kernel E, stem mode): ``[B, Cin, T]`` -> ``[B, Co, T]``."""
+    """The stem (kernel E, stem mode): ``[B, Cin, T]`` -> ``[B, Co, T]``,
+    fp32 or bf16 in and out."""
     if build.on_cpu(x, w, b):
         return conv3_plain(x, w, b)
-    build.check_input("x", x, 3)
+    build.check_input("x", x, 3, DTYPES)
     _check_weights(w=w, b=b)
     B, cin, T = x.shape
     co = w.shape[0]
     _check_shape("w", w, (co, 3 * cin))
     _check_shape("b", b, (co, 1))
-    out = torch.empty((B, co, T), device=x.device, dtype=torch.float32)
-    rc = build.library().tvc_conv3(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), B, cin, co, T, T,
-        build.stream_of(x),
-    )
-    build.check_status(rc, "tvc_conv3")
+    out = torch.empty((B, co, T), device=x.device, dtype=x.dtype)
+    bf16 = x.dtype == torch.bfloat16
+    build.launch("tvc_conv3", x, x, w, b, out, B, cin, co, T, T, int(bf16))
     conv3.launches += 1
+    conv3.launches_bf16 += bf16
     return out
 
 
 conv3.launches = 0
+conv3.launches_bf16 = 0  # of them, on bf16 inputs
 
 
 def downsample_chain(
     z: torch.Tensor, wres, bres, w1, b1, w2, b2, w3, b3, out_len: Optional[int] = None,
 ) -> torch.Tensor:
-    """One Downsample body (kernel E): ``[B, Cin, >=T]`` -> ``[B, Co, T]``."""
+    """One Downsample body (kernel E): ``[B, Cin, >=T]`` -> ``[B, Co, T]``,
+    fp32 or bf16 in and out."""
     ws = dict(wres=wres, bres=bres, w1=w1, b1=b1, w2=w2, b2=b2, w3=w3, b3=b3)
     if build.on_cpu(z, *ws.values()):
         return downsample_chain_plain(z, wres, bres, w1, b1, w2, b2, w3, b3, out_len)
-    build.check_input("z", z, 3)
+    build.check_input("z", z, 3, DTYPES)
     _check_weights(**ws)
     B, cin, Tz = z.shape
     T = Tz if out_len is None else out_len
@@ -175,35 +200,39 @@ def downsample_chain(
                         ("b1", (cin, 1)), ("w2", (cin, 3 * cin)), ("b2", (cin, 1)),
                         ("w3", (co, 3 * cin)), ("b3", (co, 1))):
         _check_shape(name, ws[name], shape)
-    out = torch.empty((B, co, T), device=z.device, dtype=torch.float32)
+    out = torch.empty((B, co, T), device=z.device, dtype=z.dtype)
     work = torch.empty((2, B, cin, T + 2 * R_DOWN), device=z.device, dtype=torch.float32)
-    rc = build.library().tvc_down_chain(
-        z.data_ptr(), *(t.data_ptr() for t in ws.values()), out.data_ptr(), work.data_ptr(),
-        B, cin, co, T, Tz, build.stream_of(z),
-    )
-    build.check_status(rc, "tvc_down_chain")
+    bf16 = z.dtype == torch.bfloat16
+    build.launch("tvc_down_chain", z, z, *ws.values(), out, work, B, cin, co, T, Tz, int(bf16))
     downsample_chain.launches += 1
+    downsample_chain.launches_bf16 += bf16
     return out
 
 
 downsample_chain.launches = 0
+downsample_chain.launches_bf16 = 0  # of them, on bf16 inputs
 
 
 def upsample_chain(
     xu: torch.Tensor, cond: torch.Tensor, wconv, bconv, wfilm, bfilm, w5, b5,
     fold_k: int = 0, bout: Optional[torch.Tensor] = None,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """One Upsample body (kernel F): ``xu [B, C, >=T]``, ``cond [B, C, T]``
-    -> ``[B, Co, T]``, or ``[B, 1, T]`` with ``fold_k=7``."""
+    (both fp32 or both bf16) -> ``[B, Co, T]`` in ``out_dtype``, or
+    ``[B, 1, T]`` fp32 with ``fold_k=7``."""
     ws = dict(wconv=wconv, bconv=bconv, wfilm=wfilm, bfilm=bfilm, w5=w5, b5=b5)
     if fold_k:
         if bout is None:
             raise ValueError("fold_k needs the output conv's bias bout")
         ws["bout"] = bout
+    if out_dtype not in DTYPES or (fold_k and out_dtype != torch.float32):
+        raise ValueError(f"out_dtype {out_dtype} is not one this chain stores")
     if build.on_cpu(xu, cond, *ws.values()):
-        return upsample_chain_plain(xu, cond, wconv, bconv, wfilm, bfilm, w5, b5, fold_k, bout)
-    build.check_input("xu", xu, 3)
-    build.check_input("cond", cond, 3)
+        return upsample_chain_plain(xu, cond, wconv, bconv, wfilm, bfilm, w5, b5, fold_k, bout,
+                                    out_dtype)
+    build.check_input("xu", xu, 3, DTYPES)
+    build.check_input("cond", cond, 3, (xu.dtype,))
     _check_weights(**ws)
     B, C, T = cond.shape
     if xu.shape[:2] != (B, C) or xu.shape[2] < T:
@@ -218,17 +247,16 @@ def upsample_chain(
     if fold_k:
         _check_shape("bout", bout, (1, 1))
     R = R_UP + ((fold_k - 1) // 2 if fold_k else 0)
-    out = torch.empty((B, co, T), device=xu.device, dtype=torch.float32)
+    out = torch.empty((B, co, T), device=xu.device, dtype=out_dtype)
     work = torch.empty((2, B, C, T + 2 * R), device=xu.device, dtype=torch.float32)
-    rc = build.library().tvc_up_chain(
-        xu.data_ptr(), cond.data_ptr(), wconv.data_ptr(), bconv.data_ptr(), wfilm.data_ptr(),
-        bfilm.data_ptr(), w5.data_ptr(), b5.data_ptr(),
-        bout.data_ptr() if fold_k else b5.data_ptr(), out.data_ptr(), work.data_ptr(),
-        B, C, co, T, xu.shape[2], fold_k, build.stream_of(xu),
-    )
-    build.check_status(rc, "tvc_up_chain")
+    bf16 = xu.dtype == torch.bfloat16
+    build.launch("tvc_up_chain", xu, xu, cond, wconv, bconv, wfilm, bfilm, w5, b5,
+                 bout if fold_k else b5, out, work, B, C, co, T, xu.shape[2], fold_k,
+                 int(bf16), int(out_dtype == torch.bfloat16))
     upsample_chain.launches += 1
+    upsample_chain.launches_bf16 += bf16
     return out
 
 
 upsample_chain.launches = 0
+upsample_chain.launches_bf16 = 0  # of them, on bf16 inputs

@@ -108,13 +108,8 @@ def oscillate_noise_hashed(
             raise ValueError(f"angle {tuple(angle.shape)} != mag {tuple(mag.shape)}")
     cos, sin, win = _dft_tables(n_fft, mag.device)
     out = torch.empty((B, F * frame_size), device=mag.device, dtype=torch.float32)
-    rc = build.library().tvc_noise(
-        mag.data_ptr(), None if angle is None else angle.data_ptr(),
-        cos.data_ptr(), sin.data_ptr(), win.data_ptr(), out.data_ptr(),
-        B, F, bins, n_fft, frame_size, rows_total(F),
-        int(np.int64(seed).astype(np.int32)), build.stream_of(mag),
-    )
-    build.check_status(rc, "tvc_noise")
+    build.launch("tvc_noise", mag, mag, angle, cos, sin, win, out,
+                 B, F, bins, n_fft, frame_size, rows_total(F), int(np.int64(seed).astype(np.int32)))
     oscillate_noise_hashed.launches += 1
     return out
 

@@ -44,12 +44,8 @@ def oscillator_bank(
         raise ValueError(f"amps {tuple(amps.shape)} does not match f0 {tuple(f0.shape)}")
     out = torch.empty((B, H1, F * frame_size), device=f0.device, dtype=torch.float32)
     frame_sums = torch.empty((B, F), device=f0.device, dtype=torch.float32)
-    rc = build.library().tvc_oscillator(
-        f0.data_ptr(), amps.data_ptr(), frame_sums.data_ptr(), out.data_ptr(),
-        B, F, H1, frame_size, float(sample_rate), float(min_frequency),
-        build.stream_of(f0),
-    )
-    build.check_status(rc, "tvc_oscillator")
+    build.launch("tvc_oscillator", f0, f0, amps, frame_sums, out,
+                 B, F, H1, frame_size, float(sample_rate), float(min_frequency))
     oscillator_bank.launches += 1
     return out
 

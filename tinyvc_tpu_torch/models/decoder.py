@@ -32,18 +32,30 @@ def _log_f0_feature(f0: torch.Tensor) -> torch.Tensor:
     return torch.log(f0.clamp_min(0.0) + 1e-6)[..., None]
 
 
+def compute_dtype(name: str) -> torch.dtype:
+    """A config's ``compute_dtype`` name -> the torch dtype."""
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if name not in dtypes:
+        raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', got {name!r}")
+    return dtypes[name]
+
+
 class SourceNet(nn.Module):
-    """Per-harmonic amplitudes and the noise magnitude filter."""
+    """Per-harmonic amplitudes and the noise magnitude filter. The input
+    denses and the ConvNeXt layers compute in ``cfg.compute_dtype``; the
+    heads run in fp32 on the fp32 cast of their input, as they feed the DSP
+    (`tinyvc_tpu/models/decoder.py:137-166`)."""
 
     def __init__(self, cfg: DecoderConfig = DecoderConfig(), audio: AudioConfig = AudioConfig()):
         super().__init__()
         self.hop = audio.hop_size
         ch = cfg.source_channels
-        self.content_in = Dense(cfg.content_channels, ch)
-        self.energy_in = Dense(1, ch)
-        self.f0_in = Dense(1, ch)
+        dt = compute_dtype(cfg.compute_dtype)
+        self.content_in = Dense(cfg.content_channels, ch, dt)
+        self.energy_in = Dense(1, ch, dt)
+        self.f0_in = Dense(1, ch, dt)
         for i in range(cfg.source_num_layers):
-            self.add_module(f"layer_{i}", ConvNeXtLayer(ch, cfg.source_kernel_size))
+            self.add_module(f"layer_{i}", ConvNeXtLayer(ch, cfg.source_kernel_size, dtype=dt))
         self.num_layers = cfg.source_num_layers
         self.to_amps = Dense(ch, cfg.num_harmonics + 1)
         self.to_kernel = Dense(ch, audio.fft_bin)
@@ -58,21 +70,24 @@ class SourceNet(nn.Module):
              + self.f0_in(_log_f0_feature(f0)))
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(x)
+        x = x.float()
         amps = F.elu(self.to_amps(x)) + 1.0
         kernel = F.elu(self.to_kernel(x)) + 1.0
         return amps, kernel
 
 
 class Downsample(nn.Module):
-    """Linear downsample + residual dilated conv stack, channels-first."""
+    """Linear downsample + residual dilated conv stack, channels-first, in
+    ``dtype``."""
 
-    def __init__(self, in_features: int, out_features: int, factor: int):
+    def __init__(self, in_features: int, out_features: int, factor: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.factor = factor
-        self.down_res = Dense1x1CF(in_features, out_features)
-        self.c1 = Conv1d(in_features, in_features, 3, dilation=1)
-        self.c2 = Conv1d(in_features, in_features, 3, dilation=2)
-        self.c3 = Conv1d(in_features, out_features, 3, dilation=4)
+        self.down_res = Dense1x1CF(in_features, out_features, dtype)
+        self.c1 = Conv1d(in_features, in_features, 3, dilation=1, dtype=dtype)
+        self.c2 = Conv1d(in_features, in_features, 3, dilation=2, dtype=dtype)
+        self.c3 = Conv1d(in_features, out_features, 3, dilation=4, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = downsample_time_int_t(x, self.factor)
@@ -84,18 +99,20 @@ class Downsample(nn.Module):
 
 
 class Upsample(nn.Module):
-    """Linear upsample + two FiLM-conditioned residual groups, channels-first."""
+    """Linear upsample + two FiLM-conditioned residual groups, channels-first,
+    in ``dtype``."""
 
-    def __init__(self, in_features: int, out_features: int, factor: int):
+    def __init__(self, in_features: int, out_features: int, factor: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.factor = factor
-        self.c1 = Conv1d(in_features, in_features, 3, dilation=1)
-        self.c2 = Conv1d(in_features, in_features, 3, dilation=3)
-        self.film1 = FiLM(in_features, in_features)
-        self.c3 = Conv1d(in_features, in_features, 3, dilation=9)
-        self.c4 = Conv1d(in_features, in_features, 3, dilation=27)
-        self.film2 = FiLM(in_features, in_features)
-        self.c5 = Dense1x1CF(in_features, out_features)
+        self.c1 = Conv1d(in_features, in_features, 3, dilation=1, dtype=dtype)
+        self.c2 = Conv1d(in_features, in_features, 3, dilation=3, dtype=dtype)
+        self.film1 = FiLM(in_features, in_features, dtype)
+        self.c3 = Conv1d(in_features, in_features, 3, dilation=9, dtype=dtype)
+        self.c4 = Conv1d(in_features, in_features, 3, dilation=27, dtype=dtype)
+        self.film2 = FiLM(in_features, in_features, dtype)
+        self.c5 = Dense1x1CF(in_features, out_features, dtype)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         x = upsample_time_int_t(x, self.factor)
@@ -112,24 +129,27 @@ class Upsample(nn.Module):
 
 class FilterNet(nn.Module):
     """Sample-rate U-Net refining the DSP source into the waveform. The down
-    path takes cat(source, energy); its outputs FiLM-condition the up path."""
+    path takes cat(source, energy); its outputs FiLM-condition the up path.
+    Everything but the output conv computes in ``cfg.compute_dtype``; the
+    output conv is fp32 (`tinyvc_tpu/models/decoder.py::FilterNet`)."""
 
     def __init__(self, cfg: DecoderConfig = DecoderConfig()):
         super().__init__()
         channels = list(cfg.filter_channels)
         factors = list(cfg.filter_factors)
-        self.content_in = Dense(cfg.content_channels, channels[0])
-        self.f0_in = Dense(1, channels[0])
+        dt = compute_dtype(cfg.compute_dtype)
+        self.content_in = Dense(cfg.content_channels, channels[0], dt)
+        self.f0_in = Dense(1, channels[0], dt)
         n_src = cfg.num_harmonics + 3  # harmonics, noise, energy
-        self.down_0 = Conv1d(n_src, channels[-1], 3)
+        self.down_0 = Conv1d(n_src, channels[-1], 3, dtype=dt)
         cs = list(reversed(channels[1:]))
         ns = cs[1:] + [channels[0]]
         for i, (c, n, f) in enumerate(zip(cs, ns, reversed(factors[1:]))):
-            self.add_module(f"down_{i + 1}", Downsample(c, n, f))
+            self.add_module(f"down_{i + 1}", Downsample(c, n, f, dt))
         self.num_down = len(ns)
         ns_up = channels[1:] + [channels[-1]]
         for i, (c, n, f) in enumerate(zip(channels, ns_up, factors)):
-            self.add_module(f"up_{i}", Upsample(c, n, f))
+            self.add_module(f"up_{i}", Upsample(c, n, f, dt))
         self.num_up = len(factors)
         self.output_layer = Conv1d(channels[-1], 1, 7)
 

@@ -55,6 +55,13 @@ class SSLFeatureEstimator(nn.Module):
 class Encoder(nn.Module):
     def __init__(self, cfg: EncoderConfig = EncoderConfig(), audio: AudioConfig = AudioConfig()):
         super().__init__()
+        if cfg.compute_dtype != "float32":
+            # serving_config() keeps the encoder in fp32: bf16 content
+            # features flip kNN neighbours
+            raise NotImplementedError(
+                f"Encoder compute_dtype {cfg.compute_dtype!r}: only 'float32' is ported "
+                "(ROADMAP.md, section 1)"
+            )
         self.cfg = cfg
         self.ssl_feature_estimator = SSLFeatureEstimator(cfg, audio.fft_bin)
         self.pitch_estimator = PitchEstimator(cfg, audio.fft_bin)

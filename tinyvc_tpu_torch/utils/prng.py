@@ -1,0 +1,83 @@
+"""The JAX package's random keys, in numpy integer arithmetic.
+
+`tinyvc_tpu` seeds its hashed noise (kernel B) with one int32 drawn from a
+``jax.random`` key: ``jax.random.randint(key, (), 0, int32 max)``
+(`tinyvc_tpu/models/decoder.py:427-429`), with ``key = PRNGKey(seed)``.
+This module computes the same numbers without JAX, for the default
+configuration of jax 0.9: ``jax_default_prng_impl = "threefry2x32"``,
+``jax_threefry_partitionable = True`` and ``jax_enable_x64 = False``. It
+follows `jax/_src/prng.py` (``threefry_seed``, ``_threefry2x32_lowering``,
+``_threefry_split_foldlike``, ``_threefry_random_bits_partitionable``) and
+`jax/_src/random.py::_randint`, in ``uint32`` arithmetic that wraps as
+XLA's does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_U32 = np.uint32
+
+
+def _rotl(x: np.ndarray, d: int) -> np.ndarray:
+    return (x << _U32(d)) | (x >> _U32(32 - d))
+
+
+def threefry2x32(key: np.ndarray, x0: np.ndarray, x1: np.ndarray):
+    """The Threefry-2x32 block cipher (20 rounds) of the counter pair
+    ``(x0, x1)`` under ``key`` ``[2]`` uint32; returns two uint32 arrays."""
+    k0, k1 = _U32(key[0]), _U32(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ _U32(0x1BD11BDA))
+    x = [np.asarray(x0, _U32) + ks[0], np.asarray(x1, _U32) + ks[1]]
+    with np.errstate(over="ignore"):
+        for i in range(5):
+            for r in _ROTATIONS[i % 2]:
+                x[0] = x[0] + x[1]
+                x[1] = _rotl(x[1], r) ^ x[0]
+            x[0] = x[0] + ks[(i + 1) % 3]
+            x[1] = x[1] + ks[(i + 2) % 3] + _U32(i + 1)
+    return x[0], x[1]
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """``jax.random.PRNGKey(seed)`` as ``[2]`` uint32: without x64 the seed
+    is cut to its low 32 bits, and the high word is 0."""
+    return np.array([0, int(np.int64(seed)) & 0xFFFFFFFF], dtype=_U32)
+
+
+def split(key: np.ndarray, num: int = 2) -> np.ndarray:
+    """``jax.random.split(key, num)`` -> ``[num, 2]`` uint32 (the
+    partitionable split: counter ``i`` as the pair (0, i))."""
+    hi, lo = threefry2x32(key, np.zeros(num, _U32), np.arange(num, dtype=_U32))
+    return np.stack([hi, lo], axis=1)
+
+
+def random_bits32(key: np.ndarray) -> np.uint32:
+    """``jax.random.bits(key, (), uint32)``: one 32-bit draw, the XOR of
+    the cipher's two words at counter (0, 0)."""
+    hi, lo = threefry2x32(key, np.zeros(1, _U32), np.zeros(1, _U32))
+    return (hi ^ lo)[0]
+
+
+def randint_int32(key: np.ndarray, minval: int = 0, maxval: int = 2**31 - 1) -> int:
+    """``jax.random.randint(key, (), minval, maxval, dtype=int32)`` for
+    ``int32`` bounds with ``minval < maxval``: two 32-bit draws from a split
+    key, folded into the span by the modulus scheme of ``_randint``."""
+    if not -(2**31) <= minval < maxval <= 2**31 - 1:
+        raise ValueError(f"need int32 bounds with minval < maxval, got {minval}, {maxval}")
+    k1, k2 = split(key)
+    higher, lower = int(random_bits32(k1)), int(random_bits32(k2))
+    span = maxval - minval  # < 2**32, as uint32
+    mask = 0xFFFFFFFF
+    multiplier = (2**16 % span) * (2**16 % span) & mask  # uint32 product wraps
+    multiplier %= span
+    offset = (((higher % span) * multiplier & mask) + lower % span) & mask
+    offset %= span
+    return int(np.int64(minval + offset).astype(np.int32))
+
+
+def kernel_b_seed(seed: int) -> int:
+    """The int32 that the JAX package's ``convert(key=PRNGKey(seed))`` hands
+    its hashed-noise kernel: ``randint(PRNGKey(seed), (), 0, int32 max)``."""
+    return randint_int32(prng_key(seed))
