@@ -39,6 +39,18 @@ Phases, each timed; any failure exits non-zero:
 5. profile: warm request latency at B=1 and B=4 (fp32) and at B=1 and B=8
    (serving) and, from ``torch.profiler``, the device time of one request
    by kernel group and the device's idle share.
+6. train: the decoder's pre-join training step at the shipped widths,
+   B=16 x 2 s (16 windows of the demo's two utterances). Kernels I-L
+   (the oscillator's amplitude gradient, the resample gradients, the up and
+   down chains' gradients) against their plain versions at the step's
+   shapes in fp32 and with bf16 operands, timed; one fp32 step with the
+   two-speaker weights, its kernel path against its plain path (losses and
+   every gradient leaf, ``STEP_*``; every kernel of the step must launch);
+   then ``train_decoder`` through its CLI entry for ``TRAIN_STEPS`` steps
+   with ``TrainConfig()`` (bf16 operands, the TPU's choice) on a cache of
+   those windows: finite losses, no skipped step, moved parameters, a
+   checkpoint; the warm step time, peak memory and one profiled step by
+   kernel group.
 
 The last two lines are one JSON object of per-kernel numbers and the
 ``{"ok": true, "device": ...}`` result. Needs CUDA and the rest of the repo;
@@ -931,10 +943,582 @@ def phase_second_device(enc, dec, index, wave, fp32_out, serving_b8_out) -> None
         _check(diff <= WAVE_ATOL, f"{dev} output differs from cuda:0 by {diff}")
 
 
+# ---------------------------------------------------------------------------
+# training: the decoder's pre-join step (kernels I-L beside A, C-F)
+# ---------------------------------------------------------------------------
+
+# Tolerances of the gradient kernels against their plain versions:
+#  I: the plain version integrates the phase by the JAX package's XLA scheme
+#     and kernel I by kernel A's (closer to the float64 truth, as for A): the
+#     phases drift apart over the frames and each frame's 480-term sum
+#     carries it: 2e-3 of the output's peak (the H100 showed 6.5e-4 at
+#     B=16, F=100); the check against the float64 vjp is the tighter gate.
+#  J: the same one- to 15-term fp32 sums in another order: 1e-6 of the peak;
+#     in bf16 one rounding to bf16 of a sum in another order: one bf16 step.
+#  K, L: the exact vjp has jumps where a leaky ReLU's input is 0, and the
+#     recomputed pre-activations (fp32 sums in another order than cuDNN's)
+#     land on the other side of 0 at a few of the 18M positions of up_4,
+#     moving one gradient element by 0.9x its size (on the H100 a float64
+#     evaluation of the recomputed chain agreed with the kernel's but
+#     downstream of such flips). So the full-width
+#     shapes are held by each output's relative L2 error, fp32 1e-3 (the
+#     CPU tests' per-leaf bound for the step), bf16 2**-5 (roundings to bf16
+#     that land one step apart move the masks they feed), and a ragged
+#     small shape, where no flip has room, by the max error: fp32 1e-5 and
+#     bf16 2**-7 of the peak.
+GRAD_TOL = {"oscillator_grad": 2e-3, "resample_grad": 1e-6, "resample_grad_bf16": 2.0**-8}
+CHAIN_GRAD_RTOL = {"fp32": (1e-3, 1e-5), "bf16": (2.0**-5, 2.0**-7)}  # (rel L2, max of peak)
+# The full-width step, kernel path against plain path, under the log-mel
+# loss (the multi-scale STFT loss's gradient moves by percents under a 1e-7
+# change of its input, tests/test_torch_train_unet.py::
+# test_ms_stft_gradient_is_chaotic): the losses within 1e-4 relative; the
+# gradient leaves within the CPU tests' 1e-3 relative norm at the median.
+# Leaf by leaf 1e-3 is below the full-width step's own noise floor: the plain
+# path against itself with the U-Net's source moved by 1e-7 moves the worst
+# leaf by 3.0e-3 (leaky ReLUs flipped by a rounding; the H100, ROADMAP.md
+# §3), so each leaf is held within the larger of 1e-3 and twice that
+# floor, measured in the same run.
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_RTOL = 1e-3
+STEP_FLOOR_FACTOR = 2.0
+TRAIN_STEPS = 8
+TRAIN_TIMED_FROM = 2  # warm steps: those after the first two
+
+
+def _rel_l2(got, want) -> float:
+    return float((got.double() - want.double()).norm() / max(float(want.double().norm()), 1e-30))
+
+
+def _demo_windows(n: int = 16, length: int = 48000):
+    """``n`` two-second windows at staggered offsets, half from
+    `demo/two_speaker/source_A.wav`, half from `target_rendition_B.wav`,
+    ``[n, length]`` fp32 numpy."""
+    import numpy as np
+
+    from tinyvc_tpu_torch.utils.audio_io import load_audio
+
+    demo = os.path.join(ROOT, "demo", "two_speaker")
+    rows = []
+    for name in ("source_A.wav", "target_rendition_B.wav"):
+        wave = load_audio(os.path.join(demo, name))
+        step = (wave.shape[0] - length) // (n // 2 - 1)
+        rows += [wave[i * step:i * step + length] for i in range(n // 2)]
+    return np.stack(rows).astype(np.float32)
+
+
+def phase_train_kernels(results: dict, rng, dev) -> None:
+    """Kernels I-L against their plain versions at the training step's
+    full-width shapes (B=16, 2 s), fp32 and with bf16 operands, each also at
+    a ragged small shape; one row per kernel and precision, summing the
+    calls of one step, timed at the full-width shapes."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tinyvc_tpu_torch.infer.generator import exact_fp32
+    from tinyvc_tpu_torch.kernels import filter_stage as fs
+    from tinyvc_tpu_torch.kernels import oscillator as osc
+    from tinyvc_tpu_torch.kernels import resample as rs
+    from tinyvc_tpu_torch.utils.weights import decoder_from_jax, load_npz, pack_filter_net
+
+    kernels_dir = "tinyvc_tpu_torch/kernels/csrc"
+    B, F_, H1, L = 16, 100, 15, 48000
+
+    def row(name, source, replaces, err, ms, plain_ms, bounds, library_ms=None):
+        bound_ms, bound_by = _sum_bounds(bounds)
+        results[name] = dict(name=name, route="cuda", source=f"{kernels_dir}/{source}",
+                             replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
+        print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+
+    def randn(*shape, dt=torch.float32, scale=0.5):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(dev, dt)
+
+    with exact_fp32():
+        # I: the oscillator's amplitude gradient at [16, 15, 48000]
+        errs = []
+        for b, nf in ((B, F_), (3, 37)):
+            f0 = torch.from_numpy(rng.uniform(80.0, 320.0, (b, nf)).astype(np.float32)).to(dev)
+            f0[0, 5:15] = 0.0
+            g = randn(b, H1, nf * 480, scale=1.0)
+            got = osc.oscillator_amps_grad(f0, g)
+            want = osc.oscillator_amps_grad_plain(f0, g)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            peak = float(want.abs().max())
+            truth = _osc_amps_grad_truth(f0.cpu().numpy(), g.cpu().numpy())
+            e_k = float(np.abs(got.cpu().numpy() - truth).max())
+            e_p = float(np.abs(want.cpu().numpy() - truth).max())
+            tol = GRAD_TOL["oscillator_grad"] * peak
+            print(f"  oscillator_grad B={b} F={nf}: max_abs_err {err:.3e} (tolerance {tol:.3e}); "
+                  f"vs the float64 vjp kernel {e_k:.3e}, plain {e_p:.3e}")
+            _check(err <= tol, f"oscillator_grad B={b}: error {err} > {tol}")
+            _check(e_k <= 1.5 * e_p, f"oscillator_grad off the float64 vjp: {e_k} vs {e_p}")
+            errs.append(err)
+            if b == B:
+                main_i = (f0, g)
+        f0, g = main_i
+        # the bytes: g read once, f0 read, the gradient written; ~12 fp32
+        # operations per element of g (phase, wrap, sin, gains, 3 products)
+        row("oscillator_grad", "oscillator.cu", "tinyvc_tpu/ops/pallas/oscillator.py:311",
+            max(errs), _cuda_ms(lambda: osc.oscillator_amps_grad(f0, g)),
+            _cuda_ms(lambda: osc.oscillator_amps_grad_plain(f0, g)),
+            [_bound(4.0 * (g.numel() + f0.numel() + B * F_ * H1), 12.0 * g.numel())])
+
+        # J: the four resamples of the step: down_1 (/5 on 24 channels),
+        # down_2 (/4 on 48), up_3 (x4 on 48), up_4 (x5 on 24)
+        for dt, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+            isz = 2 if sfx else 4
+            acc = dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bounds=[])
+            for rows, T, f, up in ((B * 24, L, 5, False), (B * 48, L // 5, 4, False),
+                                   (B * 48, 2400, 4, True), (B * 24, 9600, 5, True),
+                                   (5, 37, 3, True), (5, 111, 4, False)):
+                n_g = T * f if up else T // f
+                g = randn(rows, n_g, dt=dt, scale=1.0)
+                plain = rs.upsample_linear_grad_plain if up else rs.downsample_linear_grad_plain
+                got, want = rs.resample_grad(g, T, f, up).float(), plain(g, T, f).float()
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                tol = GRAD_TOL["resample_grad" + sfx] * float(want.abs().max())
+                print(f"  resample_grad{sfx} {'up' if up else 'down'} {rows}x{T} f={f}: "
+                      f"max_abs_err {err:.3e} (tolerance {tol:.3e})")
+                _check(err <= tol, f"resample_grad{sfx}: error {err} > {tol}")
+                acc["err"] = max(acc["err"], err)
+                if rows < 100:
+                    continue
+                acc["ms"] += _cuda_ms(lambda: rs.resample_grad(g, T, f, up))
+                acc["plain"] += _cuda_ms(lambda: plain(g, T, f))
+                if up:  # the transpose of a tent upsampling: a strided tent conv
+                    w = torch.from_numpy(np.ascontiguousarray(_tent_taps(f))).to(dev, dt)
+                    lib = lambda: F.conv1d(g[:, None], w[None, None], stride=f, padding=f)
+                else:  # the transpose of a decimation: a strided transposed conv
+                    taps = [1.0] if f % 2 else [0.5, 0.5]
+                    w = torch.tensor(taps, device=dev, dtype=dt)
+                    lib = lambda: F.conv_transpose1d(g[:, None], w[None, None], stride=f)
+                acc["lib"] += _cuda_ms(lib)
+                acc["bounds"].append(_bound(isz * (g.numel() + rows * T), 0.0))
+            row("resample_grad" + sfx, "resample.cu", "tinyvc_tpu/ops/pallas/resample.py:268",
+                acc["err"], acc["ms"], acc["plain"], acc["bounds"], acc["lib"])
+
+        # K and L with the two-speaker decoder's packed weights
+        dec = decoder_from_jax(load_npz(os.path.join(ROOT, "models", "two_speaker",
+                                                     "decoder_B.npz"))).to(dev)
+        w = pack_filter_net(dec.filter_net, 24)
+        for bf16 in (False, True):
+            dt, sfx = (torch.bfloat16, "_bf16") if bf16 else (torch.float32, "")
+            isz = 2 if bf16 else 4
+            peak_flops = BF16_FLOPS if bf16 else FP32_FLOPS
+            rel_tol, max_tol = CHAIN_GRAD_RTOL["bf16" if bf16 else "fp32"]
+
+            def check(name, case, kernel, plain, full):
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                errs = [(float((a - b).abs().max()), float(b.abs().max()), _rel_l2(a, b))
+                        for a, b in zip(got, want)]
+                worst_rel = max(e[2] for e in errs)
+                worst_max = max(e[0] / max(e[1], 1e-30) for e in errs)
+                print(f"  {name}{sfx} {case}: relative L2 {worst_rel:.2e}, max {worst_max:.2e} "
+                      f"of the peak (tolerance {'L2 %.0e' % rel_tol if full else 'max %.0e' % max_tol})")
+                if full:
+                    _check(worst_rel <= rel_tol, f"{name}{sfx} {case}: L2 {worst_rel} > {rel_tol}")
+                else:
+                    _check(worst_max <= max_tol, f"{name}{sfx} {case}: max {worst_max} > {max_tol}")
+                return max(e[0] for e in errs)
+
+            acc = {k: dict(err=0.0, ms=0.0, plain=0.0, bounds=[]) for k in ("up", "down")}
+            # K: up_2 [96 -> 48, 2400], up_3 [48 -> 24, 9600], up_4 [24 -> 1 folded, 48000]
+            for i, (b, T) in ((2, (B, 2400)), (3, (B, 9600)), (4, (B, L)), (4, (2, 777))):
+                wu = w.up[i]
+                C = wu[0].shape[1]
+                fold = i == 4
+                co = 1 if fold else wu[4].shape[0]
+                xu, cond, gy = randn(b, C, T, dt=dt), randn(b, C, T, dt=dt), randn(b, co, T, scale=1.0)
+                args = (xu, cond, *wu[:6], gy, 7 if fold else 0, wu[6] if fold else None)
+                full = b == B
+                err = check("up_chain_grad", f"up_{i} B={b} [{C} -> {co}, {T}]",
+                            lambda: fs.upsample_chain_grad(*args),
+                            lambda: fs.upsample_chain_grad_plain(*args), full)
+                a = acc["up"]
+                a["err"] = max(a["err"], err)
+                if full:
+                    a["ms"] += _cuda_ms(lambda: fs.upsample_chain_grad(*args))
+                    a["plain"] += _cuda_ms(lambda: fs.upsample_chain_grad_plain(*args), reps=5)
+                    # the recomputed chain (32 C^2 per sample), each conv's and
+                    # FiLM's transpose and weight gradient (64 C^2), the output
+                    # 1x1's or folded conv's three products
+                    k5 = 7 if fold else co
+                    a["bounds"].append(_bound(isz * 2 * b * C * T + 4 * b * T * (co + 2 * C),
+                                              96.0 * b * T * C * C + 6.0 * b * T * k5 * C,
+                                              peak_flops))
+            # L: the stem [24 (17) -> 24, 48000], down_1 [24 -> 48, 9600],
+            # down_2 [48 -> 96, 2400]
+            for case, b, T in (("stem", B, L), ("stem", 2, 777)):
+                x = randn(b, 24, T, dt=dt)
+                x[:, 17:] = 0.0
+                gy = randn(b, w.stem[0].shape[0], T, scale=1.0)
+                full = b == B
+                err = check("down_chain_grad", f"stem B={b} [24(17) -> 24, {T}]",
+                            lambda: fs.conv3_grad(x, *w.stem, gy),
+                            lambda: fs.conv3_grad_plain(x, *w.stem, gy), full)
+                a = acc["down"]
+                a["err"] = max(a["err"], err)
+                if full:
+                    a["ms"] += _cuda_ms(lambda: fs.conv3_grad(x, *w.stem, gy))
+                    a["plain"] += _cuda_ms(lambda: fs.conv3_grad_plain(x, *w.stem, gy), reps=5)
+                    a["bounds"].append(_bound(isz * b * 24 * T + 4 * b * T * (24 + 24),
+                                              12.0 * b * T * 17 * 24, peak_flops))
+            for i, b, T in ((0, B, 9600), (1, B, 2400), (0, 2, 333)):
+                wd = w.down[i]
+                co, cin = wd[0].shape
+                z, gy = randn(b, cin, T, dt=dt), randn(b, co, T, scale=1.0)
+                full = b == B
+                err = check("down_chain_grad", f"down_{i + 1} B={b} [{cin} -> {co}, {T}]",
+                            lambda: fs.downsample_chain_grad(z, *wd, gy),
+                            lambda: fs.downsample_chain_grad_plain(z, *wd, gy), full)
+                a = acc["down"]
+                a["err"] = max(a["err"], err)
+                if full:
+                    a["ms"] += _cuda_ms(lambda: fs.downsample_chain_grad(z, *wd, gy))
+                    a["plain"] += _cuda_ms(lambda: fs.downsample_chain_grad_plain(z, *wd, gy),
+                                           reps=5)
+                    a["bounds"].append(_bound(isz * b * cin * T + 4 * b * T * (co + cin),
+                                              b * T * (36.0 * cin * cin + 16.0 * cin * co),
+                                              peak_flops))
+            for key, name, replaces in (
+                    ("up", "up_chain_grad", "tinyvc_tpu/ops/pallas/filter_stage.py:1031"),
+                    ("down", "down_chain_grad", "tinyvc_tpu/ops/pallas/filter_stage.py:1266")):
+                a = acc[key]
+                row(name + sfx, "filter_stage_bwd.cu", replaces, a["err"], a["ms"], a["plain"],
+                    a["bounds"])
+
+
+def _tent_taps(f: int):
+    """The tent upsampling's 3f taps in conv order (a strided conv with them
+    is the upsampling's transpose, up to the clamped ends)."""
+    import numpy as np
+
+    a = (np.arange(f) + 0.5) / f - 0.5
+    k = np.zeros(3 * f, np.float32)
+    for j in range(f):
+        k[f + j] += 1.0 - abs(a[j])
+        if a[j] < 0:
+            k[j] += -a[j]  # this output's share of the previous sample
+        if a[j] > 0:
+            k[2 * f + j] += a[j]
+    return k
+
+
+def _osc_amps_grad_truth(f0, g, frame=480, sr=24000, fmin=20.0):
+    """float64 vjp of the oscillator bank in its amplitudes, ``[B, F, H1]``."""
+    import numpy as np
+
+    B, F_ = f0.shape
+    L = F_ * frame
+    src = np.clip((np.arange(L) + 0.5) / frame - 0.5, 0, F_ - 1)
+    j = np.floor(src).astype(int)
+    j1 = np.minimum(j + 1, F_ - 1)
+    fr = src - j
+    f0w = f0.astype(np.float64)[:, j] * (1 - fr) + f0.astype(np.float64)[:, j1] * fr
+    phase = np.cumsum(f0w / sr, axis=1)
+    uv = (f0 > fmin).astype(np.float64)
+    uv = uv[:, j] * (1 - fr) + uv[:, j1] * fr
+    out = np.zeros((B, F_, g.shape[1]))
+    for h in range(g.shape[1]):
+        m = g[:, h].astype(np.float64) * np.sin(2 * np.pi * np.mod(phase * (h + 1), 1.0)) * uv
+        for b in range(B):
+            out[b, :, h] = (np.bincount(j, m[b] * (1 - fr), F_) + np.bincount(j1, m[b] * fr, F_))
+    return out
+
+
+def _train_wrappers():
+    """(name in the kernels line, wrapper, bf16 counter) of every kernel the
+    training step runs."""
+    from tinyvc_tpu_torch.kernels import filter_stage as fs
+    from tinyvc_tpu_torch.kernels import oscillator as osc
+    from tinyvc_tpu_torch.kernels import resample as rs
+
+    return (("oscillator", osc.oscillator_bank), ("oscillator_grad", osc.oscillator_amps_grad),
+            ("upsample", rs.upsample_linear), ("downsample", rs.downsample_linear),
+            ("resample_grad", rs.resample_grad), ("stem", fs.conv3),
+            ("down_chain", fs.downsample_chain), ("up_chain", fs.upsample_chain),
+            ("stem_grad", fs.conv3_grad), ("down_chain_grad", fs.downsample_chain_grad),
+            ("up_chain_grad", fs.upsample_chain_grad))
+
+
+def _reset_train_counts() -> None:
+    for _, w in _train_wrappers():
+        w.launches = 0
+        if hasattr(w, "launches_bf16"):
+            w.launches_bf16 = 0
+
+
+def _train_counts() -> dict:
+    """Launches since the reset, by kernel (the stem counts with the down
+    chains, as in the forward rows): ``{name: (all, of them bf16)}``."""
+    counts = {}
+    for name, w in _train_wrappers():
+        name = {"stem": "down_chain", "stem_grad": "down_chain_grad"}.get(name, name)
+        n, n16 = counts.get(name, (0, 0))
+        counts[name] = (n + w.launches, n16 + getattr(w, "launches_bf16", 0))
+    return counts
+
+
+class _PlainDispatch:
+    """A stand-in for `kernels/build.py` in the given kernel modules that
+    sends CUDA tensors to the plain versions: the plain path of the step
+    comparison (never the main path)."""
+
+    def __init__(self, *modules):
+        self.modules = modules
+
+    def __enter__(self):
+        import types
+
+        from tinyvc_tpu_torch.kernels import build
+
+        proxy = types.SimpleNamespace(**{k: getattr(build, k) for k in dir(build)
+                                         if not k.startswith("__")})
+        proxy.on_cpu = lambda *t: True
+        self.saved = [m.build for m in self.modules]
+        for m in self.modules:
+            m.build = proxy
+        return self
+
+    def __exit__(self, *exc):
+        for m, b in zip(self.modules, self.saved):
+            m.build = b
+
+
+def phase_train_step(card: str) -> dict:
+    """One full-width pre-join step (B=16, 2 s, the two-speaker encoder and
+    decoder) in fp32, the kernel path against the plain path on the same
+    state, wave and key: the plain path runs every kernel of the U-Net and
+    the resamples as its plain version on the card; the oscillator pair (A,
+    I) runs in both, since its plain versions integrate the phase by the
+    XLA scheme, which differs by design and moves a voiced step's gradients
+    more than the bound (A and I are held to their plain versions above).
+    Returns the fp32 launches of the kernel-path step."""
+    import numpy as np
+    import torch
+
+    from tinyvc_tpu_torch.config import DecoderConfig, TinyVCConfig
+    from tinyvc_tpu_torch.kernels import filter_stage as fs
+    from tinyvc_tpu_torch.kernels import resample as rs
+    from tinyvc_tpu_torch.models.decoder import Decoder
+    from tinyvc_tpu_torch.train import decoder_train as dt
+    from tinyvc_tpu_torch.train.loop import load_encoder
+    from tinyvc_tpu_torch.utils import prng
+    from tinyvc_tpu_torch.utils.weights import load_npz, train_state_from_jax
+
+    models = os.path.join(ROOT, "models", "two_speaker")
+    cfg = TinyVCConfig(decoder=DecoderConfig(use_fused_filter_train="on"))
+    enc = load_encoder(os.path.join(models, "encoder_B.npz"), cfg, SEED, "cuda")
+    state = train_state_from_jax(load_npz(os.path.join(models, "decoder_B.npz")), cfg.decoder,
+                                 cfg.audio, "cuda")
+    wave = torch.from_numpy(_demo_windows()).cuda()
+    key = prng.split(prng.prng_key(SEED + 2))[1]
+    step = dt.make_train_step(cfg, d_join=False, spec_loss_type="mel", dtype_name="float32")
+    _reset_train_counts()
+    t0 = time.perf_counter()
+    loss_k, met_k, g_k = step.loss_and_grads(state, enc, wave, key)
+    torch.cuda.synchronize()
+    t_kernel = time.perf_counter() - t0
+    launches = {k: n for k, (n, _) in _train_counts().items()}
+    print(f"  kernel path: {t_kernel * 1e3:.1f} ms (cold), launches {launches}")
+    for name, n in launches.items():
+        _check(n > 0, f"{name} was not launched in the fp32 step")
+    t0 = time.perf_counter()
+    with _PlainDispatch(fs, rs):
+        loss_p, met_p, g_p = step.loss_and_grads(state, enc, wave, key)
+    torch.cuda.synchronize()
+    print(f"  plain path: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    for name in ("loss_spec", "loss_dsp"):
+        a, b = float(met_k[name]), float(met_p[name])
+        print(f"  {name}: kernel path {a:.6f}, plain path {b:.6f}, relative "
+              f"{abs(a - b) / abs(b):.2e} (tolerance {STEP_LOSS_RTOL:.0e})")
+        _check(abs(a - b) <= STEP_LOSS_RTOL * abs(b), f"{name} differs")
+    errs = _leaf_errors(g_k, g_p)
+    # the plain path against itself with the U-Net's source moved by 1e-7
+    # (relative): how far a leaky ReLU flipped by a rounding moves each leaf
+    orig = Decoder.dsp_train
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def nudged(self, *a):
+        src = orig(self, *a)
+        return src * (1.0 + 1e-7 * torch.randn(src.shape, device=src.device, generator=gen))
+
+    Decoder.dsp_train = nudged
+    try:
+        with _PlainDispatch(fs, rs):
+            _, met_n, g_n = step.loss_and_grads(state, enc, wave, key)
+    finally:
+        Decoder.dsp_train = orig
+    floor = _leaf_errors(g_n, g_p)
+    worst = sorted(errs, key=errs.get, reverse=True)
+    print(f"  gradient leaves ({len(errs)}): worst relative norm error kernel vs plain "
+          + ", ".join(f"{k} {errs[k]:.2e} (plain vs nudged plain {floor[k]:.2e})"
+                      for k in worst[:6])
+          + f"; median {statistics.median(errs.values()):.2e}, nudged median "
+          f"{statistics.median(floor.values()):.2e} (tolerance: median {STEP_GRAD_RTOL:.0e}, "
+          f"each leaf max({STEP_GRAD_RTOL:.0e}, {STEP_FLOOR_FACTOR:g} x nudged))")
+    _check(statistics.median(errs.values()) <= STEP_GRAD_RTOL, "gradients differ at the median")
+    for k, e in errs.items():
+        limit = max(STEP_GRAD_RTOL, STEP_FLOOR_FACTOR * floor[k])
+        _check(e <= limit, f"gradient of {k} differs by {e} > {limit}")
+    # the fp32 step warm (forward and backward, no update): host time and
+    # one profiled call
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step.loss_and_grads(state, enc, wave, key)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    kernels, _ = _profile_call(lambda: step.loss_and_grads(state, enc, wave, key))
+    print(f"  fp32 step (forward and backward) warm: {statistics.median(times) * 1e3:.3f} ms "
+          f"median of 3 ({card})")
+    _print_breakdown("fp32 step", kernels, statistics.median(times) * 1e3)
+    return launches
+
+
+def _leaf_errors(got: dict, want: dict) -> dict:
+    return {k: _rel_l2(got[k], want[k]) if float(want[k].norm()) > 0 else float(got[k].norm())
+            for k in want}
+
+
+def phase_train_cli(card: str) -> dict:
+    """``train_decoder`` through its CLI entry on a cache of the demo
+    windows: ``TrainConfig()`` (B=16, 2 s, bf16 operands on the card, the
+    TPU's choice), ``TRAIN_STEPS`` steps logged every step; warm ms per step
+    (synchronised, median of the steps after the first two), peak memory,
+    one profiled step. Returns the launches of the run's bf16 forms."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tinyvc_tpu_torch.cli import train_decoder as cli
+    from tinyvc_tpu_torch.train import decoder_train as dt
+    from tinyvc_tpu_torch.utils import prng
+    from tinyvc_tpu_torch.utils.audio_io import save_wav
+    from tinyvc_tpu_torch.utils.checkpoint import CheckpointManager
+
+    models = os.path.join(ROOT, "models", "two_speaker")
+    times, profiled = [], {}
+    orig_call = dt.TrainStep.__call__
+
+    def timed_call(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if len(times) == TRAIN_STEPS - 1:
+            profiled["kernels"] = _profile_call(lambda: orig_call(self, *a, **k))
+            out = profiled["kernels"][1]
+        else:
+            out = orig_call(self, *a, **k)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "cache")
+        os.makedirs(cache)
+        for i, w in enumerate(_demo_windows()):
+            save_wav(os.path.join(cache, f"{i}.wav"), w)
+            np.save(os.path.join(cache, f"{i}.f0.npy"), np.zeros(100, np.float32))
+        ckpt, logs = os.path.join(tmp, "ckpt"), os.path.join(tmp, "logs")
+        init = os.path.join(models, "decoder_B.npz")
+        _reset_train_counts()
+        torch.cuda.reset_peak_memory_stats()
+        dt.TrainStep.__call__ = timed_call
+        try:
+            cli.main(["--dataset-cache", cache, "-encp", os.path.join(models, "encoder_B.npz"),
+                      "--init-decoder", init, "-decp", ckpt, "--log-dir", logs,
+                      "-step", str(TRAIN_STEPS), "--log-interval", "1", "--save-interval",
+                      str(TRAIN_STEPS)])
+        finally:
+            dt.TrainStep.__call__ = orig_call
+        peak = torch.cuda.max_memory_allocated()
+        counts = _train_counts()
+        with open(os.path.join(logs, "metrics.jsonl")) as f:
+            lines = [json.loads(x) for x in f]
+        state = torch.load(os.path.join(ckpt, str(TRAIN_STEPS), "state.pt"), weights_only=False)
+        _check(CheckpointManager(ckpt).steps() == [TRAIN_STEPS], "no checkpoint on disk")
+        before = np.load(init)
+        moved = [k for k in before.files
+                 if not np.array_equal(state[f"gen_params/{k}"], before[k])]
+    losses = [(r["loss/Spectrogram"], r["loss/DSP"]) for r in lines]
+    print(f"  losses (spec, dsp) per step: "
+          + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in losses))
+    _check(len(lines) == TRAIN_STEPS and all(np.isfinite(losses).flatten()), "non-finite loss")
+    skipped = int(state["gen_opt/notfinite_count"])
+    print(f"  skipped_g {skipped}; {len(moved)} of {len(before.files)} parameters changed; "
+          f"launches (all, of them bf16) {counts}")
+    _check(skipped == 0, f"{skipped} steps skipped")
+    _check(len(moved) >= 0.9 * len(before.files), "the parameters did not change")
+    for name, (n, _) in counts.items():
+        _check(n > 0, f"{name} was not launched in train_decoder")
+    draws = []
+    for _ in range(3):  # the host's share: the noise phases drawn by threefry in numpy
+        t0 = time.perf_counter()
+        prng.uniform(prng.prng_key(SEED), (16, 100, 961), -math.pi, math.pi)
+        draws.append(time.perf_counter() - t0)
+    print(f"  host: the step's noise phases (16 x 100 x 961 uniform draws, utils/prng.py) "
+          f"{statistics.median(draws) * 1e3:.3f} ms median of 3")
+    warm = times[TRAIN_TIMED_FROM:TRAIN_STEPS - 1]  # the last step ran under the profiler
+    print(f"  warm step median {statistics.median(warm) * 1e3:.3f} ms over {len(warm)} "
+          f"(min {min(warm) * 1e3:.3f}, max {max(warm) * 1e3:.3f}); first two "
+          f"{times[0] * 1e3:.1f}, {times[1] * 1e3:.1f} ms; peak memory "
+          f"{peak / 2**30:.3f} GiB; B=16 x 2 s, {32.0 / statistics.median(warm):.1f} audio-s/s "
+          f"trained ({card})")
+    kernels = profiled["kernels"][0]
+    _print_breakdown("train step", kernels, statistics.median(warm) * 1e3)
+    return {k: n16 for k, (_, n16) in counts.items()}
+
+
+def _profile_call(fn):
+    """(device time by kernel name {name: [ms, count]}, fn's result) of one
+    call under torch.profiler."""
+    from collections import defaultdict
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kernels = defaultdict(lambda: [0.0, 0])
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels[evt.name]
+            k[0] += evt.time_range.elapsed_us() / 1e3
+            k[1] += 1
+    return dict(kernels), out
+
+
+def _print_breakdown(label: str, kernels: dict, wall_ms: float) -> None:
+    from collections import defaultdict
+
+    busy = sum(v[0] for v in kernels.values())
+    if busy == 0.0:
+        print(f"  {label}: the profiler recorded no device time; breakdown not measured")
+        return
+    print(f"  {label}: device busy {busy:.3f} ms in {sum(v[1] for v in kernels.values())} "
+          f"kernels, idle share {1.0 - busy / wall_ms:.3f}")
+    groups = defaultdict(float)
+    for name, (ms, _) in kernels.items():
+        groups[_profile_group(name)] += ms
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"    {group:38s} {ms:9.3f} ms  {ms / busy:6.1%}")
+    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"    top {ms:9.3f} ms  x{n:<4d} {name[:100]}")
+
+
 # Kernel-name fragments -> group for the profile; the first match wins.
 # cuDNN's convolutions are implicit GEMMs ("fprop_implicit_gemm",
 # "implicit_convolve_sgemm"), so they are matched before plain GEMMs.
 PROFILE_GROUPS = (
+    ("kernel I (oscillator gradient)", ("osc_amps_grad",)),
     ("kernel A (oscillator)", ("osc_frame_sums", "osc_synth")),
     ("kernel B (noise)", ("noise_synth",)),
     ("kernel C (upsample)", ("upsample_linear_kernel",)),
@@ -943,6 +1527,9 @@ PROFILE_GROUPS = (
     ("kernel F (up chains)", ("up_chain_step",)),
     ("kernel G (spectrogram)", ("spectrogram_dft",)),
     ("kernel H (kNN)", ("knn_topk", "knn_mean")),
+    ("kernel J (resample gradients)", ("upsample_grad_kernel", "downsample_grad_kernel")),
+    ("kernel K (up chain gradients)", ("up_grad_",)),
+    ("kernel L (stem, down chain gradients)", ("down_grad_",)),
     ("fft", ("fft",)),
     ("convolution", ("fprop", "implicit", "conv")),
     ("gemm", ("gemm",)),
@@ -1039,12 +1626,25 @@ def main() -> int:
     phase_profile(card, *ctx)
     phase_profile(card, serving, *ctx[1:], batches=(1, 8), label="serving")
     _done("profile", t0)
+    t0 = _phase("train")
+    import numpy as np
+
+    phase_train_kernels(kernels, np.random.default_rng(1), torch.device("cuda"))
+    step_launches = phase_train_step(card)
+    cli_launches = phase_train_cli(card)
+    for name in ("oscillator_grad", "resample_grad", "up_chain_grad", "down_chain_grad"):
+        launches[name] = step_launches[name]
+        if name != "oscillator_grad":
+            launches[name + "_bf16"] = cli_launches[name]
+    _done("train", t0)
     print(f"== total: {time.perf_counter() - t_all:.2f} s")
 
     rows = []
     for key in ("oscillator", "noise", "upsample", "downsample", "down_chain", "up_chain",
                 "spectrogram", "knn", "upsample_bf16", "downsample_bf16", "down_chain_bf16",
-                "up_chain_bf16"):
+                "up_chain_bf16", "oscillator_grad", "resample_grad", "resample_grad_bf16",
+                "up_chain_grad", "up_chain_grad_bf16", "down_chain_grad",
+                "down_chain_grad_bf16"):
         r = kernels[key]
         rows.append({k: r[k] for k in ("name", "route", "source", "replaces")}
                     | {"launches": launches[key]}

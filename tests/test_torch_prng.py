@@ -63,3 +63,20 @@ def test_convert_hands_kernel_b_the_jax_seed(seed, monkeypatch):
     key = jax.random.PRNGKey(seed)
     assert seen == [int(jax.random.randint(key, (), 0, jnp.iinfo(jnp.int32).max,
                                            dtype=jnp.int32))]
+
+
+@pytest.mark.parametrize("seed", (0, 1, 42, 2**31 - 1))
+@pytest.mark.parametrize("shape", ((2, 1), (2, 20, 961)))
+def test_uniform_matches_jax(seed, shape):
+    """The training step's draws: the gain ``uniform(k, (B, 1))`` and the
+    noise phases ``uniform(k, (B, F, 961), -pi, pi)``, bit for bit."""
+    import math
+
+    key = jax.random.PRNGKey(seed)
+    np.testing.assert_array_equal(prng.random_bits(prng.prng_key(seed), shape),
+                                  np.asarray(jax.random.bits(key, shape, jnp.uint32)))
+    for lo, hi in ((0.0, 1.0), (-math.pi, math.pi)):
+        want = np.asarray(jax.random.uniform(key, shape, minval=lo, maxval=hi))
+        got = prng.uniform(prng.prng_key(seed), shape, lo, hi)
+        assert got.dtype == np.float32 and got.shape == shape
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

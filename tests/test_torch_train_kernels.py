@@ -1,0 +1,344 @@
+"""The training step's gradient kernels of the port (I, J, K, L in
+`tinyvc_tpu_torch/kernels/`) against the JAX package's backward functions,
+run in interpret mode on the CPU in fp32, as `tests/test_filter_stage.py`
+and `tests/test_resample.py` run them. On CPU tensors each wrapper takes its
+plain version; `chip_smoke.py` holds the CUDA kernels to these plain
+versions on the card. Each comparison prints its measured error."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tinyvc_tpu.ops.pallas import filter_stage as jfs
+from tinyvc_tpu.ops.pallas.oscillator import _pallas_backward_amps, _xla_fallback
+from tinyvc_tpu.ops.pallas.resample import downsample_vjp as j_downsample_vjp
+from tinyvc_tpu.ops.pallas.resample import upsample_vjp as j_upsample_vjp
+from tinyvc_tpu_torch.kernels import build
+from tinyvc_tpu_torch.kernels import filter_stage as fs
+from tinyvc_tpu_torch.kernels import oscillator, resample
+
+# fp32 sums in another order than the JAX backward kernels': ~1e-6 of each
+# output's peak measured; 1e-4 of the peak is the bound
+PEAK_RTOL = 1e-4
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _rel_peak(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _r(rng, *shape, scale=0.5):
+    return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+
+def _osc_amps_grad_truth(f0, g, frame=480, sr=24000, fmin=20.0):
+    """float64 vjp of ``oscillate_harmonics(f0) * interp(amps)`` in amps."""
+    B, F = f0.shape
+    L = F * frame
+    src = np.clip((np.arange(L) + 0.5) / frame - 0.5, 0, F - 1)
+    j = np.floor(src).astype(int)
+    j1 = np.minimum(j + 1, F - 1)
+    fr = src - j
+
+    def interp(x):
+        return x[:, j] * (1 - fr) + x[:, j1] * fr
+
+    phase = np.cumsum(interp(f0.astype(np.float64)) / sr, axis=1)
+    uv = interp((f0 > fmin).astype(np.float64))
+    k = np.arange(1, g.shape[1] + 1)
+    m = np.transpose(g, (0, 2, 1)) * np.sin(2 * np.pi * np.mod(phase[:, :, None] * k, 1.0))
+    m = m * uv[:, :, None]
+    out = np.zeros((B, F, g.shape[1]))
+    for b in range(B):
+        np.add.at(out[b], j, m[b] * (1 - fr)[:, None])
+        np.add.at(out[b], j1, m[b] * fr[:, None])
+    return out
+
+
+def test_oscillator_amps_grad_matches_jax(rng):
+    """Kernel I's plain version against the JAX package's exact vjp of the
+    same oscillator (the XLA chain `_xla_fallback`, the phase scheme the
+    plain version ports), and against the Pallas backward kernel it
+    replaces, whose phase is integrated by another scheme (ROADMAP.md §3:
+    in interpret mode it departs further from the float64 vjp than the
+    port does)."""
+    B, F, H1 = 2, 20, 15
+    f0 = (150.0 + 20.0 * rng.standard_normal((B, F))).astype(np.float32)
+    f0[1, 3:6] = 0.0  # an unvoiced run
+    g = _r(rng, B, H1, F * 480, scale=1.0)
+    got = oscillator.oscillator_amps_grad(_t(f0), _t(g)).numpy()
+
+    amps = np.ones((B, F, H1), np.float32)
+    _, vjp = jax.vjp(lambda a: _xla_fallback(jnp.asarray(f0), a, 480, 24000, 20.0),
+                     jnp.asarray(amps))
+    (want_xla,) = vjp(jnp.asarray(np.transpose(g, (0, 2, 1))))
+    err_xla = _rel_peak(got, want_xla)
+    want_pallas = jax.jit(lambda f, gg: _pallas_backward_amps(f, gg, 480, 24000, 20.0, 24, True))(
+        f0, g)
+    truth = _osc_amps_grad_truth(f0, g)
+    err_port_truth = _rel_peak(got, truth)
+    err_pallas_truth = _rel_peak(want_pallas, truth)
+    print(f"I: vs XLA vjp {err_xla:.2e}, vs Pallas {_rel_peak(got, want_pallas):.2e}; "
+          f"from the float64 vjp: port {err_port_truth:.2e}, Pallas {err_pallas_truth:.2e}")
+    assert got.shape == (B, F, H1)
+    assert err_xla <= PEAK_RTOL
+    assert err_port_truth <= err_pallas_truth
+    assert oscillator.oscillator_amps_grad.launches == 0
+
+
+def test_oscillator_bank_function_grads_amps_only(rng):
+    f0 = torch.full((1, 6), 140.0)
+    amps = torch.rand(1, 6, 15, requires_grad=True)
+    f0.requires_grad_()
+    y = oscillator.OscillatorBank.apply(f0, amps, 480, 24000, 20.0)
+    g = torch.from_numpy(_r(rng, 1, 15, 6 * 480))
+    y.backward(g)
+    assert f0.grad is None
+    want = oscillator.oscillator_amps_grad_plain(f0.detach(), g)
+    np.testing.assert_allclose(amps.grad.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("f,T", [(4, 2400), (5, 1920), (3, 37)])
+def test_upsample_grad_matches_jax(rng, f, T):
+    """J's up mode: the vjp of `upsample_vjp` (band transpose and edge
+    corrections, interpret mode)."""
+    x = _r(rng, 2, 3, T)
+    g = _r(rng, 2, 3, T * f, scale=1.0)
+    _, vjp = jax.vjp(lambda a: j_upsample_vjp(a, f, 128 * f * 4, True, T * f), jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(g))
+    got = resample.resample_grad(_t(g.reshape(6, -1)), T, f, True).numpy().reshape(2, 3, T)
+    err = _rel_peak(got, want)
+    print(f"J up f={f} T={T}: {err:.2e}")
+    assert err <= PEAK_RTOL
+    assert resample.resample_grad.launches == 0
+
+
+@pytest.mark.parametrize("f,T", [(4, 9600), (5, 9600), (3, 1000)])
+def test_downsample_grad_matches_jax(rng, f, T):
+    """J's down mode, with an input longer than a whole number of blocks
+    where T allows."""
+    x = _r(rng, 2, 3, T)
+    n = T // f
+    g = _r(rng, 2, 3, n, scale=1.0)
+    _, vjp = jax.vjp(lambda a: j_downsample_vjp(a, f, 2560, True, n), jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(g))
+    got = resample.resample_grad(_t(g.reshape(6, -1)), T, f, False).numpy().reshape(2, 3, T)
+    err = _rel_peak(got, want)
+    print(f"J down f={f} T={T}: {err:.2e}")
+    assert err <= PEAK_RTOL
+
+
+def test_resample_functions_are_c_d_forward_j_backward(rng):
+    x = torch.from_numpy(_r(rng, 2, 3, 50)).requires_grad_()
+    y = resample.upsample_vjp(x, 4)
+    g = torch.from_numpy(_r(rng, 2, 3, 200))
+    y.backward(g)
+    want = resample.upsample_linear_grad_plain(g.reshape(6, -1), 50, 4).reshape(2, 3, 50)
+    np.testing.assert_array_equal(x.grad.numpy(), want.numpy())
+    x.grad = None
+    y = resample.downsample_vjp(x, 5)
+    y.backward(torch.ones_like(y))
+    assert y.shape == (2, 3, 10)
+    np.testing.assert_array_equal(x.grad.sum(-1).numpy(), np.full((2, 3), 10.0))
+
+
+def _up_weights(rng, C, co, fold):
+    return [_r(rng, 4, C, 3 * C, scale=0.3), _r(rng, 4, C, 1, scale=0.1),
+            _r(rng, 4 * C, C, scale=0.3), _r(rng, 4 * C, 1, scale=0.1),
+            _r(rng, fold or co, C, scale=0.3), _r(rng, fold or co, 1, scale=0.1)]
+
+
+@pytest.mark.parametrize("fold", [0, 7])
+def test_up_chain_grad_matches_jax(rng, fold):
+    """K against `fused_upsample_chain_t_bwd` (tiles of 512 over 1920
+    samples, so the spill bands and the padded tail are exercised), every
+    output: input, cond, all weights and biases, and gbout."""
+    B, C, T = 2, 12, 1920
+    co = 1 if fold else 8
+    xu, cond = _r(rng, B, C, T), _r(rng, B, C, T)
+    ws = _up_weights(rng, C, co, fold)
+    bout = _r(rng, 1, 1, scale=0.1)
+    gy = _r(rng, B, co, T, scale=1.0)
+    want = jax.jit(lambda *a: jfs.fused_upsample_chain_t_bwd(
+        *a, dtype_name="float32", t_blk=512, interpret=True, fold_k=fold))(xu, cond, *ws, gy)
+    got = fs.upsample_chain_grad(_t(xu), _t(cond), *map(_t, ws), _t(gy), fold,
+                                 _t(bout) if fold else None)
+    names = "gx gc gwconv gbconv gwfilm gbfilm gw5 gb5".split()
+    errs = {n: _rel_peak(g.numpy(), w) for n, g, w in zip(names, got, want)}
+    print(f"K fold={fold}: " + ", ".join(f"{n} {e:.1e}" for n, e in errs.items()))
+    assert max(errs.values()) <= PEAK_RTOL, errs
+    if fold:
+        np.testing.assert_allclose(got[8].numpy(), np.asarray(want[8]), rtol=1e-5)
+    else:
+        assert float(got[8].abs().max()) == 0.0 == float(np.abs(want[8]).max())
+    assert fs.upsample_chain_grad.launches == 0
+
+
+def test_down_chain_grad_matches_jax(rng):
+    """L against `fused_downsample_chain_t_bwd`, every output."""
+    B, cin, co, T = 2, 12, 16, 1920
+    z = _r(rng, B, cin, T)
+    ws = [_r(rng, co, cin, scale=0.3), _r(rng, co, 1, scale=0.1),
+          _r(rng, cin, 3 * cin, scale=0.3), _r(rng, cin, 1, scale=0.1),
+          _r(rng, cin, 3 * cin, scale=0.3), _r(rng, cin, 1, scale=0.1),
+          _r(rng, co, 3 * cin, scale=0.3), _r(rng, co, 1, scale=0.1)]
+    gy = _r(rng, B, co, T, scale=1.0)
+    want = jax.jit(lambda *a: jfs.fused_downsample_chain_t_bwd(
+        *a, dtype_name="float32", t_blk=512, interpret=True))(z, *ws, gy)
+    got = fs.downsample_chain_grad(_t(z), *map(_t, ws), _t(gy))
+    errs = [_rel_peak(g.numpy(), w) for g, w in zip(got, want)]
+    print("L down: " + ", ".join(f"{e:.1e}" for e in errs))
+    assert max(errs) <= PEAK_RTOL
+
+
+def test_stem_grad_matches_jax(rng):
+    """L in stem mode against `fused_conv3_t_bwd` with the stem's 17 true
+    input channels packed into 24: the zero rows get no gradient, and the
+    weight gradient of the zero columns is the packing's to drop."""
+    B, T, co = 2, 1920, 8
+    x = _r(rng, B, 24, T)
+    x[:, 17:] = 0.0
+    w = _r(rng, co, 3 * 17, scale=0.3)
+    b = _r(rng, co, 1, scale=0.1)
+    gy = _r(rng, B, co, T, scale=1.0)
+    want = jax.jit(lambda *a: jfs.fused_conv3_t_bwd(
+        *a, dtype_name="float32", t_blk=512, interpret=True, w_cin=17))(x, w, b, gy)
+    wp = np.concatenate([w.reshape(co, 3, 17), np.zeros((co, 3, 7), np.float32)], 2)
+    gx, gw, gb = fs.conv3_grad(_t(x), _t(wp.reshape(co, 72)), _t(b), _t(gy))
+    gw = gw.numpy().reshape(co, 3, 24)
+    errs = [_rel_peak(gx.numpy(), want[0]), _rel_peak(gw[:, :, :17].reshape(co, 51), want[1]),
+            _rel_peak(gb.numpy(), want[2])]
+    print("L stem: " + ", ".join(f"{e:.1e}" for e in errs))
+    assert max(errs) <= PEAK_RTOL
+    assert float(gx[:, 17:].abs().max()) == 0.0
+
+
+def _bf16(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+def _rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+
+
+@pytest.mark.parametrize("fold", [0, 7])
+def test_up_chain_grad_bf16_rounds_where_jax_does(rng, fold):
+    """K's plain version with bf16 operands against the JAX backward kernel
+    with ``dtype_name="bfloat16"``: the same rounding places, so the two
+    differ where a rounding lands one bf16 step apart (~1e-3 of the norm),
+    against ~0.1 for the fp32 plain version."""
+    B, C, T = 2, 12, 1920
+    co = 1 if fold else 8
+    xu, cond = _bf16(_r(rng, B, C, T)), _bf16(_r(rng, B, C, T))
+    ws = _up_weights(rng, C, co, fold)
+    bout = _r(rng, 1, 1, scale=0.1)
+    gy = _r(rng, B, co, T, scale=1.0)
+    want = jax.jit(lambda *a: jfs.fused_upsample_chain_t_bwd(
+        *a, dtype_name="bfloat16", t_blk=512, interpret=True, fold_k=fold))(xu, cond, *ws, gy)
+    args = (*map(_t, ws), _t(gy), fold, _t(bout) if fold else None)
+    got = fs.upsample_chain_grad(_t(xu).bfloat16(), _t(cond).bfloat16(), *args)
+    fp32 = fs.upsample_chain_grad(_t(xu), _t(cond), *args)
+    errs = [_rel_l2(g.numpy(), w) for g, w in zip(got[:8], want)]
+    errs32 = [_rel_l2(g.numpy(), w) for g, w in zip(fp32[:8], want)]
+    print(f"K bf16 fold={fold}: relative L2 " + ", ".join(f"{e:.1e}" for e in errs)
+          + "; fp32 plain " + ", ".join(f"{e:.1e}" for e in errs32))
+    assert max(errs) <= 2.0**-7
+    assert max(errs32) > 2.0**-7  # the check can tell bf16 from fp32
+
+
+def test_down_chain_grad_bf16_rounds_where_jax_does(rng):
+    B, cin, co, T = 2, 12, 16, 1920
+    z = _bf16(_r(rng, B, cin, T))
+    ws = [_r(rng, co, cin, scale=0.3), _r(rng, co, 1, scale=0.1),
+          _r(rng, cin, 3 * cin, scale=0.3), _r(rng, cin, 1, scale=0.1),
+          _r(rng, cin, 3 * cin, scale=0.3), _r(rng, cin, 1, scale=0.1),
+          _r(rng, co, 3 * cin, scale=0.3), _r(rng, co, 1, scale=0.1)]
+    gy = _r(rng, B, co, T, scale=1.0)
+    want = jax.jit(lambda *a: jfs.fused_downsample_chain_t_bwd(
+        *a, dtype_name="bfloat16", t_blk=512, interpret=True))(z, *ws, gy)
+    got = fs.downsample_chain_grad(_t(z).bfloat16(), *map(_t, ws), _t(gy))
+    errs = [_rel_l2(g.numpy(), w) for g, w in zip(got, want)]
+    print("L bf16: relative L2 " + ", ".join(f"{e:.1e}" for e in errs))
+    assert max(errs) <= 2.0**-7
+
+
+def test_plain_grads_are_autograd_of_the_plain_forwards_in_fp32(rng):
+    """In fp32 the plain versions of K and L are exactly autograd through
+    the plain forwards (no rounding placed)."""
+    B, C, T = 1, 8, 300
+    xu = torch.from_numpy(_r(rng, B, C, T)).requires_grad_()
+    cond = torch.from_numpy(_r(rng, B, C, T)).requires_grad_()
+    ws = [torch.from_numpy(w).requires_grad_() for w in _up_weights(rng, C, 4, 0)]
+    gy = torch.from_numpy(_r(rng, B, 4, T))
+    fs.upsample_chain_plain(xu, cond, *ws).backward(gy)
+    got = fs.upsample_chain_grad(xu.detach(), cond.detach(), *[w.detach() for w in ws], gy)
+    for a, b in zip(got, [xu.grad, cond.grad] + [w.grad for w in ws]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-7)
+
+
+def test_chain_functions_cast_and_return_grads_in_input_dtypes(rng):
+    """The bf16-operand chains store the down path in bf16 and return each
+    input's gradient in that input's dtype, as the JAX package's custom_vjp
+    entries do."""
+    x = torch.from_numpy(_r(rng, 1, 24, 200)).requires_grad_()
+    w = torch.from_numpy(_r(rng, 8, 72, scale=0.2)).requires_grad_()
+    b = torch.zeros(8, 1, requires_grad=True)
+    y = fs.Stem.apply(x, w, b, True)
+    assert y.dtype == torch.bfloat16
+    y.float().sum().backward()
+    assert x.grad.dtype == torch.float32 and w.grad.dtype == torch.float32
+
+
+class _Launched(RuntimeError):
+    pass
+
+
+@pytest.mark.parametrize("name", ["I", "J", "K", "L", "stem"])
+def test_cuda_tensors_launch_the_kernel_or_raise(monkeypatch, rng, name):
+    """A tensor that is not on the CPU never reaches the plain version: the
+    wrapper launches its kernel (here a stand-in that fails, as a card
+    without the library would), and the failure propagates."""
+    launched = []
+
+    def fake_launch(kernel, *args):
+        launched.append(kernel)
+        raise _Launched(kernel)
+
+    monkeypatch.setattr(build, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(build, "check_input", lambda *a, **k: None)
+    monkeypatch.setattr(build, "launch", fake_launch)
+    for plain in ("oscillator_amps_grad_plain", "upsample_linear_grad_plain",
+                  "upsample_chain_grad_plain", "downsample_chain_grad_plain", "conv3_grad_plain"):
+        for mod in (oscillator, resample, fs):
+            if hasattr(mod, plain):
+                monkeypatch.setattr(mod, plain, None)  # calling it would fail differently
+    if name == "I":
+        call, kernel = (lambda: oscillator.oscillator_amps_grad(
+            torch.full((1, 4), 100.0), torch.zeros(1, 15, 4 * 480))), "tvc_oscillator_amps_grad"
+    elif name == "J":
+        call, kernel = (lambda: resample.resample_grad(
+            torch.zeros(2, 40), 10, 4, True)), "tvc_resample_grad"
+    elif name == "K":
+        ws = [_t(w) for w in _up_weights(rng, 8, 4, 0)]
+        call, kernel = (lambda: fs.upsample_chain_grad(
+            torch.zeros(1, 8, 50), torch.zeros(1, 8, 50), *ws, torch.zeros(1, 4, 50))), \
+            "tvc_up_chain_grad"
+    elif name == "L":
+        ws = [torch.zeros(s) for s in ((8, 4), (8, 1), (4, 12), (4, 1), (4, 12), (4, 1),
+                                       (8, 12), (8, 1))]
+        call, kernel = (lambda: fs.downsample_chain_grad(
+            torch.zeros(1, 4, 50), *ws, torch.zeros(1, 8, 50))), "tvc_down_chain_grad"
+    else:
+        call, kernel = (lambda: fs.conv3_grad(
+            torch.zeros(1, 8, 50), torch.zeros(4, 24), torch.zeros(4, 1),
+            torch.zeros(1, 4, 50))), "tvc_conv3_grad"
+    with pytest.raises(_Launched):
+        call()
+    assert launched == [kernel]

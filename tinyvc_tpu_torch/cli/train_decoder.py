@@ -1,0 +1,89 @@
+"""CLI: the decoder's GAN training before the discriminator joins
+(counterpart of `tinyvc_tpu/cli/train_decoder.py`).
+
+    python -m tinyvc_tpu_torch.cli.train_decoder --dataset-cache dataset_cache \\
+        -encp models/two_speaker/encoder_B.npz -decp models/decoder \\
+        --init-decoder models/two_speaker/decoder_B.npz
+
+The cache is the JAX package's (``{i}.wav`` at 24 kHz, ``{i}.f0.npy``);
+``-encp`` a params-only ``.npz``; ``-decp`` the checkpoint directory,
+resumed when it holds a checkpoint; ``--init-decoder`` an ``.npz`` to start
+from instead of a random init. ``--device cuda`` (the default) fails when
+CUDA is absent; ``--device cpu`` runs the kernels' plain versions. The
+flags of later slices are refused: ``--remat``, ``--device-data``, ``-K``
+and the multi-host ones.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+REFUSED = {
+    "remat": "--remat (recomputing the U-Net in the backward) is not ported yet",
+    "device_data": "--device-data (the cache held on the device) is not ported yet",
+    "steps_per_dispatch": "-K (several steps per dispatch) is not ported yet",
+    "coordinator_address": "multi-host training is not ported yet",
+    "num_processes": "multi-host training is not ported yet",
+    "process_id": "multi-host training is not ported yet",
+}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="train the DDSP vocoder (PyTorch/CUDA, pre-join)")
+    p.add_argument("--dataset-cache", default="dataset_cache")
+    p.add_argument("-encp", "--encoder-path", default=None,
+                   help="params-only .npz of the frozen encoder (default: random)")
+    p.add_argument("-decp", "--decoder-path", default="models/decoder",
+                   help="checkpoint directory")
+    p.add_argument("--init-decoder", default=None,
+                   help="params-only .npz to start from when -decp holds no checkpoint")
+    p.add_argument("-d-join", "--discriminator-join", default=100000, type=int)
+    p.add_argument("-step", "--max-steps", default=300000, type=int)
+    p.add_argument("-lr", "--learning-rate", type=float, default=1e-4)
+    p.add_argument("-b", "--batch-size", default=16, type=int)
+    p.add_argument("--log-interval", default=50, type=int)
+    p.add_argument("--save-interval", default=500, type=int)
+    p.add_argument("--log-dir", default="./logs")
+    p.add_argument("-spec-type", choices=["ms-stft", "mel"], default="ms-stft")
+    p.add_argument("--weight-adv", default=2.0, type=float)
+    p.add_argument("--weight-dsp", default=1.0, type=float)
+    p.add_argument("--weight-spec", default=1.0, type=float)
+    p.add_argument("--weight-feat", default=2.0, type=float)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--remat", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--device-data", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("-K", "--steps-per-dispatch", default=None, type=int, help=argparse.SUPPRESS)
+    p.add_argument("--coordinator-address", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--num-processes", default=None, type=int, help=argparse.SUPPRESS)
+    p.add_argument("--process-id", default=None, type=int, help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    for flag, why in REFUSED.items():
+        if getattr(args, flag) not in (None, False):
+            p.error(f"{why} (ROADMAP.md)")
+
+    from ..config import TinyVCConfig
+    from ..train.loop import train_decoder
+
+    cfg = TinyVCConfig()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train,
+        batch_size=args.batch_size,
+        learning_rate=args.learning_rate,
+        log_interval=args.log_interval,
+        save_interval=args.save_interval,
+        max_steps=args.max_steps,
+        discriminator_join=args.discriminator_join,
+        weight_adv=args.weight_adv,
+        weight_dsp=args.weight_dsp,
+        weight_spec=args.weight_spec,
+        weight_feat=args.weight_feat,
+    ))
+    train_decoder(cfg, dataset_dir=args.dataset_cache, encoder_path=args.encoder_path,
+                  ckpt_dir=args.decoder_path, log_dir=args.log_dir,
+                  spec_loss_type=args.spec_type, device=args.device,
+                  init_decoder=args.init_decoder)
+
+
+if __name__ == "__main__":
+    main()

@@ -20,6 +20,16 @@ kernel H, by the JAX package's gates (`infer/generator.py`).
 decoder's tensors lie on CUDA and the layer-by-layer U-Net
 (`models/decoder.py::FilterNet`) on the CPU, as `_on_cpu_backend()` picks
 for JAX; "on" and "off" force one or the other on either device.
+``DecoderConfig.use_fused_filter_train`` is the same switch for the GAN
+training step (`train/decoder_train.py`): "auto" trains the differentiable
+fused U-Net (kernels C-F forward, I-L backward) on CUDA tensors and the
+layer-by-layer U-Net on the CPU, as JAX picks on a TPU and on its CPU
+backend; "on" trains the fused U-Net on either device (on the CPU through
+the kernels' plain versions, as JAX runs its kernels in interpret mode),
+"off" the layer-by-layer one.
+
+``TrainConfig`` and ``MelConfig`` are `tinyvc_tpu/config.py`'s, field for
+field.
 """
 
 from __future__ import annotations
@@ -65,6 +75,7 @@ class DecoderConfig:
     filter_factors: Tuple[int, ...] = (2, 3, 4, 4, 5)
     content_channels: int = 768
     use_fused_filter: str = "auto"  # 'auto' | 'on' | 'off'
+    use_fused_filter_train: str = "auto"  # 'auto' | 'on' | 'off'
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
 
 
@@ -77,11 +88,49 @@ class RetrievalConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 16
+    learning_rate: float = 1e-4
+    adam_betas_gan: Tuple[float, float] = (0.8, 0.99)
+    grad_clip: float = 1.0
+    # decoder GAN schedule
+    max_steps: int = 300000
+    discriminator_join: int = 100000
+    weight_adv: float = 2.0
+    weight_dsp: float = 1.0
+    weight_spec: float = 1.0
+    weight_feat: float = 2.0
+    # encoder distillation
+    encoder_epochs: int = 60
+    distill_weight: float = 45.0
+    unvoiced_class_weight: float = 5e-3
+    # data
+    chunk_length: int = 48000  # 2 s at 24 kHz
+    # logging / checkpoints
+    log_interval: int = 50
+    save_interval: int = 500
+    # GAN crop fed to the discriminators
+    disc_crop: int = 8000
+
+
+@dataclasses.dataclass(frozen=True)
+class MelConfig:
+    """The log-mel loss's spectrogram (``-spec-type mel``)."""
+
+    sample_rate: int = 24000
+    n_fft: int = 1024
+    hop_size: int = 256
+    n_mels: int = 80
+
+
+@dataclasses.dataclass(frozen=True)
 class TinyVCConfig:
     audio: AudioConfig = dataclasses.field(default_factory=AudioConfig)
     encoder: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
     decoder: DecoderConfig = dataclasses.field(default_factory=DecoderConfig)
     retrieval: RetrievalConfig = dataclasses.field(default_factory=RetrievalConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    mel: MelConfig = dataclasses.field(default_factory=MelConfig)
 
 
 def serving_config() -> TinyVCConfig:

@@ -12,7 +12,7 @@ import functools
 import numpy as np
 import torch
 
-from .stft import stft
+from .stft import stft_magnitude
 
 
 def _hz_to_mel(f):
@@ -41,11 +41,18 @@ def log_mel_spectrogram(
     hop: int = 256, n_mels: int = 80, eps: float = 1e-6,
 ) -> torch.Tensor:
     """wave ``[B, L]`` -> ``log(power mel + eps)`` ``[B, L//hop + 1, n_mels]``."""
-    y = stft(wave, n_fft, hop)
-    mag = torch.sqrt(y.real * y.real + y.imag * y.imag + 1e-24)
-    power = mag * mag
+    return torch.log(mel_spectrogram(wave, sample_rate, n_fft, hop, n_mels) + eps)
+
+
+def mel_spectrogram(
+    wave: torch.Tensor, sample_rate: int = 24000, n_fft: int = 1024,
+    hop: int = 256, n_mels: int = 80,
+) -> torch.Tensor:
+    """wave ``[B, L]`` -> power mel ``[B, L//hop + 1, n_mels]`` of the
+    gradient-safe magnitude."""
+    mag = stft_magnitude(wave, n_fft, hop, grad_safe=True)
     fb = torch.from_numpy(mel_filterbank(sample_rate, n_fft, n_mels)).to(wave.device)
-    return torch.log(power @ fb + eps)
+    return (mag * mag) @ fb
 
 
 def log_mel_l1(a: torch.Tensor, b: torch.Tensor) -> float:

@@ -44,6 +44,21 @@ def stft(x: torch.Tensor, n_fft: int, hop: int, drop_first: bool = False) -> tor
     return torch.fft.rfft(frames * hann_window(n_fft, x.device), dim=-1)
 
 
+MAG_EPS = 1e-24  # inside the sqrt: shifts magnitudes by <= 1e-12 absolute
+
+
+def stft_magnitude(x: torch.Tensor, n_fft: int, hop: int, drop_first: bool = False,
+                   grad_safe: bool = False) -> torch.Tensor:
+    """``|stft(x)|``; with ``grad_safe``, ``sqrt(re^2 + im^2 + 1e-24)``
+    (`tinyvc_tpu/dsp/stft.py::_safe_magnitude`), whose gradient stays
+    finite at silence where the bare magnitude's is re/0. The training
+    losses take the safe form; the serving spectrogram keeps the bare one."""
+    y = stft(x, n_fft, hop, drop_first=drop_first)
+    if grad_safe:
+        return torch.sqrt(y.real * y.real + y.imag * y.imag + MAG_EPS)
+    return y.abs()
+
+
 def spectrogram(x: torch.Tensor, n_fft: int = 1920, hop: int = 480) -> torch.Tensor:
     """Magnitude spectrogram ``[B, L//hop, n_fft//2+1]`` with frame 0
     dropped; L must be a multiple of ``hop``."""

@@ -20,7 +20,20 @@
   bf16-rounded rows
   (replaces `tinyvc_tpu/ops/pallas/knn.py::pallas_match_features`)
 
-C-F also take bf16 tensors, the serving profile's forms. Each wrapper takes
+The training step's gradients (`train/decoder_train.py`):
+
+- I, `oscillator.py`: the oscillator bank's amplitude gradient
+  (replaces `tinyvc_tpu/ops/pallas/oscillator.py::_pallas_backward_amps`)
+- J, `resample.py`: the gradients of C and D
+  (replaces `tinyvc_tpu/ops/pallas/resample.py::_up_bwd`, ``_down_bwd``)
+- K, `filter_stage.py`: the Upsample chains' gradient, with and without the
+  folded output conv (replaces
+  `tinyvc_tpu/ops/pallas/filter_stage.py::fused_upsample_chain_t_bwd`)
+- L, `filter_stage.py`: the Downsample chains' and the stem's gradients
+  (replaces `tinyvc_tpu/ops/pallas/filter_stage.py::_run_down_bwd`)
+
+C-F and J-L also take bf16 tensors, the serving profile's and the training
+step's bf16-operand forms. Each wrapper takes
 its plain version for tensors on the CPU and launches its kernel for CUDA
 tensors, or raises. `build.py` compiles `csrc/*.cu` at first use, one
 ``nvcc`` per source, and launches every kernel under its tensor's device.

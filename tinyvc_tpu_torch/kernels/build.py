@@ -45,6 +45,11 @@ SIGNATURES = {
     "tvc_up_chain": [_P] * 11 + [_I] * 8 + [_P],
     "tvc_spectrogram": [_P] * 4 + [_I] * 4 + [_P],
     "tvc_knn": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
+    "tvc_oscillator_amps_grad": [_P] * 5 + [_I] * 4 + [_F, _F, _P],
+    "tvc_resample_grad": [_P, _P, _LL, _I, _I, _I, _I, _P],
+    "tvc_up_chain_grad": [_P] * 19 + [_LL] + [_I] * 8 + [_P],
+    "tvc_down_chain_grad": [_P] * 20 + [_LL] + [_I] * 7 + [_P],
+    "tvc_conv3_grad": [_P] * 7 + [_LL] + [_I] * 7 + [_P],
 }
 
 _lib = None

@@ -1,4 +1,5 @@
-"""Kernels E and F: the fused U-Net's conv chains (`csrc/filter_stage.cu`).
+"""Kernels E, F, K and L: the fused U-Net's conv chains and their
+gradients (`csrc/filter_stage.cu`, `csrc/filter_stage_bwd.cu`).
 
 - E replaces `tinyvc_tpu/ops/pallas/filter_stage.py::_run_down_kernel`:
   :func:`downsample_chain` (``fused_downsample_chain_t``, one Downsample
@@ -34,7 +35,34 @@ and the folded output conv stay fp32. E returns bf16, F fp32 (or bf16 with
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels, or
 raise. Each wrapper counts its calls that launched (``launches``); one call
-is 1 CUDA launch for the stem, 3 for a down chain and 5 for an up chain.
+is 1 CUDA launch for the stem, 3 for a down chain and 5 for an up chain, and
+for their gradients 4, 15 and 27.
+
+The training step's gradients (the JAX package's custom_vjp entries
+``up_chain_vjp``, ``down_chain_vjp``, ``stem_conv_vjp``):
+
+- K, :func:`upsample_chain_grad`, replaces
+  `tinyvc_tpu/ops/pallas/filter_stage.py::fused_upsample_chain_t_bwd`
+  (``_up_bwd_kernel``, ``_spill_add``), with and without the folded output
+  conv (then it also returns ``gbout``, and the gradients of the folded
+  ``w5c = w_out @ w5`` and ``b5c = w_out @ b5``, which autograd carries back
+  to ``w5``, ``b5`` and the output conv).
+- L, :func:`downsample_chain_grad` and :func:`conv3_grad`, replace
+  ``_run_down_bwd`` (``fused_downsample_chain_t_bwd``, ``fused_conv3_t_bwd``).
+
+Each is the exact vjp of its forward: the gradient of the edge-replicated
+pad folds onto the first and last input sample. Their plain versions are
+autograd through the plain forwards above, with the bf16 rounding of the
+JAX package's backward kernels: a product's operands are rounded in the
+forward with a straight-through gradient, its cotangent is rounded before
+both of its transposed products (``_conv_cf_T``, ``_taps_cf`` cast it),
+the bias and every elementwise step see the fp32 cotangent, and the folded
+output conv, fp32 in the forward, rounds its operands in the backward as
+the TPU does (``gw5``/``g_r2`` in ``_up_bwd_kernel``). In fp32 they are
+plain autograd. :class:`UpChain`, :class:`DownChain` and :class:`Stem`
+(``up_chain_vjp``, ``down_chain_vjp``, ``stem_conv_vjp``, the JAX
+package's names) are the differentiable chains, forward F or E, backward K
+or L.
 """
 
 from __future__ import annotations
@@ -57,10 +85,61 @@ def _lrelu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.1)
 
 
+def _round_bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
 def _operand(t: torch.Tensor, bf16: bool) -> torch.Tensor:
     """``t`` as a product operand: rounded to bf16 (and kept in fp32, where
-    a product of two such values is exact) under bf16, else as it is."""
-    return t.to(torch.bfloat16).float() if bf16 else t
+    a product of two such values is exact) under bf16, else as it is. Under
+    autograd the rounding passes the gradient straight through."""
+    if not bf16:
+        return t
+    if t.requires_grad and torch.is_grad_enabled():
+        return t + (_round_bf16(t) - t).detach()
+    return _round_bf16(t)
+
+
+class _RoundCotangent(torch.autograd.Function):
+    """Identity whose backward rounds the cotangent to bf16: placed after a
+    bf16 product, so that both of its transposed products take a bf16
+    cotangent, as the TPU's backward kernels cast it."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _round_bf16(g)
+
+
+def _product(y: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """A bf16 product's result, its cotangent rounded to bf16 under
+    autograd."""
+    if bf16 and y.requires_grad and torch.is_grad_enabled():
+        return _RoundCotangent.apply(y)
+    return y
+
+
+class _FoldProduct(torch.autograd.Function):
+    """``w5c @ h`` of the folded output conv: fp32 in the forward (the TPU
+    runs it at HIGHEST); under bf16 its backward rounds ``w5c``, ``h`` and
+    the cotangent to bf16, as ``_up_bwd_kernel`` does."""
+
+    @staticmethod
+    def forward(ctx, w, h, bf16):
+        ctx.save_for_backward(w, h)
+        ctx.bf16 = bf16
+        return torch.matmul(w, h)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, h = ctx.saved_tensors
+        if ctx.bf16:
+            w, h, g = _round_bf16(w), _round_bf16(h), _round_bf16(g)
+        gw = torch.matmul(g, h.transpose(1, 2)).sum(0)
+        return gw, torch.matmul(w.T, g), None
 
 
 def _conv_valid(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, d: int,
@@ -69,7 +148,7 @@ def _conv_valid(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, d: int,
     on bf16-rounded operands under ``bf16``; fp32 sums."""
     co, cin = w.shape[0], x.shape[1]
     weight = _operand(w, bf16).reshape(co, -1, cin).transpose(1, 2)
-    return F.conv1d(_operand(x, bf16), weight, b.reshape(-1), dilation=d)
+    return _product(F.conv1d(_operand(x, bf16), weight, dilation=d), bf16) + b.reshape(-1, 1)
 
 
 def _edge_pad(x: torch.Tensor, T: int, r: int) -> torch.Tensor:
@@ -81,12 +160,25 @@ def _edge_pad(x: torch.Tensor, T: int, r: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _conv3(x: torch.Tensor, w, b, bf16: bool) -> torch.Tensor:
+    return _conv_valid(_edge_pad(x, x.shape[-1], 1), w, b, 1, bf16)
+
+
 def conv3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The stem: ``[B, Cin, T]`` -> ``[B, Co, T]`` (in ``x``'s dtype), one
     k=3 conv with ``w [Co, 3*Cin]``."""
-    bf16 = x.dtype == torch.bfloat16
-    y = _conv_valid(_edge_pad(x.float(), x.shape[-1], 1), w, b, 1, bf16)
-    return y.to(x.dtype)
+    return _conv3(x.float(), w, b, x.dtype == torch.bfloat16).to(x.dtype)
+
+
+def _down_chain(z: torch.Tensor, wres, bres, w1, b1, w2, b2, w3, b3, T: int,
+                bf16: bool) -> torch.Tensor:
+    x = _edge_pad(z, T, R_DOWN)
+    res = _product(torch.matmul(_operand(wres, bf16),
+                                _operand(x[..., R_DOWN:R_DOWN + T], bf16)), bf16) + bres
+    h = x
+    for w, b, d in zip((w1, w2, w3), (b1, b2, b3), DILATIONS_DOWN):
+        h = _conv_valid(_lrelu(h), w, b, d, bf16)
+    return h + res
 
 
 def downsample_chain_plain(
@@ -94,14 +186,9 @@ def downsample_chain_plain(
 ) -> torch.Tensor:
     """One Downsample body: ``[B, Cin, >=T]`` -> ``[B, Co, T]`` (in ``z``'s
     dtype): ``1x1(z) + conv_d4(lrelu(conv_d2(lrelu(conv_d1(lrelu(z))))))``."""
-    bf16 = z.dtype == torch.bfloat16
     T = z.shape[-1] if out_len is None else out_len
-    x = _edge_pad(z.float(), T, R_DOWN)
-    res = torch.matmul(_operand(wres, bf16), x[..., R_DOWN:R_DOWN + T]) + bres
-    h = x
-    for w, b, d in zip((w1, w2, w3), (b1, b2, b3), DILATIONS_DOWN):
-        h = _conv_valid(_lrelu(h), w, b, d, bf16)
-    return (h + res).to(z.dtype)
+    return _down_chain(z.float(), wres, bres, w1, b1, w2, b2, w3, b3, T,
+                       z.dtype == torch.bfloat16).to(z.dtype)
 
 
 def upsample_chain_plain(
@@ -113,12 +200,19 @@ def upsample_chain_plain(
     ``[B, Co, T]``, or ``[B, 1, T]`` with ``fold_k`` (then ``w5 [k, C]``,
     ``b5 [k, 1]`` are the folded output-conv weights and ``bout [1, 1]`` its
     bias, and the product is fp32 also under bf16)."""
-    bf16 = xu.dtype == torch.bfloat16
+    y = _up_chain(xu.float(), cond.float(), wconv, bconv, wfilm, bfilm, w5, b5, fold_k, bout,
+                  xu.dtype == torch.bfloat16)
+    return y if fold_k else y.to(out_dtype)
+
+
+def _up_chain(xu: torch.Tensor, cond: torch.Tensor, wconv, bconv, wfilm, bfilm, w5, b5,
+              fold_k: int, bout: Optional[torch.Tensor], bf16: bool) -> torch.Tensor:
     B, C, T = cond.shape
     half = (fold_k - 1) // 2 if fold_k else 0
     R = R_UP + half
-    x = _edge_pad(xu.float(), T, R)
-    films = torch.matmul(_operand(wfilm, bf16), _edge_pad(cond.float(), T, R)) + bfilm
+    x = _edge_pad(xu, T, R)
+    films = _product(torch.matmul(_operand(wfilm, bf16), _operand(_edge_pad(cond, T, R), bf16)),
+                     bf16) + bfilm
 
     def film(h, off, j, res):
         n = h.shape[-1]
@@ -134,8 +228,8 @@ def upsample_chain_plain(
     h = film(h, R_UP, 1, res[..., R_UP - 4:])
     if not fold_k:
         # columns [40, 40 + T): exactly [0, T)
-        return (torch.matmul(_operand(w5, bf16), _operand(h, bf16)) + b5).to(out_dtype)
-    p = torch.matmul(w5, h) + b5
+        return _product(torch.matmul(_operand(w5, bf16), _operand(h, bf16)), bf16) + b5
+    p = _FoldProduct.apply(w5, h, bf16) + b5
     # folded output conv: out[t] = sum_j p[j, t + j - half], p from column 40
     out = p[:, 0:1, 0:T]
     for j in range(1, fold_k):
@@ -260,3 +354,256 @@ def upsample_chain(
 
 upsample_chain.launches = 0
 upsample_chain.launches_bf16 = 0  # of them, on bf16 inputs
+
+
+# ---------------------------------------------------------------------------
+# gradients (kernels K and L) and the differentiable chains
+# ---------------------------------------------------------------------------
+
+
+def _vjp(fn, inputs, gy: torch.Tensor):
+    """The vjp of ``fn(*inputs)`` for the cotangent ``gy``: each input as an
+    fp32 leaf (a bf16 input keeps its values), the gradients fp32."""
+    leaves = [t.detach().float().requires_grad_() for t in inputs]
+    with torch.enable_grad():
+        y = fn(*leaves)
+        grads = torch.autograd.grad(y, leaves, gy.float(), allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads))
+
+
+def conv3_grad_plain(x: torch.Tensor, w, b, gy: torch.Tensor):
+    """Plain PyTorch version of L in stem mode: (gx, gw, gb), fp32, for
+    the stem's output cotangent ``gy [B, Co, T]``."""
+    bf16 = x.dtype == torch.bfloat16
+    return _vjp(lambda x_, w_, b_: _conv3(x_, w_, b_, bf16), (x, w, b), gy)
+
+
+def downsample_chain_grad_plain(z: torch.Tensor, wres, bres, w1, b1, w2, b2, w3, b3,
+                                gy: torch.Tensor):
+    """Plain PyTorch version of L: (gz, gwres, gbres, gw1, gb1, gw2, gb2, gw3,
+    gb3), fp32, for the chain's output cotangent ``gy [B, Co, T]``; ``z``
+    may be longer than ``T`` (its tail gets no gradient)."""
+    bf16 = z.dtype == torch.bfloat16
+    T = gy.shape[-1]
+    return _vjp(lambda *a: _down_chain(*a, T, bf16),
+                (z, wres, bres, w1, b1, w2, b2, w3, b3), gy)
+
+
+def upsample_chain_grad_plain(xu: torch.Tensor, cond: torch.Tensor, wconv, bconv, wfilm, bfilm,
+                              w5, b5, gy: torch.Tensor, fold_k: int = 0,
+                              bout: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of K: (gxu, gcond, gwconv, gbconv, gwfilm,
+    gbfilm, gw5, gb5, gbout), fp32, for the chain's output cotangent ``gy``
+    (``gbout`` is zero without ``fold_k``)."""
+    bf16 = xu.dtype == torch.bfloat16
+    if not fold_k:
+        bout = torch.zeros((1, 1), device=gy.device)
+    return _vjp(lambda x_, c_, *ws: _up_chain(x_, c_, *ws[:6], fold_k, ws[6], bf16),
+                (xu, cond, wconv, bconv, wfilm, bfilm, w5, b5, bout), gy)
+
+
+WGRAD_CHUNK = 1024  # columns of one block's weight-gradient partial sum
+
+
+def _tapsT(w: torch.Tensor, k: int = 3) -> torch.Tensor:
+    """``[Co, k*Cin]`` tap-major -> the transposed conv's ``[Cin, k*Co]``
+    with the taps reversed (`filter_stage.py::upsample_bwd_weights`)."""
+    co = w.shape[0]
+    return w.reshape(co, k, -1).flip(1).permute(2, 1, 0).reshape(-1, k * co).contiguous()
+
+
+def _partial_floats(B: int, E: int, cols: int) -> int:
+    return B * (-(-E // WGRAD_CHUNK)) * cols
+
+
+def conv3_grad(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gy: torch.Tensor):
+    """Gradient of :func:`conv3` (kernel L, stem mode): (gx, gw, gb) fp32
+    for ``gy [B, Co, T]`` fp32."""
+    if build.on_cpu(x, w, b, gy):
+        return conv3_grad_plain(x, w, b, gy)
+    build.check_input("x", x, 3, DTYPES)
+    build.check_input("gy", gy, 3)
+    _check_weights(w=w, b=b)
+    B, cin, T = x.shape
+    co = w.shape[0]
+    _check_shape("w", w, (co, 3 * cin))
+    _check_shape("gy", gy, (B, co, T))
+    E = T + 2
+    ws = torch.empty(B * cin * E + _partial_floats(B, E, co * 3 * cin + co), device=x.device)
+    gx = torch.empty((B, cin, T), device=x.device)
+    gw = torch.empty_like(w)
+    gb = torch.empty((co, 1), device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    build.launch("tvc_conv3_grad", x, x, _tapsT(w), gy, gx, gw, gb, ws, ws.numel(),
+                 B, cin, co, T, T, int(bf16), WGRAD_CHUNK)
+    conv3_grad.launches += 1
+    conv3_grad.launches_bf16 += bf16
+    return gx, gw, gb
+
+
+conv3_grad.launches = 0
+conv3_grad.launches_bf16 = 0
+
+
+def downsample_chain_grad(z: torch.Tensor, wres, bres, w1, b1, w2, b2, w3, b3,
+                          gy: torch.Tensor):
+    """Gradient of :func:`downsample_chain` (kernel L): (gz, gwres, gbres,
+    gw1, gb1, gw2, gb2, gw3, gb3) fp32 for ``gy [B, Co, T]`` fp32."""
+    ws_ = dict(wres=wres, bres=bres, w1=w1, b1=b1, w2=w2, b2=b2, w3=w3, b3=b3)
+    if build.on_cpu(z, gy, *ws_.values()):
+        return downsample_chain_grad_plain(z, wres, bres, w1, b1, w2, b2, w3, b3, gy)
+    build.check_input("z", z, 3, DTYPES)
+    build.check_input("gy", gy, 3)
+    _check_weights(**ws_)
+    B, cin, Tz = z.shape
+    co, T = gy.shape[1], gy.shape[2]
+    if gy.shape[0] != B or not 0 < T <= Tz:
+        raise ValueError(f"gy {tuple(gy.shape)} does not match z {tuple(z.shape)}")
+    for name, shape in (("wres", (co, cin)), ("bres", (co, 1)), ("w1", (cin, 3 * cin)),
+                        ("b1", (cin, 1)), ("w2", (cin, 3 * cin)), ("b2", (cin, 1)),
+                        ("w3", (co, 3 * cin)), ("b3", (co, 1))):
+        _check_shape(name, ws_[name], shape)
+    E = T + 2 * R_DOWN
+    cols = max(co * 3 * cin + co, cin * 3 * cin + cin)
+    ws = torch.empty(6 * B * cin * E + _partial_floats(B, E, cols), device=z.device)
+    out = [torch.empty((B, cin, Tz), device=z.device)] + [torch.empty_like(t)
+                                                          for t in ws_.values()]
+    bf16 = z.dtype == torch.bfloat16
+    build.launch("tvc_down_chain_grad", z, z, w1, b1, w2, b2, _tapsT(w1), _tapsT(w2),
+                 _tapsT(w3), wres.T.contiguous(), gy, *out, ws, ws.numel(),
+                 B, cin, co, T, Tz, int(bf16), WGRAD_CHUNK)
+    downsample_chain_grad.launches += 1
+    downsample_chain_grad.launches_bf16 += bf16
+    return tuple(out)
+
+
+downsample_chain_grad.launches = 0
+downsample_chain_grad.launches_bf16 = 0
+
+
+def upsample_chain_grad(xu: torch.Tensor, cond: torch.Tensor, wconv, bconv, wfilm, bfilm, w5,
+                        b5, gy: torch.Tensor, fold_k: int = 0,
+                        bout: Optional[torch.Tensor] = None):
+    """Gradient of :func:`upsample_chain` (kernel K): (gxu, gcond, gwconv,
+    gbconv, gwfilm, gbfilm, gw5, gb5, gbout) fp32 for ``gy [B, Co, T]``
+    fp32 (``[B, 1, T]`` with ``fold_k=7``; ``gbout`` is zero without it)."""
+    ws_ = dict(wconv=wconv, bconv=bconv, wfilm=wfilm, bfilm=bfilm, w5=w5, b5=b5)
+    if build.on_cpu(xu, cond, gy, *ws_.values()):
+        return upsample_chain_grad_plain(xu, cond, wconv, bconv, wfilm, bfilm, w5, b5, gy,
+                                         fold_k, bout)
+    build.check_input("xu", xu, 3, DTYPES)
+    build.check_input("cond", cond, 3, (xu.dtype,))
+    build.check_input("gy", gy, 3)
+    _check_weights(**ws_)
+    B, C, T = cond.shape
+    if xu.shape[:2] != (B, C) or xu.shape[2] < T:
+        raise ValueError(f"xu {tuple(xu.shape)} does not cover cond {tuple(cond.shape)}")
+    if fold_k not in (0, 7):
+        raise ValueError(f"fold_k must be 0 or 7, got {fold_k}")
+    co = 1 if fold_k else w5.shape[0]
+    for name, shape in (("wconv", (4, C, 3 * C)), ("bconv", (4, C, 1)), ("wfilm", (4 * C, C)),
+                        ("bfilm", (4 * C, 1)), ("w5", (fold_k or co, C)),
+                        ("b5", (fold_k or co, 1))):
+        _check_shape(name, ws_[name], shape)
+    _check_shape("gy", gy, (B, co, T))
+    R = R_UP + ((fold_k - 1) // 2 if fold_k else 0)
+    E = T + 2 * R
+    cols = max(4 * C * C + 4 * C, co * C + co, 7 * C + 1)
+    ws = torch.empty(22 * B * C * E + _partial_floats(B, E, cols), device=xu.device)
+    wconvT = torch.stack([_tapsT(wconv[j]) for j in range(4)])
+    # the output 1x1 transposed, or the folded k=7 conv as one over the
+    # 1-row cotangent: tap k of row i is w5c[6 - k, i]
+    w5T = w5.flip(0).T.contiguous() if fold_k else w5.T.contiguous()
+    gx = torch.empty(xu.shape, device=xu.device)
+    gc = torch.empty((B, C, T), device=xu.device)
+    gw = [torch.empty_like(t) for t in (wconv, bconv, wfilm, bfilm, w5)]
+    gb5 = torch.empty((1 if fold_k else co, 1), device=xu.device)
+    bf16 = xu.dtype == torch.bfloat16
+    build.launch("tvc_up_chain_grad", xu, xu, cond, wconv, bconv, wfilm, bfilm, wconvT,
+                 wfilm.T.contiguous(), w5T, gy, gx, gc, *gw, gb5, ws, ws.numel(),
+                 B, C, co, T, xu.shape[2], fold_k, int(bf16), WGRAD_CHUNK)
+    upsample_chain_grad.launches += 1
+    upsample_chain_grad.launches_bf16 += bf16
+    if fold_k:  # every folded tap's bias and the output bias sum the whole cotangent
+        return (gx, gc, *gw, gb5.expand(fold_k, 1).contiguous(), gb5.reshape(1, 1))
+    return (gx, gc, *gw, gb5, torch.zeros((1, 1), device=xu.device))
+
+
+upsample_chain_grad.launches = 0
+upsample_chain_grad.launches_bf16 = 0
+
+
+def _dtype(bf16: bool) -> torch.dtype:
+    return torch.bfloat16 if bf16 else torch.float32
+
+
+class Stem(torch.autograd.Function):
+    """The differentiable stem: ``x`` cast to the operands' dtype, forward
+    :func:`conv3` (kernel E), backward :func:`conv3_grad` (kernel L); the
+    output in the operands' dtype, the input's gradient in ``x``'s."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, bf16):
+        xk = x.detach().to(_dtype(bf16)).contiguous()
+        ctx.save_for_backward(xk, w, b)
+        ctx.x_dtype = x.dtype
+        return conv3(xk, w.detach(), b.detach())
+
+    @staticmethod
+    def backward(ctx, g):
+        xk, w, b = ctx.saved_tensors
+        gx, gw, gb = conv3_grad(xk, w, b, g.float().contiguous())
+        return gx.to(ctx.x_dtype), gw, gb, None
+
+
+class DownChain(torch.autograd.Function):
+    """The differentiable Downsample body: forward :func:`downsample_chain`
+    (kernel E) on ``z`` cast to the operands' dtype, backward
+    :func:`downsample_chain_grad` (kernel L)."""
+
+    @staticmethod
+    def forward(ctx, z, wres, bres, w1, b1, w2, b2, w3, b3, bf16):
+        zk = z.detach().to(_dtype(bf16)).contiguous()
+        ws = (wres, bres, w1, b1, w2, b2, w3, b3)
+        ctx.save_for_backward(zk, *ws)
+        ctx.z_dtype = z.dtype
+        return downsample_chain(zk, *(w.detach() for w in ws))
+
+    @staticmethod
+    def backward(ctx, g):
+        zk, *ws = ctx.saved_tensors
+        gz, *gws = downsample_chain_grad(zk, *ws, g.float().contiguous())
+        return (gz.to(ctx.z_dtype), *gws, None)
+
+
+class UpChain(torch.autograd.Function):
+    """The differentiable Upsample body: forward :func:`upsample_chain`
+    (kernel F) on ``xu`` and ``cond`` cast to the operands' dtype, fp32 out;
+    backward :func:`upsample_chain_grad` (kernel K). With ``fold_k``, ``w5``
+    and ``b5`` are the folded output conv's and ``bout`` its bias."""
+
+    @staticmethod
+    def forward(ctx, xu, cond, wconv, bconv, wfilm, bfilm, w5, b5, bout, fold_k, bf16):
+        dt = _dtype(bf16)
+        xk = xu.detach().to(dt).contiguous()
+        ck = cond.detach().to(dt).contiguous()
+        ws = (wconv, bconv, wfilm, bfilm, w5, b5)
+        ctx.save_for_backward(xk, ck, *ws, *(() if bout is None else (bout,)))
+        ctx.dtypes, ctx.fold_k = (xu.dtype, cond.dtype), fold_k
+        return upsample_chain(xk, ck, *(w.detach() for w in ws), fold_k=fold_k,
+                              bout=None if bout is None else bout.detach())
+
+    @staticmethod
+    def backward(ctx, g):
+        xk, ck, *ws = ctx.saved_tensors
+        bout = ws[6] if ctx.fold_k else None
+        gx, gc, *gws, gbout = upsample_chain_grad(xk, ck, *ws[:6], g.float().contiguous(),
+                                                  ctx.fold_k, bout)
+        return (gx.to(ctx.dtypes[0]), gc.to(ctx.dtypes[1]), *gws,
+                gbout if ctx.fold_k else None, None, None)
+
+
+# The JAX package's names for the differentiable chains
+stem_conv_vjp = Stem.apply
+down_chain_vjp = DownChain.apply
+up_chain_vjp = UpChain.apply

@@ -1,4 +1,5 @@
-"""Kernels C and D: integer-factor linear resampling (`csrc/resample.cu`).
+"""Kernels C, D and J: integer-factor linear resampling and its gradients
+(`csrc/resample.cu`).
 
 - C, :func:`upsample_linear`, replaces
   `tinyvc_tpu/ops/pallas/resample.py::pallas_upsample_t` on the paths that
@@ -18,13 +19,22 @@ padded to a multiple of 8 and the output is exactly ``T*factor`` (C) or
 samples) to an XLA tent conv instead of its kernels; that is a lowering
 choice of the TPU, the function is the same, and here every resample of a
 CUDA tensor goes through C or D.
+
+- J, :func:`resample_grad`, replaces `tinyvc_tpu/ops/pallas/resample.py::_up_bwd` and ``_down_bwd``:
+  the transposes of C and D. :class:`UpsampleVJP` and
+  :class:`DownsampleVJP` (:func:`upsample_vjp`, :func:`downsample_vjp`) are
+  the training step's differentiable resamples, forward C or D, backward J,
+  as the JAX package's ``upsample_vjp`` and ``downsample_vjp``. A bf16
+  cotangent (the down path's bf16 activations under bf16 operands) rounds
+  the band weights to bf16, as the TPU's band matrix, but not the edge
+  corrections, which the TPU applies outside its kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..dsp.interp import downsample_time_int_t, upsample_time_int_t
+from ..dsp.interp import _tent_weights, downsample_time_int_t, upsample_time_int_t
 from . import build
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -85,3 +95,104 @@ def downsample_linear(x: torch.Tensor, factor: int) -> torch.Tensor:
 
 downsample_linear.launches = 0
 downsample_linear.launches_bf16 = 0  # of them, on bf16 inputs
+
+
+def upsample_linear_grad_plain(g: torch.Tensor, T: int, factor: int) -> torch.Tensor:
+    """Plain PyTorch version of J's up mode: ``g [R, T*factor]`` -> the
+    gradient ``[R, T]`` of :func:`upsample_linear`, written out (the band
+    weights in ``g``'s precision, the clamped edges' in fp32)."""
+    w = torch.from_numpy(_tent_weights(factor)).to(g.device)
+    wb = w.to(torch.bfloat16).float() if g.dtype == torch.bfloat16 else w
+    gf = g.float().reshape(g.shape[0], T, factor)
+    gx = (gf * wb[1]).sum(-1)
+    zero = gx.new_zeros((g.shape[0], 1))
+    gx = gx + torch.cat([(gf[:, 1:] * wb[0]).sum(-1), zero], dim=1)
+    gx = gx + torch.cat([zero, (gf[:, :-1] * wb[2]).sum(-1)], dim=1)
+    edge = torch.zeros_like(gx)
+    edge[:, 0] += (gf[:, 0] * w[0]).sum(-1)
+    edge[:, -1] += (gf[:, -1] * w[2]).sum(-1)
+    return (gx + edge).to(g.dtype)
+
+
+def downsample_linear_grad_plain(g: torch.Tensor, T: int, factor: int) -> torch.Tensor:
+    """Plain PyTorch version of J's down mode: ``g [R, T//factor]`` -> the
+    gradient ``[R, T]`` of :func:`downsample_linear`."""
+    R, n = g.shape
+    gx = g.new_zeros((R, T // factor, factor), dtype=torch.float32)
+    if factor % 2:
+        gx[..., (factor - 1) // 2] = g.float()
+    else:
+        gx[..., factor // 2 - 1] = g.float() * 0.5
+        gx[..., factor // 2] = g.float() * 0.5
+    gx = gx.reshape(R, -1)
+    if gx.shape[1] < T:
+        gx = torch.cat([gx, gx.new_zeros((R, T - gx.shape[1]))], dim=1)
+    return gx.to(g.dtype)
+
+
+def resample_grad(g: torch.Tensor, T: int, factor: int, up: bool) -> torch.Tensor:
+    """The gradient ``[R, T]`` of :func:`upsample_linear` (``up``) or of
+    :func:`downsample_linear` for the cotangent ``g`` (``[R, T*factor]`` or
+    ``[R, T//factor]``). CPU tensors take the plain versions; CUDA tensors
+    launch kernel J."""
+    if build.on_cpu(g):
+        fn = upsample_linear_grad_plain if up else downsample_linear_grad_plain
+        return fn(g, T, factor)
+    build.check_input("g", g, 2, DTYPES)
+    R, n = g.shape
+    if factor < 1 or n != (T * factor if up else T // factor) or (not up and T < factor):
+        raise ValueError(f"g {tuple(g.shape)} is not the cotangent of T={T}, factor {factor}")
+    gx = torch.empty((R, T), device=g.device, dtype=g.dtype)
+    bf16 = g.dtype == torch.bfloat16
+    build.launch("tvc_resample_grad", g, g, gx, R, T, factor, int(up), int(bf16))
+    resample_grad.launches += 1
+    resample_grad.launches_bf16 += bf16
+    return gx
+
+
+resample_grad.launches = 0
+resample_grad.launches_bf16 = 0  # of them, on bf16 cotangents
+
+
+class UpsampleVJP(torch.autograd.Function):
+    """``[B, C, T]`` -> ``[B, C, T*factor]``: forward C, backward J."""
+
+    @staticmethod
+    def forward(ctx, x, factor):
+        B, C, T = x.shape
+        ctx.shape = (B, C, T, factor)
+        return upsample_linear(x.detach().contiguous().reshape(B * C, T), factor).reshape(B, C, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        B, C, T, factor = ctx.shape
+        gx = resample_grad(g.contiguous().reshape(B * C, -1), T, factor, True)
+        return gx.reshape(B, C, T), None
+
+
+class DownsampleVJP(torch.autograd.Function):
+    """``[B, C, T]`` -> ``[B, C, T//factor]``: forward D, backward J."""
+
+    @staticmethod
+    def forward(ctx, x, factor):
+        B, C, T = x.shape
+        ctx.shape = (B, C, T, factor)
+        return downsample_linear(x.detach().contiguous().reshape(B * C, T),
+                                 factor).reshape(B, C, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        B, C, T, factor = ctx.shape
+        gx = resample_grad(g.contiguous().reshape(B * C, -1), T, factor, False)
+        return gx.reshape(B, C, T), None
+
+
+def upsample_vjp(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Differentiable upsampling of ``[B, C, T]`` (the JAX package's
+    ``upsample_vjp`` with ``out_len = T*factor``)."""
+    return UpsampleVJP.apply(x, factor)
+
+
+def downsample_vjp(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Differentiable decimation of ``[B, C, T]`` to ``T//factor``."""
+    return DownsampleVJP.apply(x, factor)

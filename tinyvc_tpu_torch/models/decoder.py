@@ -10,6 +10,16 @@ package's ``use_fused_filter="off"`` path, which the CPU takes by default.
 The fused U-Net of the serving path, which CUDA takes by default, is
 `ops/fused_filternet.py::filternet_fused_apply` over the same parameters
 (`infer/generator.py::decode_infer` picks one).
+
+Training (`train/decoder_train.py`): :meth:`Decoder.dsp_train` builds the
+source with the differentiable oscillator bank (`kernels/oscillator.py::
+OscillatorBank`: kernels A and I on CUDA, their plain versions on the CPU)
+and the noise in the JAX package's XLA form, :func:`oscillate_noise` with
+phases drawn from the step's key (kernel B has no gradient, and the JAX
+package keeps it off this path); :meth:`Decoder.train_forward` runs the
+layer-by-layer U-Net, and the training step runs the fused one
+(`ops/fused_filternet.py::filternet_fused_train`) where
+``use_fused_filter_train`` picks it.
 """
 
 from __future__ import annotations
@@ -22,8 +32,9 @@ from torch import nn
 
 from ..config import AudioConfig, DecoderConfig
 from ..dsp.interp import downsample_time_int_t, upsample_time_int_t
+from ..dsp.synth import oscillate_noise
 from ..kernels.noise import oscillate_noise_hashed
-from ..kernels.oscillator import oscillator_bank
+from ..kernels.oscillator import OscillatorBank, oscillator_bank
 from .layers import Conv1d, ConvNeXtLayer, Dense, Dense1x1CF, FiLM
 
 
@@ -90,7 +101,10 @@ class Downsample(nn.Module):
         self.c3 = Conv1d(in_features, out_features, 3, dilation=4, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = downsample_time_int_t(x, self.factor)
+        return self.body(downsample_time_int_t(x, self.factor))
+
+    def body(self, x: torch.Tensor) -> torch.Tensor:
+        """Everything after the decimation."""
         res = self.down_res(x)
         x = self.c1(F.leaky_relu(x, 0.1))
         x = self.c2(F.leaky_relu(x, 0.1))
@@ -115,7 +129,10 @@ class Upsample(nn.Module):
         self.c5 = Dense1x1CF(in_features, out_features, dtype)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        x = upsample_time_int_t(x, self.factor)
+        return self.body(upsample_time_int_t(x, self.factor), cond)
+
+    def body(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        """Everything after the interpolation."""
         res = x
         x = self.c1(F.leaky_relu(x, 0.1))
         x = self.c2(F.leaky_relu(x, 0.1))
@@ -201,6 +218,28 @@ class Decoder(nn.Module):
             if npad > 0:
                 parts.append(harmonics.new_zeros((B, npad, L)))
         return torch.cat(parts, dim=1)
+
+    def dsp_train(self, f0: torch.Tensor, amps: torch.Tensor, kernel: torch.Tensor,
+                  noise_angle: torch.Tensor) -> torch.Tensor:
+        """The training step's source ``[B, H+2, L]`` (fp32,
+        channels-first), differentiable in ``amps`` and ``kernel``: the
+        oscillator bank through :class:`OscillatorBank` (no gradient for
+        f0, the JAX package's ``grad_f0=False``) and the noise with the
+        phases ``noise_angle`` ``[B, F, fft_bin]``
+        (`tinyvc_tpu/models/decoder.py::Decoder.dsp`, its training call)."""
+        a = self.audio
+        harmonics = OscillatorBank.apply(f0, amps, a.hop_size, a.sample_rate, 20.0)
+        noise = oscillate_noise(kernel, noise_angle, a.hop_size, a.n_fft)
+        return torch.cat([harmonics, noise[:, None, :]], dim=1)
+
+    def train_forward(self, content: torch.Tensor, f0: torch.Tensor, energy: torch.Tensor,
+                      noise_angle: torch.Tensor):
+        """(waveform ``[B, L]``, source ``[B, H+2, L]``) through the
+        layer-by-layer U-Net; the source feeds the DSP loss
+        (`tinyvc_tpu/models/decoder.py::Decoder.train_forward`)."""
+        amps, kernel = self.source_net(content, f0, energy)
+        source = self.dsp_train(f0, amps, kernel, noise_angle)
+        return self.filter_net(content, f0, energy, source), source
 
     def infer(self, content: torch.Tensor, f0: torch.Tensor, energy: torch.Tensor,
               seed: int, noise_angle: Optional[torch.Tensor] = None) -> torch.Tensor:

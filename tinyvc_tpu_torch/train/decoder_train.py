@@ -1,0 +1,227 @@
+"""The decoder's GAN training step before the discriminator joins
+(counterpart of `tinyvc_tpu/train/decoder_train.py`, ``d_join=False``).
+
+One step (:class:`TrainStep`): split the key into the gain's and the
+noise's (`utils/prng.py`, JAX's own numbers); scale each row of the wave by
+``2 * uniform``; the spectrogram, the frozen encoder, the self-kNN match
+(no gradient) and the energy; SourceNet, the DSP source
+(`models/decoder.py::Decoder.dsp_train`) and the U-Net: the fused one
+(`ops/fused_filternet.py::filternet_fused_train`, kernels A and C-F
+forward, I-L backward) when ``cfg.decoder.use_fused_filter_train`` is "on",
+or "auto" on CUDA tensors, else the layer-by-layer one; the losses
+``loss_spec`` (of the waveform) and ``loss_dsp`` (of the summed source)
+against the wave; then the update.
+
+The update is optax's ``skip_if_nonfinite(chain(clip_by_global_norm(1.0),
+adamw(lr, b1=0.8, b2=0.99)))`` written out: the global norm without
+``clip_grad_norm_``'s ``+1e-6``, AdamW with optax's defaults (eps 1e-8,
+weight decay 1e-4), and a step whose gradient norm is not finite skipped
+whole: parameters, moments and Adam's count untouched, the skip counted.
+
+The post-join step needs the discriminator, which is the next slice of the
+port: ``d_join=True`` raises. Under CUDA the step runs with TF32 off
+(`infer/generator.py::exact_fp32`), the JAX package's fp32 numerics.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import TinyVCConfig
+from ..dsp.energy import estimate_energy
+from ..dsp.stft import spectrogram
+from ..infer.generator import exact_fp32
+from ..models.decoder import Decoder
+from ..models.encoder import Encoder
+from ..ops.fused_filternet import filternet_fused_train
+from ..ops.retrieval import match_features
+from ..utils import prng
+from .losses import log_mel_loss, multi_scale_stft_loss
+
+ADAM_EPS = 1e-8
+WEIGHT_DECAY = 1e-4  # optax.adamw's default
+POST_JOIN = ("the post-join GAN step needs the discriminator (models/discriminator.py, "
+             "the fused MRD kernel), the next slice of the port (ROADMAP.md)")
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The generator's train state: the decoder (its parameters), AdamW's
+    moments by parameter name, Adam's count, the skip count and the step."""
+
+    decoder: Decoder
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+    count: int = 0
+    notfinite_count: int = 0
+    step: int = 0
+
+    @classmethod
+    def fresh(cls, decoder: Decoder) -> "TrainState":
+        params = dict(decoder.named_parameters())
+        return cls(decoder, {k: torch.zeros_like(p) for k, p in params.items()},
+                   {k: torch.zeros_like(p) for k, p in params.items()})
+
+
+def init_params(module: torch.nn.Module, generator: torch.Generator) -> None:
+    """Draw ``module``'s parameters from flax's initializers as
+    `tinyvc_tpu/models/layers.py` declares them: every kernel
+    U(+-1/sqrt(fan_in)) (``variance_scaling(1/3, "fan_in", "uniform")``),
+    every bias U(+-1/sqrt(fan_in)) of its kernel, LayerNorm's gain 1 and
+    shift 0, GRN's gain and shift 0. Drawn on the CPU from ``generator``."""
+    with torch.no_grad():
+        for sub in module.modules():
+            weight = getattr(sub, "weight", None)
+            if isinstance(weight, torch.nn.Parameter):
+                fan_in = int(np.prod(weight.shape[1:]))
+                bound = 1.0 / math.sqrt(fan_in)
+                for p in (weight, sub.bias):
+                    p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
+            elif hasattr(sub, "gamma"):
+                is_layer_norm = type(sub).__name__ == "ChannelLayerNorm"
+                sub.gamma.fill_(1.0 if is_layer_norm else 0.0)
+                sub.beta.zero_()
+
+
+def init_state(cfg: TinyVCConfig, seed: int, device="cpu") -> TrainState:
+    """A fresh train state: the decoder drawn by :func:`init_params` from
+    ``torch.Generator().manual_seed(seed)``, zero moments."""
+    dec = Decoder(cfg.decoder, cfg.audio)
+    init_params(dec, torch.Generator().manual_seed(seed))
+    return TrainState.fresh(dec.train().to(device))
+
+
+def use_fused_train(cfg: TinyVCConfig, device: torch.device) -> bool:
+    """``use_fused_filter_train``: "on", or "auto" on CUDA (JAX's TPU
+    choice; on the CPU "auto" is the layer-by-layer U-Net, as for JAX)."""
+    flag = cfg.decoder.use_fused_filter_train
+    if flag not in ("auto", "on", "off"):
+        raise ValueError(f"use_fused_filter_train must be 'auto', 'on' or 'off', got {flag!r}")
+    return flag == "on" or (flag == "auto" and torch.device(device).type == "cuda")
+
+
+def _global_norm(grads) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+
+
+def apply_update(state: TrainState, grads: Dict[str, torch.Tensor], cfg: TinyVCConfig) -> bool:
+    """The optimizer step on ``state`` in place; False (and the skip
+    counted) when the gradients' global norm is not finite."""
+    params = dict(state.decoder.named_parameters())
+    gnorm = _global_norm(grads.values())
+    if not bool(torch.isfinite(gnorm)):
+        state.notfinite_count += 1
+        return False
+    tc = cfg.train
+    b1, b2 = tc.adam_betas_gan
+    within = bool(gnorm < tc.grad_clip)
+    state.count = min(state.count + 1, 2**31 - 1)
+    # Adam's bias corrections in fp32, as optax computes them
+    c1 = (1.0 - torch.tensor(b1, dtype=torch.float32) ** state.count).to(gnorm.device)
+    c2 = (1.0 - torch.tensor(b2, dtype=torch.float32) ** state.count).to(gnorm.device)
+    with torch.no_grad():
+        for name, p in params.items():
+            g = grads[name]
+            if not within:
+                g = (g / gnorm) * tc.grad_clip
+            mu = (1 - b1) * g + b1 * state.mu[name]
+            nu = (1 - b2) * (g * g) + b2 * state.nu[name]
+            u = (mu / c1) / (torch.sqrt(nu / c2) + ADAM_EPS)
+            u = (u + WEIGHT_DECAY * p) * (-tc.learning_rate)
+            p.add_(u)
+            state.mu[name], state.nu[name] = mu, nu
+    return True
+
+
+class TrainStep:
+    """The pre-join step of `make_train_step`. ``loss_and_grads`` runs the
+    forward and backward and returns (loss_g, metrics, gradients by
+    parameter name) without touching the state; calling the step also
+    applies the update and returns the metrics, with ``loss_g`` and
+    ``skipped_g``."""
+
+    def __init__(self, cfg: TinyVCConfig, spec_loss_type: str = "ms-stft",
+                 dtype_name: Optional[str] = None):
+        if spec_loss_type == "ms-stft":
+            self.spec_loss = multi_scale_stft_loss
+        elif spec_loss_type == "mel":
+            m = cfg.mel
+            self.spec_loss = lambda x, y: log_mel_loss(x, y, m.sample_rate, m.n_fft,
+                                                       m.hop_size, m.n_mels)
+        else:
+            raise ValueError(f"spec_loss_type must be 'ms-stft' or 'mel', got {spec_loss_type!r}")
+        self.cfg = cfg
+        self.dtype_name = dtype_name
+
+    def operands(self, device: torch.device) -> str:
+        """The fused U-Net's operand dtype: ``dtype_name`` when given, else
+        bf16 on CUDA (the TPU's choice,
+        `tinyvc_tpu/train/decoder_train.py:231`) and fp32 on the CPU (JAX's
+        interpret runs)."""
+        if self.dtype_name is not None:
+            return self.dtype_name
+        return "bfloat16" if torch.device(device).type == "cuda" else "float32"
+
+    def forward_fake(self, decoder: Decoder, encoder: Encoder, wave: torch.Tensor,
+                     noise_angle: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(fake waveform ``[B, L]``, DSP source ``[B, H+2, L]``)."""
+        cfg = self.cfg
+        with torch.no_grad():
+            spec = spectrogram(wave, cfg.audio.n_fft, cfg.audio.hop_size)
+            content, f0 = encoder.infer(spec)
+            z_fake = match_features(content, content, k=cfg.retrieval.k,
+                                    metric=cfg.retrieval.metric)
+            energy = estimate_energy(wave, cfg.audio.energy_frame_size)
+        if not use_fused_train(cfg, wave.device):
+            return decoder.train_forward(z_fake, f0, energy, noise_angle)
+        amps, kernel = decoder.source_net(z_fake, f0, energy)
+        source = decoder.dsp_train(f0, amps, kernel, noise_angle)
+        fake = filternet_fused_train(decoder.filter_net, cfg.decoder, z_fake, f0, energy, source,
+                                     self.operands(wave.device))
+        return fake, source
+
+    def loss_and_grads(self, state: TrainState, encoder: Encoder, wave: torch.Tensor,
+                       key: np.ndarray):
+        cfg = self.cfg
+        k_gain, k_noise = prng.split(np.asarray(key, np.uint32))
+        B, L = wave.shape
+        F_ = L // cfg.audio.hop_size
+        gain = torch.from_numpy(prng.uniform(k_gain, (B, 1))).to(wave.device)
+        wave = wave.float() * (gain * 2.0)
+        angle = torch.from_numpy(
+            prng.uniform(k_noise, (B, F_, cfg.audio.fft_bin), -math.pi, math.pi)).to(wave.device)
+        params = dict(state.decoder.named_parameters())
+        with exact_fp32(), torch.enable_grad():
+            fake, source = self.forward_fake(state.decoder, encoder, wave, angle)
+            loss_dsp = self.spec_loss(source.sum(dim=1), wave)
+            loss_spec = self.spec_loss(fake, wave)
+            loss_g = loss_spec * cfg.train.weight_spec + loss_dsp * cfg.train.weight_dsp
+            grads = torch.autograd.grad(loss_g, list(params.values()), allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(params.items(), grads)}
+        metrics = {"loss_spec": loss_spec.detach(), "loss_dsp": loss_dsp.detach()}
+        return loss_g.detach(), metrics, grads
+
+    def __call__(self, state: TrainState, encoder: Encoder, wave: torch.Tensor,
+                 key: np.ndarray) -> Dict[str, torch.Tensor]:
+        loss_g, metrics, grads = self.loss_and_grads(state, encoder, wave, key)
+        with exact_fp32():
+            apply_update(state, grads, self.cfg)
+        state.step += 1
+        metrics["loss_g"] = loss_g
+        metrics["skipped_g"] = state.notfinite_count
+        return metrics
+
+
+def make_train_step(cfg: TinyVCConfig, d_join: bool, spec_loss_type: str = "ms-stft",
+                    dtype_name: Optional[str] = None) -> TrainStep:
+    """The pre-join step (``d_join=False``); ``dtype_name`` overrides the
+    fused U-Net's operand dtype (default: bf16 on CUDA, fp32 on the CPU)."""
+    if d_join:
+        raise NotImplementedError(POST_JOIN)
+    return TrainStep(cfg, spec_loss_type, dtype_name)

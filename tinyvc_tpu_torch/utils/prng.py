@@ -2,13 +2,16 @@
 
 `tinyvc_tpu` seeds its hashed noise (kernel B) with one int32 drawn from a
 ``jax.random`` key: ``jax.random.randint(key, (), 0, int32 max)``
-(`tinyvc_tpu/models/decoder.py:427-429`), with ``key = PRNGKey(seed)``.
+(`tinyvc_tpu/models/decoder.py:427-429`), with ``key = PRNGKey(seed)``. Its
+decoder training step draws the volume gain and the noise phases with
+``jax.random.uniform`` (`tinyvc_tpu/train/decoder_train.py:243-245`,
+`tinyvc_tpu/models/decoder.py:100-103`).
 This module computes the same numbers without JAX, for the default
 configuration of jax 0.9: ``jax_default_prng_impl = "threefry2x32"``,
 ``jax_threefry_partitionable = True`` and ``jax_enable_x64 = False``. It
 follows `jax/_src/prng.py` (``threefry_seed``, ``_threefry2x32_lowering``,
 ``_threefry_split_foldlike``, ``_threefry_random_bits_partitionable``) and
-`jax/_src/random.py::_randint`, in ``uint32`` arithmetic that wraps as
+`jax/_src/random.py::_randint` and ``_uniform``, in ``uint32`` arithmetic that wraps as
 XLA's does.
 """
 
@@ -58,6 +61,31 @@ def random_bits32(key: np.ndarray) -> np.uint32:
     the cipher's two words at counter (0, 0)."""
     hi, lo = threefry2x32(key, np.zeros(1, _U32), np.zeros(1, _U32))
     return (hi ^ lo)[0]
+
+
+def random_bits(key: np.ndarray, shape) -> np.ndarray:
+    """``jax.random.bits(key, shape, uint32)``: the cipher of the counters
+    ``(0, i)``, ``i`` the flat index (a 64-bit iota split into two words),
+    its two words XORed."""
+    n = int(np.prod(shape, dtype=np.int64))
+    if n >= 2**32:
+        raise ValueError(f"random_bits supports fewer than 2**32 values, got {n}")
+    hi, lo = threefry2x32(key, np.zeros(n, _U32), np.arange(n, dtype=_U32))
+    return (hi ^ lo).reshape(shape)
+
+
+def uniform(key: np.ndarray, shape, minval: float = 0.0, maxval: float = 1.0) -> np.ndarray:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: 23
+    random mantissa bits under the exponent of 1.0, minus 1, scaled and
+    shifted, and floored at ``minval``. XLA fuses the scale and shift into
+    one multiply-add (one rounding); here the product is exact in float64
+    and the sum is rounded to float64, then to float32, which differs from
+    one rounding only where the float64 sum lands on a float32 tie."""
+    bits = random_bits(key, shape)
+    floats = ((bits >> _U32(9)) | _U32(0x3F800000)).view(np.float32) - np.float32(1.0)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    fma = floats.astype(np.float64) * np.float64(hi - lo) + np.float64(lo)
+    return np.maximum(lo, fma.astype(np.float32))
 
 
 def randint_int32(key: np.ndarray, minval: int = 0, maxval: int = 2**31 - 1) -> int:

@@ -69,8 +69,7 @@ def state_dict_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             arr = np.asarray(value, dtype=np.float32)
             if name == "kernel":
                 name = "weight"
-                arr = arr.T if arr.ndim == 2 else np.transpose(arr, (2, 1, 0))
-            out[prefix + name] = torch.tensor(arr)
+            out[prefix + name] = from_jax_layout(arr, name)
 
     rec("", tree)
     return out
@@ -101,9 +100,9 @@ def decoder_from_jax(tree: Mapping[str, Any], cfg: DecoderConfig = DecoderConfig
 def conv_weights_t(conv: Conv1d) -> Tuple[torch.Tensor, torch.Tensor]:
     """A conv's weight ``[Co, Cin, K]`` -> ``[Co, K*Cin]`` tap-major and its
     bias -> ``[Co, 1]`` (`filter_stage.py::_conv_weights_t`)."""
-    w = conv.weight.detach()
+    w = conv.weight
     return (w.permute(0, 2, 1).reshape(w.shape[0], -1).contiguous(),
-            conv.bias.detach()[:, None].clone())
+            conv.bias[:, None].clone())
 
 
 def upsample_params_to_tuple(up: Upsample) -> Tuple[torch.Tensor, ...]:
@@ -115,17 +114,17 @@ def upsample_params_to_tuple(up: Upsample) -> Tuple[torch.Tensor, ...]:
     return (
         torch.stack([w for w, _ in convs]).contiguous(),
         torch.stack([b for _, b in convs]).contiguous(),
-        torch.cat([f.weight.detach() for f in films]).contiguous(),
-        torch.cat([f.bias.detach() for f in films])[:, None].contiguous(),
-        up.c5.weight.detach().clone(),
-        up.c5.bias.detach()[:, None].clone(),
+        torch.cat([f.weight for f in films]).contiguous(),
+        torch.cat([f.bias for f in films])[:, None].contiguous(),
+        up.c5.weight.clone(),
+        up.c5.bias[:, None].clone(),
     )
 
 
 def downsample_params_to_tuple(down: Downsample) -> Tuple[torch.Tensor, ...]:
     """(wres ``[Co, Cin]``, bres, w1, b1, w2, b2, w3, b3) of a Downsample
     (`filter_stage.py::downsample_params_to_tuple`)."""
-    out = [down.down_res.weight.detach().clone(), down.down_res.bias.detach()[:, None].clone()]
+    out = [down.down_res.weight.clone(), down.down_res.bias[:, None].clone()]
     for name in ("c1", "c2", "c3"):
         out.extend(conv_weights_t(getattr(down, name)))
     return tuple(out)
@@ -135,9 +134,9 @@ def fold_output_conv(w5: torch.Tensor, b5: torch.Tensor, output_layer: Conv1d):
     """Fold the k-tap output conv into the last up stage's 1x1
     (`fused_filternet.py:286-296`): ``w5c = w_out @ w5`` ``[k, C]``,
     ``b5c = w_out @ b5`` ``[k, 1]`` and ``bout`` ``[1, 1]``."""
-    w_out = output_layer.weight.detach()[0].T  # [k, Co]
+    w_out = output_layer.weight[0].T  # [k, Co]
     return ((w_out @ w5).contiguous(), (w_out @ b5).contiguous(),
-            output_layer.bias.detach().reshape(1, 1).clone())
+            output_layer.bias.reshape(1, 1).clone())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,12 +148,14 @@ class FusedFilterWeights:
     up: Tuple[Tuple[torch.Tensor, ...], ...]  # per Upsample; the last one folded
 
 
-def pack_filter_net(net: FilterNet, pack_width: int) -> FusedFilterWeights:
+def pack_filter_net(net: FilterNet, pack_width: int, grad: bool = False) -> FusedFilterWeights:
     """Pack ``net``'s weights for `ops/fused_filternet.py`. The stem's input
     columns are zero-padded from its true channel count to ``pack_width``,
     the zero rows `models/decoder.py::Decoder.dsp` appends (as
-    `filter_stage.py::fused_conv3_t` pads them)."""
-    with torch.no_grad():
+    `filter_stage.py::fused_conv3_t` pads them). With ``grad`` the packing
+    is differentiable, so that autograd carries the packed weights'
+    gradients back to the parameters (the training step's fused U-Net)."""
+    with torch.set_grad_enabled(grad):
         w0, b0 = conv_weights_t(net.down_0)
         co, cin = w0.shape[0], net.down_0.weight.shape[1]
         if pack_width < cin:
@@ -167,3 +168,58 @@ def pack_filter_net(net: FilterNet, pack_width: int) -> FusedFilterWeights:
         up[-1] = (wconv, bconv, wfilm, bfilm, *fold_output_conv(w5, b5, net.output_layer))
         return FusedFilterWeights((w0.reshape(co, 3 * pack_width).contiguous(), b0),
                                   down, tuple(up))
+
+
+# ---------------------------------------------------------------------------
+# the train state
+# ---------------------------------------------------------------------------
+
+
+def jax_name(name: str) -> str:
+    """A state-dict key -> its flax path under ``params``
+    (``filter_net.up_0.c1.weight`` -> ``params/filter_net/up_0/c1/kernel``)."""
+    parts = name.split(".")
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return "/".join(["params"] + parts)
+
+
+def from_jax_layout(a: np.ndarray, name: str) -> torch.Tensor:
+    """One flax array in the layout of the port's tensor ``name``: a kernel
+    transposed to a weight, anything else as it is."""
+    if name.endswith("weight"):
+        a = a.T if a.ndim == 2 else np.transpose(a, (2, 1, 0))
+    return torch.tensor(np.ascontiguousarray(a))
+
+
+def to_jax_layout(t: torch.Tensor, name: str) -> np.ndarray:
+    """The inverse of :func:`state_dict_from_jax`'s transposes for one
+    tensor: a weight back to flax's kernel layout."""
+    a = t.detach().float().cpu().numpy()
+    if name.endswith(".weight"):
+        a = a.T if a.ndim == 2 else np.transpose(a, (2, 1, 0))
+    return np.ascontiguousarray(a)
+
+
+def train_state_from_jax(state: Any, cfg: DecoderConfig = DecoderConfig(),
+                         audio: AudioConfig = AudioConfig(), device="cpu"):
+    """The port's pre-join train state (`train/decoder_train.py::TrainState`)
+    from a JAX ``GanTrainState`` (or its ``gen_params`` tree): the
+    generator's parameters, its moments, Adam's count and the skip count.
+    A fresh JAX state has zero moments, as the port's ``init_state``."""
+    from ..train.decoder_train import TrainState
+
+    params = getattr(state, "gen_params", state)
+    dec = decoder_from_jax(params, cfg, audio).train().to(device)
+    ts = TrainState.fresh(dec)
+    opt = getattr(state, "gen_opt", None)
+    if opt is not None:
+        adam = opt.inner[1][0]
+        sd = state_dict_from_jax({"params": adam.mu["params"]})
+        ts.mu = {k: v.to(device) for k, v in sd.items()}
+        sd = state_dict_from_jax({"params": adam.nu["params"]})
+        ts.nu = {k: v.to(device) for k, v in sd.items()}
+        ts.count = int(np.asarray(adam.count))
+        ts.notfinite_count = int(np.asarray(opt.notfinite_count))
+        ts.step = int(np.asarray(state.step))
+    return ts
