@@ -46,11 +46,20 @@ Phases, each timed; any failure exits non-zero:
    shapes in fp32 and with bf16 operands, timed; one fp32 step with the
    two-speaker weights, its kernel path against its plain path (losses and
    every gradient leaf, ``STEP_*``; every kernel of the step must launch);
-   then ``train_decoder`` through its CLI entry for ``TRAIN_STEPS`` steps
-   with ``TrainConfig()`` (bf16 operands, the TPU's choice) on a cache of
-   those windows: finite losses, no skipped step, moved parameters, a
-   checkpoint; the warm step time, peak memory and one profiled step by
-   kernel group.
+   the CLI's run of phase 7 gives the pre-join step's warm time.
+7. post-join: the discriminator and the GAN step after its join. Kernels
+   M, N, O (the fused MRD forward, its dy/dx sweep, its dW/db sweep)
+   against their plain versions at the step's shapes (B=16, the 8000-sample
+   crop, all four resolutions) in fp32 and bf16, timed beside the conv
+   chain by ``F.conv2d`` (``MRD_TOL``); one fp32 post-join step with the
+   fused MRD (the two-speaker encoder and decoder, a discriminator drawn
+   from the seed, the log-mel loss), its kernel path against its plain path
+   (six losses, every gradient leaf of both networks, ``STEP_*``; M, N and
+   O must launch) and against the conv-form MRD's step
+   (``POSTJOIN_FUSED_RTOL``); then the CLI across the join (``-d-join``,
+   the conv-form MRD) and ``train/loop.py::train_decoder`` with the fused
+   MRD in bf16 (M, N and O must launch), each with its warm post-join step
+   time, peak memory and one profiled post-join step by kernel group.
 
 The last two lines are one JSON object of per-kernel numbers and the
 ``{"ok": true, "device": ...}`` result. Needs CUDA and the rest of the repo;
@@ -981,8 +990,13 @@ CHAIN_GRAD_RTOL = {"fp32": (1e-3, 1e-5), "bf16": (2.0**-5, 2.0**-7)}  # (rel L2,
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 1e-3
 STEP_FLOOR_FACTOR = 2.0
-TRAIN_STEPS = 8
-TRAIN_TIMED_FROM = 2  # warm steps: those after the first two
+# The fused-MRD post-join step against the conv-form one (same state, fp32):
+# loss_g and loss_d within 2e-4 relative, JAX's own bound for the pair
+# (tests/test_mrd_fused.py:236-241).
+POSTJOIN_FUSED_RTOL = 2e-4
+TRAIN_STEPS, TRAIN_JOIN = 10, 5  # the CLI: steps 1-5 pre-join, 6-10 post-join
+FUSED_STEPS, FUSED_JOIN = 6, 2  # the fused-MRD run: steps 1-2 pre-join, 3-6 post-join
+TRAIN_TIMED_FROM = 2  # warm pre-join steps: those after the first two
 
 
 def _rel_l2(got, want) -> float:
@@ -1194,6 +1208,199 @@ def phase_train_kernels(results: dict, rng, dev) -> None:
                     a["bounds"])
 
 
+# Kernels M, N, O against their plain versions at the post-join step's
+# shapes (B=16, the 8000-sample crop, the four resolutions). M and N in fp32,
+# relative to each output's peak: M sums up to 3840 products per output in
+# another order than the plain version's einsum, and each layer reads the
+# kernel's own previous output (the bound JAX holds its kernel to, 2e-5); N
+# sums the transposed products (3e-5, JAX's bound for its vjp). M and N in
+# bf16 (relative L2): both sides round the same operands to bf16 and sum in
+# fp32 in other orders; a sum that straddles a bf16 rounding stores one bf16
+# step away and the step carries into the next layers. The CPU test holds the
+# plain chain to JAX's bf16 kernel at 5e-3 (it measured <= 3.0e-3, JAX's own
+# bf16 run is up to 8.5e-3 from its fp32 run); the same 5e-3 here. O sums up
+# to ~2e5 products per weight and its db of the one-channel post layer is one
+# number, a sum of dy with cancellation: relative to that number's own value
+# (its "peak") an fp32 reordering measured 2.37e-5 on one draw (bound 3e-5),
+# 6.9e-7 on another. So O, in both precisions (the operands are the same
+# values on both sides, the products exact in fp32), is held element by
+# element to 1e-5 of the sum of its terms' magnitudes, sum |x| |dy| (sum |dy|
+# for db), the scale an fp32 sum's rounding error is proportional to.
+MRD_TOL = {"fp32": 2e-5, "fp32_grad": 3e-5, "bf16": 5e-3, "sum": 1e-5}
+MRD_T, MRD_B = 8000, 16
+MRD_CALLS_PER_STEP = {"mrd_fwd": 8, "mrd_dx": 12, "mrd_dw": 12}  # per resolution x crops
+
+
+def _mrd_flops(plan, B: int) -> float:
+    """The dense conv chain's products: 2 * B * cout * (valid outputs) *
+    cin * kh * kw over the layers (the plane-major layout also computes
+    masked halo rows, which the bound does not count)."""
+    return sum(2.0 * B * lp.cout * plan.valid_count(i) * lp.cin * lp.kh * lp.kw
+               for i, lp in enumerate(plan.layers))
+
+
+def _mrd_setup(rng, dev, res: int, B: int, T: int, widths=(32, 256, 4)):
+    """(plan, spec [B, 1, S0*(G0+4)*Wp] fp32, effective weights, biases, the
+    dense conv chain's (spec [B, 1, bins, W], weights OIHW)) for one
+    resolution: a random wave's magnitude spectrogram; weights
+    U(+-1/sqrt(fan_in)) (flax's init, where g = |v| makes them v), biases
+    U(+-0.1)."""
+    import numpy as np
+    import torch
+
+    from tinyvc_tpu_torch.dsp.stft import stft_magnitude
+    from tinyvc_tpu_torch.ops.mrd_planes import make_plan, pack_spec_planes
+
+    plan = make_plan(res, T, *widths)
+    wave = torch.from_numpy((0.3 * rng.standard_normal((B, T))).astype(np.float32)).to(dev)
+    spec = stft_magnitude(wave, 4 * res, res, grad_safe=True).transpose(1, 2)  # [B, bins, W]
+    spec_pm = pack_spec_planes(spec, plan).reshape(B, 1, -1).contiguous()
+    ws, bs = [], []
+    for lp in plan.layers:
+        bound = 1.0 / math.sqrt(lp.kh * lp.kw * lp.cin)
+        ws.append(torch.from_numpy(rng.uniform(-bound, bound, (lp.kh, lp.kw, lp.cin, lp.cout))
+                                   .astype(np.float32)).to(dev))
+        bs.append(torch.from_numpy(rng.uniform(-0.1, 0.1, lp.cout).astype(np.float32)).to(dev))
+    return plan, spec_pm, ws, bs, spec[:, None].contiguous()
+
+
+def _conv_chain(x, ws, bs):
+    """The MRD's conv form (the "lax" lowering) by ``F.conv2d``: the
+    library call beside M, N and O."""
+    import torch.nn.functional as F
+
+    outs = []
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        k = w.shape[0]
+        stride, pad = (2, 1) if i < len(ws) - 1 else (1, 1), ((k - 1) // 2, 1)
+        x = F.conv2d(x, w.permute(3, 2, 0, 1), b, stride=stride, padding=pad)
+        outs.append(x)
+    return outs
+
+
+def phase_mrd_kernels(results: dict, rng, dev) -> None:
+    """Kernels M, N, O against their plain versions at the post-join step's
+    shapes, all four resolutions, fp32 and bf16, and at a ragged small shape
+    (B=3, T=2400, small widths); one row per kernel and precision summing one
+    call per resolution (one crop), timed. Library: the conv chain by
+    ``F.conv2d`` (cuDNN, TF32 off) forward for M, its autograd backward to
+    the spectrogram for N and to the weights and biases for O."""
+    import numpy as np
+    import torch
+
+    from tinyvc_tpu_torch.infer.generator import exact_fp32
+    from tinyvc_tpu_torch.kernels import mrd
+
+    def err(got, want, bf16):
+        got, want = got.double(), want.double()
+        if bf16:
+            return _rel_l2(got, want)
+        return float((got - want).abs().max() / max(float(want.abs().max()), 1e-30))
+
+    with exact_fp32():
+        for bf16 in (False, True):
+            dt, sfx = (torch.bfloat16, "_bf16") if bf16 else (torch.float32, "")
+            isz = 2 if bf16 else 4
+            peak = BF16_FLOPS if bf16 else FP32_FLOPS
+            acc = {k: dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bounds=[])
+                   for k in ("mrd_fwd", "mrd_dx", "mrd_dw")}
+            cases = [(r, MRD_B, MRD_T, (32, 256, 4)) for r in (32, 64, 128, 256)]
+            cases += [(64, 3, 2400, (4, 16, 2))]
+            for res, B, T, widths in cases:
+                full = B == MRD_B
+                plan, spec_pm, ws, bs, dense = _mrd_setup(rng, dev, res, B, T, widths)
+                spec = spec_pm.to(dt)
+                got = mrd.mrd_forward(spec, ws, bs, plan)
+                want = mrd.mrd_forward_plain(spec, ws, bs, plan)
+                cots = [torch.from_numpy(rng.standard_normal(o.shape).astype(np.float32))
+                        .to(dev, dt) for o in want]
+                gdx = mrd.mrd_dx(cots, ws, plan)
+                wdx = mrd.mrd_dx_plain(cots, ws, plan)
+                xs = [spec] + want[:-1]
+                gdw = mrd.mrd_dw(xs, wdx[1], plan)
+                wdw = mrd.mrd_dw_plain(xs, wdx[1], plan)
+                # the magnitudes each dW and db element sums: sum |x| |dy|, sum |dy|
+                mag = mrd.mrd_dw_plain([x.float().abs() for x in xs],
+                                       [d.float().abs() for d in wdx[1]], plan)
+                torch.cuda.synchronize()
+                tol_f = MRD_TOL["bf16" if bf16 else "fp32"]
+                tol_g = MRD_TOL["bf16" if bf16 else "fp32_grad"]
+                names = [f"dW{i}" for i in range(len(plan.layers))] + [
+                    f"db{i}" for i in range(len(plan.layers))]
+                o_err = {n: float(((a - b).abs() / m.clamp_min(1e-30)).max())
+                         for n, a, b, m in zip(names, gdw[0] + gdw[1], wdw[0] + wdw[1],
+                                               mag[0] + mag[1])}
+                o_peak = max(err(a, b, False) for a, b in zip(gdw[0] + gdw[1], wdw[0] + wdw[1]))
+                o_worst = max(o_err, key=o_err.get)
+                e = {"mrd_fwd": max(err(a, b, bf16) for a, b in zip(got, want)),
+                     "mrd_dx": max(err(a, b, bf16) for a, b in zip([gdx[0]] + gdx[1],
+                                                                   [wdx[0]] + wdx[1])),
+                     "mrd_dw": o_err[o_worst]}
+                absmax = {"mrd_fwd": max(float((a.float() - b.float()).abs().max())
+                                         for a, b in zip(got, want)),
+                          "mrd_dx": float((gdx[0].float() - wdx[0].float()).abs().max()),
+                          "mrd_dw": max(float((a - b).abs().max())
+                                        for a, b in zip(gdw[0] + gdw[1], wdw[0] + wdw[1]))}
+                kind = "relative L2" if bf16 else "max of the peak"
+                print(f"  mrd{sfx} r={res} B={B} T={T} widths {widths}: {kind} M "
+                      f"{e['mrd_fwd']:.2e}, N {e['mrd_dx']:.2e} (tolerance {tol_f:.0e} / "
+                      f"{tol_g:.0e}); O {e['mrd_dw']:.2e} of the sum of |terms| at {o_worst} "
+                      f"(tolerance {MRD_TOL['sum']:.0e}; max of each output's peak "
+                      f"{o_peak:.2e})")
+                _check(e["mrd_fwd"] <= tol_f, f"mrd_fwd{sfx} r={res}: {e['mrd_fwd']} > {tol_f}")
+                _check(e["mrd_dx"] <= tol_g, f"mrd_dx{sfx} r={res}: {e['mrd_dx']} > {tol_g}")
+                _check(e["mrd_dw"] <= MRD_TOL["sum"],
+                       f"mrd_dw{sfx} r={res}: {e['mrd_dw']} > {MRD_TOL['sum']}")
+                for k in acc:
+                    acc[k]["err"] = max(acc[k]["err"], absmax[k])
+                if not full:
+                    continue
+                flops = _mrd_flops(plan, B)
+                maps = sum(o.numel() for o in want)
+                wbytes = 4.0 * sum(w.numel() + b.numel() for w, b in zip(ws, bs))
+                acc["mrd_fwd"]["bounds"].append(
+                    _bound(isz * (spec.numel() + maps) + wbytes, flops, peak))
+                acc["mrd_dx"]["bounds"].append(
+                    _bound(isz * (2 * maps + spec.numel()) + wbytes, flops, peak))
+                acc["mrd_dw"]["bounds"].append(
+                    _bound(isz * (spec.numel() + 2 * maps) + wbytes, flops, peak))
+                for k, fn, plain in (
+                        ("mrd_fwd", lambda: mrd.mrd_forward(spec, ws, bs, plan),
+                         lambda: mrd.mrd_forward_plain(spec, ws, bs, plan)),
+                        ("mrd_dx", lambda: mrd.mrd_dx(cots, ws, plan),
+                         lambda: mrd.mrd_dx_plain(cots, ws, plan)),
+                        ("mrd_dw", lambda: mrd.mrd_dw(xs, wdx[1], plan),
+                         lambda: mrd.mrd_dw_plain(xs, wdx[1], plan))):
+                    acc[k]["ms"] += _cuda_ms(fn)
+                    acc[k]["plain"] += _cuda_ms(plain, reps=5, warmup=1)
+                # library: the dense conv chain in the operand dtype
+                x = dense.to(dt).requires_grad_()
+                wl = [w.to(dt).requires_grad_() for w in ws]
+                bl = [b.to(dt).requires_grad_() for b in bs]
+                outs = _conv_chain(x, wl, bl)
+                dcots = [torch.randn_like(o) for o in outs]
+                with torch.no_grad():
+                    acc["mrd_fwd"]["lib"] += _cuda_ms(lambda: _conv_chain(x.detach(), wl, bl))
+                acc["mrd_dx"]["lib"] += _cuda_ms(lambda: torch.autograd.grad(
+                    outs, [x], dcots, retain_graph=True))
+                acc["mrd_dw"]["lib"] += _cuda_ms(lambda: torch.autograd.grad(
+                    outs, wl + bl, dcots, retain_graph=True))
+                del outs, dcots
+            for k, name, replaces in (
+                    ("mrd_fwd", "mrd_fwd", "tinyvc_tpu/ops/pallas/mrd.py:178"),
+                    ("mrd_dx", "mrd_dx", "tinyvc_tpu/ops/pallas/mrd.py:356"),
+                    ("mrd_dw", "mrd_dw", "tinyvc_tpu/ops/pallas/mrd.py:385")):
+                a = acc[k]
+                bound_ms, bound_by = _sum_bounds(a["bounds"])
+                results[name + sfx] = dict(
+                    name=name + sfx, route="cuda", source="tinyvc_tpu_torch/kernels/csrc/mrd.cu",
+                    replaces=replaces, max_abs_err=a["err"], ms=a["ms"], plain_ms=a["plain"],
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=a["lib"])
+                print(f"  {name}{sfx} (one crop, four resolutions; {MRD_CALLS_PER_STEP[k]} calls "
+                      f"a step): kernel {a['ms']:.4f} ms, plain {a['plain']:.4f} ms, library "
+                      f"{a['lib']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+
+
 def _tent_taps(f: int):
     """The tent upsampling's 3f taps in conv order (a strided conv with them
     is the upsampling's transpose, up to the clamped ends)."""
@@ -1387,39 +1594,180 @@ def _leaf_errors(got: dict, want: dict) -> dict:
             for k in want}
 
 
-def phase_train_cli(card: str) -> dict:
-    """``train_decoder`` through its CLI entry on a cache of the demo
-    windows: ``TrainConfig()`` (B=16, 2 s, bf16 operands on the card, the
-    TPU's choice), ``TRAIN_STEPS`` steps logged every step; warm ms per step
-    (synchronised, median of the steps after the first two), peak memory,
-    one profiled step. Returns the launches of the run's bf16 forms."""
+def _mrd_wrappers():
+    """(name in the kernels line, wrapper) of kernels M, N and O."""
+    from tinyvc_tpu_torch.kernels import mrd
+
+    return (("mrd_fwd", mrd.mrd_forward), ("mrd_dx", mrd.mrd_dx), ("mrd_dw", mrd.mrd_dw))
+
+
+def _reset_mrd_counts() -> None:
+    for _, w in _mrd_wrappers():
+        w.launches = w.launches_bf16 = 0
+
+
+def _mrd_counts() -> dict:
+    return {name: (w.launches, w.launches_bf16) for name, w in _mrd_wrappers()}
+
+
+def phase_postjoin_step(card: str) -> dict:
+    """One full-width post-join step (B=16, 2 s, the two-speaker encoder and
+    decoder, a discriminator drawn from the seed) in fp32 with the fused
+    MRD, under the log-mel loss: the kernel path against the plain path on
+    the same state, wave and key (M, N, O and the U-Net's and resamples'
+    kernels as their plain versions on the card; the oscillator pair in both,
+    as in `phase_train_step`), every loss and every gradient leaf of both
+    networks; then the fused-MRD step against the conv-form ("lax") step.
+    Returns the fp32 launches of M, N and O in the kernel-path step."""
+    import dataclasses
+
+    import torch
+
+    from tinyvc_tpu_torch.config import DecoderConfig, DiscriminatorConfig, TinyVCConfig
+    from tinyvc_tpu_torch.kernels import filter_stage as fs
+    from tinyvc_tpu_torch.kernels import mrd
+    from tinyvc_tpu_torch.kernels import resample as rs
+    from tinyvc_tpu_torch.models.decoder import Decoder
+    from tinyvc_tpu_torch.models.discriminator import Discriminator
+    from tinyvc_tpu_torch.train import decoder_train as dt
+    from tinyvc_tpu_torch.train.loop import load_encoder
+    from tinyvc_tpu_torch.utils import prng
+    from tinyvc_tpu_torch.utils.weights import load_npz, train_state_from_jax
+
+    models = os.path.join(ROOT, "models", "two_speaker")
+    cfg = TinyVCConfig(decoder=DecoderConfig(use_fused_filter_train="on"),
+                       discriminator=DiscriminatorConfig(mrd_conv_impl="fused"))
+    enc = load_encoder(os.path.join(models, "encoder_B.npz"), cfg, SEED, "cuda")
+    state = dt.init_state(cfg, SEED + 1, "cuda")
+    init = train_state_from_jax(load_npz(os.path.join(models, "decoder_B.npz")), cfg.decoder,
+                                cfg.audio, "cuda")
+    state.decoder, state.gen_opt = init.decoder, init.gen_opt
+    wave = torch.from_numpy(_demo_windows()).cuda()
+    key = prng.split(prng.prng_key(SEED + 2))[1]
+    step = dt.make_train_step(cfg, d_join=True, spec_loss_type="mel", dtype_name="float32")
+
+    def grads(*out):
+        return out[1] | {"loss_g": out[0]}, (
+            {f"gen {k}": v for k, v in out[2].items()}
+            | {f"disc {k}": v for k, v in out[3].items()})
+
+    _reset_mrd_counts()
+    t0 = time.perf_counter()
+    met_k, g_k = grads(*step.loss_and_grads(state, enc, wave, key))
+    torch.cuda.synchronize()
+    t_kernel = time.perf_counter() - t0
+    launches = {k: n for k, (n, _) in _mrd_counts().items()}
+    print(f"  kernel path: {t_kernel * 1e3:.1f} ms (cold), launches of M, N, O {launches}")
+    for name, n in launches.items():
+        _check(n > 0, f"{name} was not launched in the fp32 post-join step")
+    t0 = time.perf_counter()
+    with _PlainDispatch(fs, rs, mrd):
+        met_p, g_p = grads(*step.loss_and_grads(state, enc, wave, key))
+    torch.cuda.synchronize()
+    print(f"  plain path: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    for name in ("loss_spec", "loss_dsp", "loss_adv", "loss_feat", "loss_g", "loss_d"):
+        a, b = float(met_k[name]), float(met_p[name])
+        print(f"  {name}: kernel path {a:.7f}, plain path {b:.7f}, relative "
+              f"{abs(a - b) / abs(b):.2e} (tolerance {STEP_LOSS_RTOL:.0e})")
+        _check(abs(a - b) <= STEP_LOSS_RTOL * abs(b), f"{name} differs")
+    errs = _leaf_errors(g_k, g_p)
+    orig = Decoder.dsp_train
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def nudged(self, *a):
+        src = orig(self, *a)
+        return src * (1.0 + 1e-7 * torch.randn(src.shape, device=src.device, generator=gen))
+
+    Decoder.dsp_train = nudged
+    try:
+        with _PlainDispatch(fs, rs, mrd):
+            _, g_n = grads(*step.loss_and_grads(state, enc, wave, key))
+    finally:
+        Decoder.dsp_train = orig
+    floor = _leaf_errors(g_n, g_p)
+    worst = sorted(errs, key=errs.get, reverse=True)
+    for label in ("gen", "disc"):
+        e = [v for k, v in errs.items() if k.startswith(label)]
+        print(f"  {label} leaves ({len(e)}): median relative norm error {statistics.median(e):.2e}")
+    print(f"  gradient leaves ({len(errs)}): worst kernel vs plain "
+          + ", ".join(f"{k} {errs[k]:.2e} (nudged plain {floor[k]:.2e})" for k in worst[:6])
+          + f"; median {statistics.median(errs.values()):.2e}, nudged median "
+          f"{statistics.median(floor.values()):.2e} (tolerance: median {STEP_GRAD_RTOL:.0e}, "
+          f"each leaf max({STEP_GRAD_RTOL:.0e}, {STEP_FLOOR_FACTOR:g} x nudged))")
+    _check(statistics.median(errs.values()) <= STEP_GRAD_RTOL, "gradients differ at the median")
+    for k, e in errs.items():
+        limit = max(STEP_GRAD_RTOL, STEP_FLOOR_FACTOR * floor[k])
+        _check(e <= limit, f"gradient of {k} differs by {e} > {limit}")
+    # the fused MRD against the conv form, same state (identical parameter trees)
+    lax_cfg = dataclasses.replace(cfg, discriminator=DiscriminatorConfig())
+    lax_disc = Discriminator(lax_cfg.discriminator).cuda()
+    lax_disc.load_state_dict(state.discriminator.state_dict())
+    lax = dt.make_train_step(lax_cfg, d_join=True, spec_loss_type="mel", dtype_name="float32")
+    met_l, _ = grads(*lax.loss_and_grads(dataclasses.replace(state, discriminator=lax_disc),
+                                         enc, wave, key))
+    for name in ("loss_g", "loss_d"):
+        a, b = float(met_k[name]), float(met_l[name])
+        print(f"  {name}: fused MRD {a:.7f}, conv form {b:.7f}, relative "
+              f"{abs(a - b) / abs(b):.2e} (tolerance {POSTJOIN_FUSED_RTOL:.0e})")
+        _check(abs(a - b) <= POSTJOIN_FUSED_RTOL * abs(b), f"{name}: fused MRD vs conv form")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step.loss_and_grads(state, enc, wave, key)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    print(f"  fp32 post-join step (forward and backward, fused MRD) warm: "
+          f"{statistics.median(times) * 1e3:.3f} ms median of 3 ({card})")
+    return launches
+
+
+def phase_train_cli(card: str, fused_mrd: bool = False) -> dict:
+    """Training across the discriminator's join on a cache of the demo
+    windows, ``TrainConfig()`` (B=16, 2 s, bf16 operands on the card, the
+    TPU's choice), logged every step: ``train_decoder`` through its CLI
+    entry (the conv-form MRD, the CLI's), ``TRAIN_STEPS`` steps with
+    ``-d-join TRAIN_JOIN``; or, with ``fused_mrd``, `train/loop.py::
+    train_decoder` (the function the CLI runs) with ``mrd_conv_impl="fused"``,
+    ``FUSED_STEPS`` steps joining at ``FUSED_JOIN``. Warm ms per pre-join and
+    post-join step (synchronised; medians of the steps after the first two
+    and after the first post-join one), peak memory, one profiled post-join
+    step (the last). Returns the launches of the run's bf16 forms."""
     import tempfile
 
     import numpy as np
     import torch
 
     from tinyvc_tpu_torch.cli import train_decoder as cli
+    from tinyvc_tpu_torch.config import DiscriminatorConfig, TinyVCConfig, TrainConfig
     from tinyvc_tpu_torch.train import decoder_train as dt
+    from tinyvc_tpu_torch.train import loop
     from tinyvc_tpu_torch.utils import prng
     from tinyvc_tpu_torch.utils.audio_io import save_wav
-    from tinyvc_tpu_torch.utils.checkpoint import CheckpointManager
+    from tinyvc_tpu_torch.utils.checkpoint import CheckpointManager, state_to_tree
 
+    label = "fused-MRD train_decoder" if fused_mrd else "train_decoder CLI"
+    steps, join = (FUSED_STEPS, FUSED_JOIN) if fused_mrd else (TRAIN_STEPS, TRAIN_JOIN)
     models = os.path.join(ROOT, "models", "two_speaker")
-    times, profiled = [], {}
-    orig_call = dt.TrainStep.__call__
+    times, profiled = [], {}  # times: (post-join, seconds) per step
+    origs = {cls: cls.__dict__["__call__"] for cls in (dt.TrainStep, dt.PostJoinStep)}
 
-    def timed_call(self, *a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if len(times) == TRAIN_STEPS - 1:
-            profiled["kernels"] = _profile_call(lambda: orig_call(self, *a, **k))
-            out = profiled["kernels"][1]
-        else:
-            out = orig_call(self, *a, **k)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        return out
+    def timed(orig):
+        def call(self, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if len(times) == steps - 1:
+                profiled["kernels"] = _profile_call(lambda: orig(self, *a, **k))
+                out = profiled["kernels"][1]
+            else:
+                out = orig(self, *a, **k)
+            torch.cuda.synchronize()
+            times.append((isinstance(self, dt.PostJoinStep), time.perf_counter() - t0))
+            return out
+        return call
 
+    cfg = TinyVCConfig(discriminator=DiscriminatorConfig(mrd_conv_impl="fused"),
+                       train=TrainConfig(max_steps=steps, discriminator_join=join,
+                                         log_interval=1, save_interval=steps))
     with tempfile.TemporaryDirectory() as tmp:
         cache = os.path.join(tmp, "cache")
         os.makedirs(cache)
@@ -1428,51 +1776,78 @@ def phase_train_cli(card: str) -> dict:
             np.save(os.path.join(cache, f"{i}.f0.npy"), np.zeros(100, np.float32))
         ckpt, logs = os.path.join(tmp, "ckpt"), os.path.join(tmp, "logs")
         init = os.path.join(models, "decoder_B.npz")
+        enc = os.path.join(models, "encoder_B.npz")
         _reset_train_counts()
+        _reset_mrd_counts()
         torch.cuda.reset_peak_memory_stats()
-        dt.TrainStep.__call__ = timed_call
+        for cls, orig in origs.items():
+            cls.__call__ = timed(orig)
         try:
-            cli.main(["--dataset-cache", cache, "-encp", os.path.join(models, "encoder_B.npz"),
-                      "--init-decoder", init, "-decp", ckpt, "--log-dir", logs,
-                      "-step", str(TRAIN_STEPS), "--log-interval", "1", "--save-interval",
-                      str(TRAIN_STEPS)])
+            if fused_mrd:
+                loop.train_decoder(cfg, dataset_dir=cache, encoder_path=enc, ckpt_dir=ckpt,
+                                   log_dir=logs, init_decoder=init)
+            else:
+                cli.main(["--dataset-cache", cache, "-encp", enc, "--init-decoder", init,
+                          "-decp", ckpt, "--log-dir", logs, "-step", str(steps), "-d-join",
+                          str(join), "--log-interval", "1", "--save-interval", str(steps)])
         finally:
-            dt.TrainStep.__call__ = orig_call
+            for cls, orig in origs.items():
+                cls.__call__ = orig
         peak = torch.cuda.max_memory_allocated()
         counts = _train_counts()
+        if fused_mrd:
+            counts |= _mrd_counts()
         with open(os.path.join(logs, "metrics.jsonl")) as f:
             lines = [json.loads(x) for x in f]
-        state = torch.load(os.path.join(ckpt, str(TRAIN_STEPS), "state.pt"), weights_only=False)
-        _check(CheckpointManager(ckpt).steps() == [TRAIN_STEPS], "no checkpoint on disk")
+        state = torch.load(os.path.join(ckpt, str(steps), "state.pt"), weights_only=False)
+        _check(CheckpointManager(ckpt).steps() == [steps], "no checkpoint on disk")
         before = np.load(init)
         moved = [k for k in before.files
                  if not np.array_equal(state[f"gen_params/{k}"], before[k])]
-    losses = [(r["loss/Spectrogram"], r["loss/DSP"]) for r in lines]
-    print(f"  losses (spec, dsp) per step: "
-          + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in losses))
-    _check(len(lines) == TRAIN_STEPS and all(np.isfinite(losses).flatten()), "non-finite loss")
-    skipped = int(state["gen_opt/notfinite_count"])
-    print(f"  skipped_g {skipped}; {len(moved)} of {len(before.files)} parameters changed; "
-          f"launches (all, of them bf16) {counts}")
+        drawn = {k: v for k, v in state_to_tree(dt.init_state(cfg, SEED + 1)).items()
+                 if k.startswith("disc_params/")}
+        moved_d = [k for k, v in drawn.items() if not np.array_equal(state[k], v)]
+    adv = ("loss/Generator Adversarial", "loss/Feature Matching",
+           "loss/Discriminator Adversarial")
+    losses = [[r["loss/Spectrogram"], r["loss/DSP"]] + [r[t] for t in adv if t in r]
+              for r in lines]
+    print(f"  {label}: losses (spec, dsp[, adv, feat, d]) per step: "
+          + ", ".join("(" + ", ".join(f"{x:.4f}" for x in ls) + ")" for ls in losses))
+    _check(len(lines) == steps and all(np.isfinite(x) for ls in losses for x in ls),
+           "non-finite loss")
+    _check([len(ls) for ls in losses] == [2] * join + [5] * (steps - join),
+           "the post-join steps did not log the adversarial losses")
+    skipped = int(state["gen_opt/notfinite_count"]) + int(state["disc_opt/notfinite_count"])
+    print(f"  skipped {skipped}; {len(moved)} of {len(before.files)} generator and "
+          f"{len(moved_d)} of {len(drawn)} discriminator parameters changed; disc_opt count "
+          f"{state['disc_opt/count']}; launches (all, of them bf16) {counts}")
     _check(skipped == 0, f"{skipped} steps skipped")
-    _check(len(moved) >= 0.9 * len(before.files), "the parameters did not change")
+    _check(len(moved) >= 0.9 * len(before.files), "the generator did not change")
+    _check(len(moved_d) >= 0.9 * len(drawn), "the discriminator did not change")
+    _check(state["disc_opt/count"] == steps - join, "the discriminator's updates")
     for name, (n, _) in counts.items():
-        _check(n > 0, f"{name} was not launched in train_decoder")
-    draws = []
-    for _ in range(3):  # the host's share: the noise phases drawn by threefry in numpy
-        t0 = time.perf_counter()
-        prng.uniform(prng.prng_key(SEED), (16, 100, 961), -math.pi, math.pi)
-        draws.append(time.perf_counter() - t0)
-    print(f"  host: the step's noise phases (16 x 100 x 961 uniform draws, utils/prng.py) "
-          f"{statistics.median(draws) * 1e3:.3f} ms median of 3")
-    warm = times[TRAIN_TIMED_FROM:TRAIN_STEPS - 1]  # the last step ran under the profiler
-    print(f"  warm step median {statistics.median(warm) * 1e3:.3f} ms over {len(warm)} "
-          f"(min {min(warm) * 1e3:.3f}, max {max(warm) * 1e3:.3f}); first two "
-          f"{times[0] * 1e3:.1f}, {times[1] * 1e3:.1f} ms; peak memory "
-          f"{peak / 2**30:.3f} GiB; B=16 x 2 s, {32.0 / statistics.median(warm):.1f} audio-s/s "
-          f"trained ({card})")
+        _check(n > 0, f"{name} was not launched in {label}")
+    if not fused_mrd:
+        draws = []
+        for _ in range(3):  # the host's share: the noise phases drawn by threefry in numpy
+            t0 = time.perf_counter()
+            prng.uniform(prng.prng_key(SEED), (16, 100, 961), -math.pi, math.pi)
+            draws.append(time.perf_counter() - t0)
+        print(f"  host: the step's noise phases (16 x 100 x 961 uniform draws, utils/prng.py) "
+              f"{statistics.median(draws) * 1e3:.3f} ms median of 3")
+    pre = [t for post, t in times if not post]
+    post = [t for p, t in times if p]
+    warm_pre, warm_post = pre[TRAIN_TIMED_FROM:], post[1:-1]  # the last step ran profiled
+    print(f"  {label}: first two steps {pre[0] * 1e3:.1f}, {pre[1] * 1e3:.1f} ms; first "
+          f"post-join step {post[0] * 1e3:.1f} ms; peak memory {peak / 2**30:.3f} GiB ({card})")
+    for kind, warm in (("pre-join", warm_pre), ("post-join", warm_post)):
+        if warm:
+            med = statistics.median(warm)
+            print(f"  {label}: warm {kind} step median {med * 1e3:.3f} ms over {len(warm)} "
+                  f"(min {min(warm) * 1e3:.3f}, max {max(warm) * 1e3:.3f}); B=16 x 2 s, "
+                  f"{32.0 / med:.1f} audio-s/s trained ({card})")
     kernels = profiled["kernels"][0]
-    _print_breakdown("train step", kernels, statistics.median(warm) * 1e3)
+    _print_breakdown(f"{label} post-join step", kernels, statistics.median(warm_post) * 1e3)
     return {k: n16 for k, (_, n16) in counts.items()}
 
 
@@ -1518,6 +1893,9 @@ def _print_breakdown(label: str, kernels: dict, wall_ms: float) -> None:
 # cuDNN's convolutions are implicit GEMMs ("fprop_implicit_gemm",
 # "implicit_convolve_sgemm"), so they are matched before plain GEMMs.
 PROFILE_GROUPS = (
+    ("kernel M (MRD forward)", ("mrd_fwd_kernel",)),
+    ("kernel N (MRD dy, dx)", ("mrd_dy_kernel", "mrd_dx_kernel")),
+    ("kernel O (MRD dW, db)", ("mrd_dw_partial", "mrd_dw_sum", "mrd_db_kernel")),
     ("kernel I (oscillator gradient)", ("osc_amps_grad",)),
     ("kernel A (oscillator)", ("osc_frame_sums", "osc_synth")),
     ("kernel B (noise)", ("noise_synth",)),
@@ -1631,12 +2009,20 @@ def main() -> int:
 
     phase_train_kernels(kernels, np.random.default_rng(1), torch.device("cuda"))
     step_launches = phase_train_step(card)
+    _done("train", t0)
+    t0 = _phase("post-join")
+    phase_mrd_kernels(kernels, np.random.default_rng(2), torch.device("cuda"))
+    join_launches = phase_postjoin_step(card)
     cli_launches = phase_train_cli(card)
+    fused_launches = phase_train_cli(card, fused_mrd=True)
     for name in ("oscillator_grad", "resample_grad", "up_chain_grad", "down_chain_grad"):
         launches[name] = step_launches[name]
         if name != "oscillator_grad":
             launches[name + "_bf16"] = cli_launches[name]
-    _done("train", t0)
+    for name in ("mrd_fwd", "mrd_dx", "mrd_dw"):
+        launches[name] = join_launches[name]
+        launches[name + "_bf16"] = fused_launches[name]
+    _done("post-join", t0)
     print(f"== total: {time.perf_counter() - t_all:.2f} s")
 
     rows = []
@@ -1644,7 +2030,8 @@ def main() -> int:
                 "spectrogram", "knn", "upsample_bf16", "downsample_bf16", "down_chain_bf16",
                 "up_chain_bf16", "oscillator_grad", "resample_grad", "resample_grad_bf16",
                 "up_chain_grad", "up_chain_grad_bf16", "down_chain_grad",
-                "down_chain_grad_bf16"):
+                "down_chain_grad_bf16", "mrd_fwd", "mrd_dx", "mrd_dw", "mrd_fwd_bf16",
+                "mrd_dx_bf16", "mrd_dw_bf16"):
         r = kernels[key]
         rows.append({k: r[k] for k in ("name", "route", "source", "replaces")}
                     | {"launches": launches[key]}

@@ -1,0 +1,226 @@
+"""The port's phase-plane MRD (`tinyvc_tpu_torch/ops/mrd_planes.py`, the
+plain versions of kernels M, N and O in `tinyvc_tpu_torch/kernels/mrd.py`)
+against the JAX package's plan and its fused MRD kernels
+(`tinyvc_tpu/ops/pallas/mrd.py::mrd_chain`), run in interpret mode on the
+CPU as `tests/test_mrd_fused.py` runs them. Inputs from a numpy seed; each
+comparison prints its measured error."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tinyvc_tpu.dsp.stft import stft_magnitude as j_stft_magnitude
+from tinyvc_tpu.ops import mrd_planes as jmp
+from tinyvc_tpu.ops.pallas.mrd import mrd_chain as j_mrd_chain
+from tinyvc_tpu_torch.kernels import mrd
+from tinyvc_tpu_torch.ops import mrd_planes as pmp
+
+T = 8000
+FULL = (32, 256, 4)  # channels, max_channels, num_layers
+SMALL = (4, 16, 2)  # tests/test_training.py::small_config
+
+
+@pytest.fixture(autouse=True)
+def _two_threads():
+    """At most two intra-op threads per test: the tier-1 run puts six workers
+    on the CPU's cores, where more threads per worker only spin against each
+    other's (a full-width discriminator test took 300x its single-process
+    time so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
+def _chain(plan, rng):
+    ws = [(0.1 * rng.standard_normal((lp.kh, lp.kw, lp.cin, lp.cout))).astype(np.float32)
+          for lp in plan.layers]
+    bs = [(0.1 * rng.standard_normal(lp.cout)).astype(np.float32) for lp in plan.layers]
+    return ws, bs
+
+
+def _spec_pm(rng, res, plan, B=2, length=T):
+    x = jnp.asarray((0.3 * rng.standard_normal((B, length))).astype(np.float32))
+    spec = jnp.swapaxes(j_stft_magnitude(x, res * 4, res, drop_first=False), 1, 2)
+    return np.asarray(jmp.pack_spec_planes(spec, plan))
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _rel_peak(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+
+
+def _jax_outs(spec_pm, ws, bs, plan, dtype_name):
+    return jax.jit(lambda s, w, b: j_mrd_chain(s, tuple(w), tuple(b), plan, dtype_name, True))(
+        jnp.asarray(spec_pm), [jnp.asarray(w) for w in ws], [jnp.asarray(b) for b in bs])
+
+
+def _jax_grads(spec_pm, ws, bs, plan, dtype_name):
+    """JAX's custom-vjp gradients of sum_i 0.1 (i+1) sum(out_i^2)
+    (`tests/test_mrd_fused.py:115-144`)."""
+    def loss(s, w, b):
+        outs = j_mrd_chain(s, tuple(w), tuple(b), plan, dtype_name, True)
+        return sum((o.astype(jnp.float32) ** 2).sum() * (0.1 * (i + 1))
+                   for i, o in enumerate(outs))
+
+    g = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
+        jnp.asarray(spec_pm), [jnp.asarray(w) for w in ws], [jnp.asarray(b) for b in bs])
+    return [np.asarray(g[0])] + [np.asarray(a) for a in g[1]] + [np.asarray(a) for a in g[2]]
+
+
+def _port_grads(spec_pm, ws, bs, plan, dtype_name):
+    s = _t(spec_pm).requires_grad_()
+    wt = [_t(w).requires_grad_() for w in ws]
+    bt = [_t(b).requires_grad_() for b in bs]
+    outs = mrd.mrd_chain(s, wt, bt, plan, dtype_name)
+    loss = sum((o.float() ** 2).sum() * (0.1 * (i + 1)) for i, o in enumerate(outs))
+    g = torch.autograd.grad(loss, [s, *wt, *bt])
+    return [a.numpy() for a in g]
+
+
+@pytest.mark.parametrize("widths", [FULL, SMALL], ids=["full", "small"])
+@pytest.mark.parametrize("length", [2400, T])
+@pytest.mark.parametrize("res", [32, 64, 128, 256])
+def test_make_plan_matches_jax(res, length, widths):
+    want = jmp.make_plan(res, length, *widths)
+    got = pmp.make_plan(res, length, *widths)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    for li in range(len(got.layers)):
+        assert got.valid_count(li) == want.valid_count(li)
+        assert got.flat_len(li) == int(np.prod(want.out_shape(li, 1)[2:]))
+        np.testing.assert_array_equal(got.out_mask(li), want.out_mask(li))
+
+
+@pytest.mark.parametrize("res", [32, 256])
+def test_pack_and_unpack_match_jax(rng, res):
+    plan = jmp.make_plan(res, T)
+    spec = rng.standard_normal((2, plan.bins, plan.W)).astype(np.float32)
+    want = np.asarray(jmp.pack_spec_planes(jnp.asarray(spec), plan))
+    got = pmp.pack_spec_planes(_t(spec), pmp.make_plan(res, T))
+    np.testing.assert_array_equal(got.numpy(), want)
+    for li, lp in enumerate(plan.layers):
+        y = rng.standard_normal(plan.out_shape(li, 2)).astype(np.float32)
+        np.testing.assert_array_equal(
+            pmp.unpack_planes(_t(y), pmp.make_plan(res, T), li).numpy(),
+            np.asarray(jmp.unpack_planes(jnp.asarray(y), plan, li)))
+
+
+@pytest.mark.parametrize("res", [32, 256])
+def test_plain_chain_matches_jax_kernel(rng, res):
+    """Full widths, T=8000, B=2, fp32: every output within 2e-5 of its peak
+    (the bound JAX holds its kernel to, `tests/test_mrd_fused.py:99-112`)."""
+    plan = pmp.make_plan(res, T)
+    spec_pm = _spec_pm(rng, res, plan)
+    ws, bs = _chain(plan, rng)
+    want = _jax_outs(spec_pm, ws, bs, jmp.make_plan(res, T), "float32")
+    got = mrd.mrd_chain(_t(spec_pm), [_t(w) for w in ws], [_t(b) for b in bs], plan, "float32")
+    errs = [_rel_peak(g.numpy(), np.asarray(w).reshape(g.shape)) for g, w in zip(got, want)]
+    print(f"r={res}: fp32 plain chain vs JAX kernel, max error of the peak per layer "
+          + ", ".join(f"{e:.2e}" for e in errs))
+    assert max(errs) <= 2e-5
+    for li, g in enumerate(got):  # exact zeros off the valid positions
+        off = torch.from_numpy(plan.out_mask(li).reshape(-1)) == 0
+        assert float(g[:, :, off].abs().max()) == 0.0
+
+
+def test_plain_gradients_match_jax_vjp(rng):
+    """r=64, full widths: dspec, every dW and db within 3e-5 of the peak of
+    JAX's custom vjp (`tests/test_mrd_fused.py:115-144`)."""
+    res = 64
+    plan = pmp.make_plan(res, T)
+    spec_pm = _spec_pm(rng, res, plan)
+    ws, bs = _chain(plan, rng)
+    want = _jax_grads(spec_pm, ws, bs, jmp.make_plan(res, T), "float32")
+    got = _port_grads(spec_pm, ws, bs, plan, "float32")
+    errs = [_rel_peak(g, w) for g, w in zip(got, want)]
+    print("fp32 gradients vs JAX's vjp, max error of the peak: dspec "
+          f"{errs[0]:.2e}, dW " + ", ".join(f"{e:.2e}" for e in errs[1:7])
+          + ", db " + ", ".join(f"{e:.2e}" for e in errs[7:]))
+    assert max(errs) <= 3e-5
+
+
+# bf16 operands, relative L2 per output and per gradient: the port and JAX
+# round the same operands to bf16 and sum in fp32 in another order, so a
+# sum that straddles a bf16 rounding lands one bf16 step away and the step
+# carries into the later layers. Measured here (r=64, full widths): outputs
+# 0 (layer 0) to 1.7e-3 (the logits), gradients 8e-5 to 1.2e-4 (dW, db) and
+# 3.0e-3 (dspec, stored in bf16); JAX's own bf16 run is 3.0e-3 to 8.5e-3
+# (outputs) and 1.0e-3 to 5.7e-3 (gradients) from its fp32 run. The bound is
+# 5e-3, and the port must also stay nearer JAX's bf16 run than JAX's bf16
+# run is to its fp32 one.
+BF16_REL_L2 = 5e-3
+
+
+def test_bf16_plain_chain_matches_jax_kernel(rng):
+    res = 64
+    plan = pmp.make_plan(res, T)
+    jplan = jmp.make_plan(res, T)
+    spec_pm = _spec_pm(rng, res, plan)
+    ws, bs = _chain(plan, rng)
+    want = _jax_outs(spec_pm, ws, bs, jplan, "bfloat16")
+    want32 = _jax_outs(spec_pm, ws, bs, jplan, "float32")
+    got = mrd.mrd_chain(_t(spec_pm), [_t(w) for w in ws], [_t(b) for b in bs], plan, "bfloat16")
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    errs = [_rel_l2(g.float().numpy(), np.asarray(w, np.float32).reshape(g.shape))
+            for g, w in zip(got, want)]
+    jax_own = [_rel_l2(np.asarray(a, np.float32), np.asarray(b)) for a, b in zip(want, want32)]
+    print("bf16 outputs, relative L2 to JAX's bf16 run "
+          + ", ".join(f"{e:.2e}" for e in errs) + "; JAX's bf16 run to its fp32 run "
+          + ", ".join(f"{e:.2e}" for e in jax_own))
+    assert max(errs) <= BF16_REL_L2
+    assert all(e <= j for e, j in zip(errs, jax_own))
+
+    gw = _jax_grads(spec_pm, ws, bs, jplan, "bfloat16")
+    gw32 = _jax_grads(spec_pm, ws, bs, jplan, "float32")
+    gg = _port_grads(spec_pm, ws, bs, plan, "bfloat16")
+    gerrs = [_rel_l2(g, w) for g, w in zip(gg, gw)]
+    gown = [_rel_l2(a, b) for a, b in zip(gw, gw32)]
+    print("bf16 gradients (dspec, dW, db), relative L2 to JAX's bf16 vjp "
+          + ", ".join(f"{e:.2e}" for e in gerrs) + "; JAX's bf16 vjp to its fp32 vjp "
+          + ", ".join(f"{e:.2e}" for e in gown))
+    assert max(gerrs) <= BF16_REL_L2
+    assert all(e <= j for e, j in zip(gerrs, gown))
+
+
+def test_plain_dx_and_dw_equal_autograd_of_the_plain_chain(rng):
+    """In fp32 the written-out plain versions of N and O are autograd
+    through the plain chain (small widths, r=32, T=2400)."""
+    plan = pmp.make_plan(32, 2400, *SMALL)
+    spec_pm = _t(_spec_pm(rng, 32, jmp.make_plan(32, 2400, *SMALL), length=2400))
+    ws, bs = _chain(plan, rng)
+    ws = [_t(w).requires_grad_() for w in ws]
+    bs = [_t(b).requires_grad_() for b in bs]
+    s = spec_pm.clone().requires_grad_()
+    outs = pmp.mrd_chain_xla(s, ws, bs, plan)
+    cots = [torch.from_numpy(rng.standard_normal(o.shape).astype(np.float32)) for o in outs]
+    want = torch.autograd.grad(outs, [s, *ws, *bs], cots)
+    B = s.shape[0]
+    flat = [c.reshape(B, c.shape[1], -1) for c in cots]
+    dspec, dys = mrd.mrd_dx_plain(flat, [w.detach() for w in ws], plan)
+    xs = [s.detach().reshape(B, 1, -1)] + [o.detach().reshape(B, o.shape[1], -1)
+                                            for o in outs[:-1]]
+    dws, dbs = mrd.mrd_dw_plain(xs, dys, plan)
+    for g, w in zip([dspec.reshape(s.shape), *dws, *dbs], want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-5 * float(w.abs().max()))
+
+
+def test_wrappers_refuse_mixed_devices(rng):
+    plan = pmp.make_plan(32, 2400, *SMALL)
+    ws, bs = _chain(plan, rng)
+    spec = torch.zeros((1, 1, plan.s0 * plan.buf_len(0)))
+    with pytest.raises(ValueError, match="all be on the CPU or all on CUDA"):
+        mrd.mrd_forward(spec.to("meta"), [_t(w) for w in ws], [_t(b) for b in bs], plan)

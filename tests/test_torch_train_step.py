@@ -7,6 +7,7 @@ Pallas kernels in interpret mode): the same parameters (carried across with
 draws the gain and the noise phases from that key itself. And the
 optimizer against optax, and its skip of a non-finite step."""
 
+import dataclasses
 import math
 
 import jax
@@ -21,6 +22,7 @@ from tinyvc_tpu.models import Decoder, Encoder
 from tinyvc_tpu.train import decoder_train as jdt
 from tinyvc_tpu_torch import config as pcfg
 from tinyvc_tpu_torch.train import decoder_train as pdt
+from tinyvc_tpu_torch.train.loop import load_encoder
 from tinyvc_tpu_torch.utils.weights import (encoder_from_jax, state_dict_from_jax,
                                             train_state_from_jax)
 from torch_parity import random_params
@@ -118,7 +120,7 @@ def test_prejoin_step_matches_jax(rng, spec_loss, voiced):
         assert errs[worst[0]] <= 1e-3
 
     metrics = step(ps, enc, torch.from_numpy(wave), _key(5))
-    assert metrics["skipped_g"] == 0 and ps.step == 1 and ps.count == 1
+    assert metrics["skipped_g"] == 0 and ps.step == 1 and ps.gen_opt.count == 1
     step(ps, enc, torch.from_numpy(wave), _key(6))
     want = state_dict_from_jax(s2.gen_params)
     diff = torch.cat([(p.detach() - want[k]).abs().flatten()
@@ -152,7 +154,7 @@ def test_optimizer_matches_optax(rng):
     _, pc = _configs()
     dec = pdt.init_state(pc, 3).decoder
     names = [n for n, _ in dec.named_parameters()][:6]
-    state = pdt.TrainState.fresh(dec)
+    state = pdt.OptState.fresh(dec)
     params = {n: p.detach().numpy().copy() for n, p in dec.named_parameters()}
     tx = _optax_tx(pc)
     jp = {n: jnp.asarray(v) for n, v in params.items()}
@@ -166,7 +168,7 @@ def test_optimizer_matches_optax(rng):
         upd, jstate = tx.update({n: jnp.asarray(v) for n, v in g.items()}, jstate, jp)
         jp = optax.apply_updates(jp, upd)
         mu_before = {n: t.clone() for n, t in state.mu.items()}
-        took = pdt.apply_update(state, {n: torch.from_numpy(v) for n, v in g.items()}, pc)
+        took = pdt.apply_update(state, dec, {n: torch.from_numpy(v) for n, v in g.items()}, pc)
         assert took == (bad is None)
         if bad is not None:
             assert all(torch.equal(state.mu[n], mu_before[n]) for n in names)
@@ -190,18 +192,35 @@ def test_nan_gradient_skips_the_step(rng):
     _, _, grads = step.loss_and_grads(ps, enc, torch.from_numpy(wave), _key(1))
     before = {n: p.detach().clone() for n, p in ps.decoder.named_parameters()}
     grads["filter_net.up_4.c1.weight"][0, 0, 0] = math.nan
-    assert not pdt.apply_update(ps, grads, pc)
-    assert ps.notfinite_count == 1 and ps.count == 0
+    assert not pdt.apply_update(ps.gen_opt, ps.decoder, grads, pc)
+    assert ps.gen_opt.notfinite_count == 1 and ps.gen_opt.count == 0
     assert all(torch.equal(p, before[n]) for n, p in ps.decoder.named_parameters())
-    assert all(float(m.abs().max()) == 0.0 for m in ps.mu.values())
+    assert all(float(m.abs().max()) == 0.0 for m in ps.gen_opt.mu.values())
     metrics = step(ps, enc, torch.from_numpy(wave), _key(2))
-    assert metrics["skipped_g"] == 1 and ps.count == 1 and ps.step == 1
+    assert metrics["skipped_g"] == 1 and ps.gen_opt.count == 1 and ps.step == 1
 
 
-def test_post_join_is_refused():
+def test_post_join_builds_and_steps(rng):
+    """``d_join=True`` builds the post-join step, which updates both
+    networks from one state (a small discriminator; its parity with JAX is
+    `tests/test_torch_train_postjoin.py`'s)."""
     _, pc = _configs()
-    with pytest.raises(NotImplementedError, match="discriminator"):
-        pdt.make_train_step(pc, d_join=True)
+    pc = dataclasses.replace(
+        pc, discriminator=pcfg.DiscriminatorConfig(periods=(2, 3), resolutions=(32,), channels=4,
+                                                   max_channels=16, num_layers=2),
+        train=dataclasses.replace(pc.train, disc_crop=2400))
+    st = pdt.init_state(pc, 1)
+    disc_before = {n: p.detach().clone() for n, p in st.discriminator.named_parameters()}
+    step = pdt.make_train_step(pc, d_join=True, spec_loss_type="mel")
+    assert isinstance(step, pdt.PostJoinStep)
+    wave = (0.1 * rng.standard_normal((2, L))).astype(np.float32)
+    metrics = step(st, load_encoder(None, pc, 0, "cpu"), torch.from_numpy(wave), _key(3))
+    assert all(np.isfinite(float(metrics[k])) for k in
+               ("loss_spec", "loss_dsp", "loss_adv", "loss_feat", "loss_g", "loss_d"))
+    assert metrics["skipped_g"] == 0 and metrics["skipped_d"] == 0 and st.step == 1
+    assert st.gen_opt.count == 1 and st.disc_opt.count == 1
+    assert all(not torch.equal(p, disc_before[n])
+               for n, p in st.discriminator.named_parameters())
 
 
 def test_init_state_draws_flax_distributions():
@@ -210,7 +229,7 @@ def test_init_state_draws_flax_distributions():
     _, pc = _configs()
     st = pdt.init_state(pc, 0)
     for name, p in st.decoder.named_parameters():
-        assert torch.equal(st.mu[name], torch.zeros_like(p))
+        assert torch.equal(st.gen_opt.mu[name], torch.zeros_like(p))
     sub = st.decoder.filter_net.up_4.c1
     bound = 1.0 / math.sqrt(sub.weight.shape[1] * sub.weight.shape[2])
     assert float(sub.weight.abs().max()) <= bound and float(sub.bias.abs().max()) <= bound

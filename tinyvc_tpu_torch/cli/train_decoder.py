@@ -1,5 +1,5 @@
-"""CLI: the decoder's GAN training before the discriminator joins
-(counterpart of `tinyvc_tpu/cli/train_decoder.py`).
+"""CLI: the decoder's GAN training, before and after the discriminator joins
+at ``-d-join`` (counterpart of `tinyvc_tpu/cli/train_decoder.py`).
 
     python -m tinyvc_tpu_torch.cli.train_decoder --dataset-cache dataset_cache \\
         -encp models/two_speaker/encoder_B.npz -decp models/decoder \\
@@ -8,7 +8,10 @@
 The cache is the JAX package's (``{i}.wav`` at 24 kHz, ``{i}.f0.npy``);
 ``-encp`` a params-only ``.npz``; ``-decp`` the checkpoint directory,
 resumed when it holds a checkpoint; ``--init-decoder`` an ``.npz`` to start
-from instead of a random init. ``--device cuda`` (the default) fails when
+from instead of a random init. The discriminator is drawn at random, or
+resumed from the checkpoint; its MRD runs the default
+``mrd_conv_impl="lax"`` (the JAX CLI has no flag for it either).
+``--device cuda`` (the default) fails when
 CUDA is absent; ``--device cpu`` runs the kernels' plain versions. The
 flags of later slices are refused: ``--remat``, ``--device-data``, ``-K``
 and the multi-host ones.
@@ -30,7 +33,7 @@ REFUSED = {
 
 
 def main(argv=None):
-    p = argparse.ArgumentParser(description="train the DDSP vocoder (PyTorch/CUDA, pre-join)")
+    p = argparse.ArgumentParser(description="train the DDSP vocoder (PyTorch/CUDA)")
     p.add_argument("--dataset-cache", default="dataset_cache")
     p.add_argument("-encp", "--encoder-path", default=None,
                    help="params-only .npz of the frozen encoder (default: random)")

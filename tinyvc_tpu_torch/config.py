@@ -28,8 +28,12 @@ backend; "on" trains the fused U-Net on either device (on the CPU through
 the kernels' plain versions, as JAX runs its kernels in interpret mode),
 "off" the layer-by-layer one.
 
-``TrainConfig`` and ``MelConfig`` are `tinyvc_tpu/config.py`'s, field for
-field.
+``TrainConfig``, ``MelConfig`` and ``DiscriminatorConfig`` are
+`tinyvc_tpu/config.py`'s, field for field. ``mrd_conv_impl`` keeps the JAX
+spellings: "fused" runs the phase-plane MRD chain (`ops/mrd_planes.py`,
+kernels M, N and O on CUDA tensors); "lax", "hybrid", "nhwc", "unfold" and
+"xres" are the TPU's layout lowerings of one function, and the port runs
+each of them as its NCHW ``F.conv2d`` form (`models/discriminator.py`).
 """
 
 from __future__ import annotations
@@ -124,11 +128,28 @@ class MelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DiscriminatorConfig:
+    """MPD + MRD (`tinyvc_tpu/config.py:99-126`)."""
+
+    periods: Tuple[int, ...] = (1, 2, 3, 5, 7, 11)
+    resolutions: Tuple[int, ...] = (32, 64, 128, 256)
+    channels: int = 32
+    max_channels: int = 256
+    num_layers: int = 4
+    # False keeps the reference's dropped MRD activation (its leaky ReLU is
+    # computed and discarded), so the MRD chain is linear
+    mrd_fixed_activation: bool = False
+    compute_dtype: str = "float32"  # the convs' operands; params stay fp32
+    mrd_conv_impl: str = "lax"  # 'lax' | 'hybrid' | 'nhwc' | 'unfold' | 'xres' | 'fused'
+
+
+@dataclasses.dataclass(frozen=True)
 class TinyVCConfig:
     audio: AudioConfig = dataclasses.field(default_factory=AudioConfig)
     encoder: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
     decoder: DecoderConfig = dataclasses.field(default_factory=DecoderConfig)
     retrieval: RetrievalConfig = dataclasses.field(default_factory=RetrievalConfig)
+    discriminator: DiscriminatorConfig = dataclasses.field(default_factory=DiscriminatorConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     mel: MelConfig = dataclasses.field(default_factory=MelConfig)
 

@@ -32,7 +32,17 @@ The training step's gradients (`train/decoder_train.py`):
 - L, `filter_stage.py`: the Downsample chains' and the stem's gradients
   (replaces `tinyvc_tpu/ops/pallas/filter_stage.py::_run_down_bwd`)
 
-C-F and J-L also take bf16 tensors, the serving profile's and the training
+The post-join GAN step's discriminator (`models/discriminator.py`,
+``mrd_conv_impl="fused"``):
+
+- M, `mrd.py`: the MRD's conv stack in the phase-plane layout
+  (replaces `tinyvc_tpu/ops/pallas/mrd.py::_fwd_pallas`)
+- N, `mrd.py`: its masked cotangents and input gradient
+  (replaces the dx sweep of `tinyvc_tpu/ops/pallas/mrd.py::_mrd_bwd`)
+- O, `mrd.py`: its weight and bias gradients
+  (replaces the dW/db sweep of `tinyvc_tpu/ops/pallas/mrd.py::_mrd_bwd`)
+
+C-F, J-L and M-O also take bf16 tensors, the serving profile's and the training
 step's bf16-operand forms. Each wrapper takes
 its plain version for tensors on the CPU and launches its kernel for CUDA
 tensors, or raises. `build.py` compiles `csrc/*.cu` at first use, one

@@ -1,0 +1,292 @@
+"""Kernels M, N and O: the fused MRD chain, its input gradient and its
+weight gradient (`csrc/mrd.cu`).
+
+- M, :func:`mrd_forward`, replaces `tinyvc_tpu/ops/pallas/mrd.py::
+  _fwd_pallas` (``_fwd_kernel``): one MRD resolution's whole conv stack in
+  the phase-plane layout of `ops/mrd_planes.py`.
+- N, :func:`mrd_dx`, replaces the dx sweep of ``_mrd_bwd``
+  (``_bwd_kernel_dx``): top-down, each layer's masked cotangent
+  ``dy = mask(cot + dx from above)`` and the gradient of its input; at
+  layer 0 that is dspec.
+- O, :func:`mrd_dw`, replaces the dW/db sweep (``_bwd_kernel_dw``): every
+  tap's weight gradient ``x_slice @ dy_q^T`` and the bias gradient, summed
+  over the planes and the batch.
+
+Every map is flat plane-major ``[B, c, s*(g+4)*Wp]`` with exact zeros off
+the valid positions; weights come as the effective (weight-normalised) HWIO
+``[kh, kw, cin, cout]`` fp32 kernels, biases ``[cout]`` fp32. The operand
+dtype is the input's: fp32, or bf16 (the TPU's choice) with fp32 sums, bf16
+maps, fp32 bias, masks and carried dx, and dspec in bf16 (`mrd.py:355`).
+
+CPU tensors take the plain versions; CUDA tensors launch the kernels, or
+raise. The plain version of M is `ops/mrd_planes.py::mrd_chain_xla`; those
+of N and O are written out below as the TPU kernels compute them (their
+fp32 results equal autograd through the plain chain,
+`tests/test_torch_mrd.py`). Each wrapper counts its calls that launched
+(``launches``, ``launches_bf16``); a call is one CUDA launch per layer for M,
+two for N and three for O.
+
+:class:`MrdChain` (``mrd_chain``, JAX's name) is the differentiable chain:
+forward M, backward N then O, with ``mrd.py::mrd_chain``'s signature.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+
+from ..ops.mrd_planes import MrdPlan, _operand, _tap_slices, mrd_chain_xla
+from . import build
+
+DTYPES = (torch.float32, torch.bfloat16)
+WGRAD_CHUNK = 1024  # positions of one block's weight-gradient partial sum
+
+
+def _dtype(name: str) -> torch.dtype:
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"dtype_name must be 'float32' or 'bfloat16', got {name!r}")
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
+
+
+def _mask(plan: MrdPlan, li: int, device) -> torch.Tensor:
+    """0/1 over layer ``li``'s flat output (`mrd.py::_mask_full`)."""
+    return torch.from_numpy(plan.out_mask(li).reshape(-1)).to(device)
+
+
+def _layer_args(plan: MrdPlan, li: int, B: int) -> Tuple[int, ...]:
+    lp = plan.layers[li]
+    return (B, lp.cin, lp.cout, lp.kh, lp.stride, lp.ph, lp.s_in, lp.s_out, lp.g_in, lp.g_out,
+            plan.Wp, plan.W, lp.h_out)
+
+
+def _in_len(plan: MrdPlan, li: int) -> int:
+    return plan.layers[li].s_in * plan.buf_len(li)
+
+
+def _check(name: str, t: torch.Tensor, shape, dtype) -> None:
+    build.check_input(name, t, len(shape), (dtype,))
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _check_weights(ws, bs, plan: MrdPlan) -> None:
+    if len(ws) != len(plan.layers) or len(bs) != len(plan.layers):
+        raise ValueError(f"expected {len(plan.layers)} weights and biases")
+    for li, (lp, w, b) in enumerate(zip(plan.layers, ws, bs)):
+        _check(f"w{li}", w, (lp.kh, lp.kw, lp.cin, lp.cout), torch.float32)
+        _check(f"b{li}", b, (lp.cout,), torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def mrd_forward_plain(spec: torch.Tensor, ws: Sequence[torch.Tensor],
+                      bs: Sequence[torch.Tensor], plan: MrdPlan) -> List[torch.Tensor]:
+    """Plain version of M: ``spec [B, 1, S0*(G0+4)*Wp]`` in the operand
+    dtype -> every layer's flat output in that dtype."""
+    B = spec.shape[0]
+    x = spec.reshape(B, 1, plan.s0, -1)
+    outs = mrd_chain_xla(x, ws, bs, plan, dtype=spec.dtype)
+    return [o.reshape(B, o.shape[1], -1) for o in outs]
+
+
+def mrd_dx_plain(cots: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
+                 plan: MrdPlan) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Plain version of N: the cotangents of every layer's flat output, in
+    the operand dtype -> (dspec ``[B, 1, S0*(G0+4)*Wp]`` and the masked
+    cotangents ``dy``, in that dtype)."""
+    dt = cots[0].dtype
+    bf16 = dt == torch.bfloat16
+    B, Wp = cots[0].shape[0], plan.Wp
+    dys: List[torch.Tensor] = [None] * len(plan.layers)
+    above = None
+    for li in range(len(plan.layers) - 1, -1, -1):
+        lp = plan.layers[li]
+        L, blk_in, blk_out = lp.g_out * Wp, (lp.g_in + 4) * Wp, (lp.g_out + 4) * Wp
+        cur = cots[li].float()
+        if above is not None:
+            cur = cur + above
+        dys[li] = (cur * _mask(plan, li, cur.device)).to(dt)
+        dy = dys[li].float()
+        w = _operand(ws[li].reshape(lp.kh * lp.kw, lp.cin, lp.cout), bf16)
+        dx = torch.zeros((B, lp.cin, lp.s_in, blk_in), device=dy.device)
+        for q, taps in enumerate(_tap_slices(lp, Wp)):
+            dyq = dy[:, :, q * blk_out + 2 * Wp: q * blk_out + 2 * Wp + L]
+            for t_i, (phi, s0) in enumerate(taps):
+                dx[:, :, phi, s0:s0 + L] += torch.einsum("cf,bfl->bcl", w[t_i], dyq)
+        above = dx.reshape(B, lp.cin, -1)
+    return above.to(dt), dys
+
+
+def mrd_dw_plain(xs: Sequence[torch.Tensor], dys: Sequence[torch.Tensor],
+                 plan: MrdPlan) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Plain version of O: each layer's flat input ``xs`` (the spectrogram,
+    then every output but the last) and masked cotangent ``dys``, in the
+    operand dtype -> (HWIO weight gradients, bias gradients), fp32."""
+    B, Wp = xs[0].shape[0], plan.Wp
+    dws, dbs = [], []
+    for li, lp in enumerate(plan.layers):
+        L, blk_out = lp.g_out * Wp, (lp.g_out + 4) * Wp
+        x = xs[li].float().reshape(B, lp.cin, lp.s_in, -1)
+        dy = dys[li].float()
+        acc = torch.zeros((lp.kh * lp.kw, lp.cin, lp.cout), device=dy.device)
+        for q, taps in enumerate(_tap_slices(lp, Wp)):
+            dyq = dy[:, :, q * blk_out + 2 * Wp: q * blk_out + 2 * Wp + L]
+            for t_i, (phi, s0) in enumerate(taps):
+                acc[t_i] += torch.einsum("bcl,bfl->cf", x[:, :, phi, s0:s0 + L], dyq)
+        dws.append(acc.reshape(lp.kh, lp.kw, lp.cin, lp.cout))
+        dbs.append(dy.sum(dim=(0, 2)))
+    return dws, dbs
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def mrd_forward(spec: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
+                plan: MrdPlan) -> List[torch.Tensor]:
+    """Kernel M: ``spec [B, 1, S0*(G0+4)*Wp]`` (fp32 or bf16, the operand
+    dtype) -> every layer's flat output ``[B, cout, s_out*(g_out+4)*Wp]`` in
+    that dtype (the last is the logits)."""
+    if build.on_cpu(spec, *ws, *bs):
+        return mrd_forward_plain(spec, ws, bs, plan)
+    build.check_input("spec", spec, 3, DTYPES)
+    B = spec.shape[0]
+    _check("spec", spec, (B, 1, _in_len(plan, 0)), spec.dtype)
+    _check_weights(ws, bs, plan)
+    bf16 = spec.dtype == torch.bfloat16
+    outs, x = [], spec
+    for li, lp in enumerate(plan.layers):
+        out = torch.empty((B, lp.cout, plan.flat_len(li)), device=spec.device, dtype=spec.dtype)
+        build.launch("tvc_mrd_fwd", spec, x, ws[li], bs[li], out, *_layer_args(plan, li, B),
+                     int(bf16))
+        outs.append(out)
+        x = out
+    mrd_forward.launches += 1
+    mrd_forward.launches_bf16 += bf16
+    return outs
+
+
+mrd_forward.launches = 0
+mrd_forward.launches_bf16 = 0  # of them, on bf16 inputs
+
+
+def mrd_dx(cots: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
+           plan: MrdPlan) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Kernel N: the cotangents of every layer's flat output (fp32 or bf16,
+    the operand dtype) -> (dspec ``[B, 1, S0*(G0+4)*Wp]``, the masked
+    cotangents ``dy``), in that dtype."""
+    if build.on_cpu(*cots, *ws):
+        return mrd_dx_plain(cots, ws, plan)
+    dt = cots[0].dtype
+    build.check_input("cot0", cots[0], 3, DTYPES)
+    B = cots[0].shape[0]
+    for li, (lp, c) in enumerate(zip(plan.layers, cots)):
+        _check(f"cot{li}", c, (B, lp.cout, plan.flat_len(li)), dt)
+        build.check_input(f"w{li}", ws[li], 4)
+    bf16 = dt == torch.bfloat16
+    dys: List[torch.Tensor] = [None] * len(plan.layers)
+    above = None
+    for li in range(len(plan.layers) - 1, -1, -1):
+        lp = plan.layers[li]
+        dys[li] = torch.empty_like(cots[li])
+        dx = torch.empty((B, lp.cin, _in_len(plan, li)), device=dys[li].device,
+                         dtype=dt if li == 0 else torch.float32)
+        wt = ws[li].reshape(lp.kh * lp.kw, lp.cin, lp.cout).transpose(1, 2).contiguous()
+        build.launch("tvc_mrd_dx", cots[li], cots[li], above, dys[li], dx, wt,
+                     *_layer_args(plan, li, B), int(bf16), int(bf16 and li == 0))
+        above = dx
+    mrd_dx.launches += 1
+    mrd_dx.launches_bf16 += bf16
+    return above, dys
+
+
+mrd_dx.launches = 0
+mrd_dx.launches_bf16 = 0
+
+
+def _dw_chunks(plan: MrdPlan, li: int, B: int) -> int:
+    lp = plan.layers[li]
+    return B * lp.s_out * (-(-lp.g_out * plan.Wp // WGRAD_CHUNK))
+
+
+def mrd_dw(xs: Sequence[torch.Tensor], dys: Sequence[torch.Tensor],
+           plan: MrdPlan) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Kernel O: each layer's flat input and masked cotangent (fp32 or bf16,
+    the operand dtype) -> (HWIO weight gradients, bias gradients), fp32."""
+    if build.on_cpu(*xs, *dys):
+        return mrd_dw_plain(xs, dys, plan)
+    dt = xs[0].dtype
+    build.check_input("x0", xs[0], 3, DTYPES)
+    B = xs[0].shape[0]
+    for li, lp in enumerate(plan.layers):
+        _check(f"x{li}", xs[li], (B, lp.cin, _in_len(plan, li)), dt)
+        _check(f"dy{li}", dys[li], (B, lp.cout, plan.flat_len(li)), dt)
+    bf16 = dt == torch.bfloat16
+    ws_len = max(_dw_chunks(plan, li, B) * lp.kh * lp.kw * lp.cin * lp.cout
+                 for li, lp in enumerate(plan.layers))
+    work = torch.empty(ws_len, device=xs[0].device)
+    dws, dbs = [], []
+    for li, lp in enumerate(plan.layers):
+        dw = torch.empty((lp.kh, lp.kw, lp.cin, lp.cout), device=work.device)
+        db = torch.empty((lp.cout,), device=work.device)
+        build.launch("tvc_mrd_dw", xs[li], xs[li], dys[li], work, ws_len, dw, db,
+                     *_layer_args(plan, li, B), int(bf16), WGRAD_CHUNK)
+        dws.append(dw)
+        dbs.append(db)
+    mrd_dw.launches += 1
+    mrd_dw.launches_bf16 += bf16
+    return dws, dbs
+
+
+mrd_dw.launches = 0
+mrd_dw.launches_bf16 = 0
+
+
+# ---------------------------------------------------------------------------
+# the differentiable chain
+# ---------------------------------------------------------------------------
+
+
+class MrdChain(torch.autograd.Function):
+    """``spec_pm [B, 1, S0, (G0+4)*Wp]`` (fp32) and the effective weights
+    and biases -> every layer's flat output in the operand dtype. Forward M
+    on the spectrogram cast to the operand dtype; backward N then O, the
+    cotangents cast to the operand dtype first (`mrd.py:337-339`) and
+    dspec upcast after (`:373`)."""
+
+    @staticmethod
+    def forward(ctx, spec_pm, plan, dtype_name, *wb):
+        nl = len(plan.layers)
+        ws, bs = [w.detach() for w in wb[:nl]], [b.detach() for b in wb[nl:]]
+        B = spec_pm.shape[0]
+        spec = spec_pm.detach().reshape(B, 1, -1).to(_dtype(dtype_name)).contiguous()
+        outs = mrd_forward(spec, ws, bs, plan)
+        ctx.save_for_backward(spec, *ws, *outs)
+        ctx.plan, ctx.shape, ctx.spec_dtype = plan, spec_pm.shape, spec_pm.dtype
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *cots):
+        plan = ctx.plan
+        nl = len(plan.layers)
+        spec, *rest = ctx.saved_tensors
+        ws, outs = rest[:nl], rest[nl:]
+        cots = [torch.zeros_like(o) if c is None else c.to(o.dtype).contiguous()
+                for c, o in zip(cots, outs)]
+        dspec, dys = mrd_dx(cots, ws, plan)
+        dws, dbs = mrd_dw([spec, *outs[:-1]], dys, plan)
+        return (dspec.to(ctx.spec_dtype).reshape(ctx.shape), None, None, *dws, *dbs)
+
+
+def mrd_chain(spec_pm: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
+              plan: MrdPlan, dtype_name: str = "bfloat16") -> List[torch.Tensor]:
+    """The fused MRD chain (`tinyvc_tpu/ops/pallas/mrd.py::mrd_chain`):
+    every layer's output as flat plane-major ``[B, cout, s_out*(g_out+4)*Wp]``
+    in the operand dtype, the last the logits; use ``plan.valid_count(i)``
+    for the losses' divisors."""
+    return list(MrdChain.apply(spec_pm, plan, dtype_name, *ws, *bs))

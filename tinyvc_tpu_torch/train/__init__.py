@@ -1,1 +1,1 @@
-"""Decoder GAN training: the pre-join step and its loop."""
+"""Decoder GAN training: the pre-join and post-join steps and their loop."""

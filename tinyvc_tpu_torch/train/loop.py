@@ -8,9 +8,12 @@ and counts), else from ``init_decoder`` (an ``.npz``) or a random init
 drawn from ``seed + 1``. Batches come in the JAX package's order
 (`data/dataset.py`); the step keys follow its schedule: ``PRNGKey(seed +
 2)``, split once per step. Losses are logged every ``log_interval`` steps
-and the state saved every ``save_interval`` steps and at the end. The
-discriminator joins at ``cfg.train.discriminator_join``; that phase is the
-next slice of the port, so the loop saves and raises there.
+and the state saved every ``save_interval`` steps and at the end. From
+``cfg.train.discriminator_join`` on, each step is the post-join one
+(`tinyvc_tpu/train/loop.py:519-555`): it also logs the adversarial and
+feature-matching losses and prints ``d=``. The discriminator is drawn from
+``seed + 1`` after the decoder (`train/decoder_train.py::init_state`) unless
+the checkpoint holds one.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ from ..infer.generator import _resolve_device
 from ..models.encoder import Encoder
 from ..utils import prng
 from ..utils.checkpoint import CheckpointManager
-from ..utils.metrics import TAG_DSP, TAG_SKIPPED, TAG_SPEC, MetricsWriter
+from ..utils.metrics import (TAG_D_ADV, TAG_DSP, TAG_FEAT, TAG_G_ADV, TAG_SKIPPED, TAG_SPEC,
+                             MetricsWriter)
 from ..utils.weights import encoder_from_jax, load_npz, train_state_from_jax
 from . import decoder_train
 
@@ -67,16 +71,17 @@ def train_decoder(
         raise ValueError(f"{dataset_dir!r} holds fewer chunks than one batch "
                          f"({cfg.train.batch_size})")
     encoder = load_encoder(encoder_path, cfg, seed, device)
+    state = decoder_train.init_state(cfg, seed + 1, device)
     if init_decoder is not None:
-        state = train_state_from_jax(load_npz(init_decoder), cfg.decoder, cfg.audio, device)
-    else:
-        state = decoder_train.init_state(cfg, seed + 1, device)
+        init = train_state_from_jax(load_npz(init_decoder), cfg.decoder, cfg.audio, device)
+        state.decoder, state.gen_opt = init.decoder, init.gen_opt
     ckpt = CheckpointManager(ckpt_dir)
     if ckpt.restore(state) is not None:
         print(f"resumed decoder training at step {state.step} "
               "(optimizer state and join gate preserved)")
 
-    step_fn = decoder_train.make_train_step(cfg, d_join=False, spec_loss_type=spec_loss_type)
+    steps = {d_join: decoder_train.make_train_step(cfg, d_join, spec_loss_type)
+             for d_join in (False, True)}
     key = prng.prng_key(seed + 2)
     step = state.step
     t0 = t_log = time.time()
@@ -86,19 +91,18 @@ def train_decoder(
             for batch in loader:
                 if step >= max_steps:
                     break
-                if step >= cfg.train.discriminator_join:
-                    ckpt.save(step, state, cfg)
-                    raise NotImplementedError(
-                        f"step {step} reaches discriminator_join "
-                        f"({cfg.train.discriminator_join}): {decoder_train.POST_JOIN}; the "
-                        f"state is saved in {ckpt_dir}")
+                d_join = step >= cfg.train.discriminator_join
                 key, sub = prng.split(key)
                 wave = torch.from_numpy(batch["wave"]).to(device)
-                metrics = step_fn(state, encoder, wave, sub)
+                metrics = steps[d_join](state, encoder, wave, sub)
                 step += 1
                 if step % cfg.train.log_interval == 0:
                     scalars = {TAG_SPEC: metrics["loss_spec"], TAG_DSP: metrics["loss_dsp"]}
-                    skipped = int(metrics["skipped_g"])
+                    if d_join:
+                        scalars[TAG_G_ADV] = metrics["loss_adv"]
+                        scalars[TAG_FEAT] = metrics["loss_feat"]
+                        scalars[TAG_D_ADV] = metrics["loss_d"]
+                    skipped = int(metrics["skipped_g"]) + int(metrics.get("skipped_d", 0))
                     if skipped:
                         scalars[TAG_SKIPPED] = skipped
                     writer.write(step, scalars)
@@ -107,6 +111,7 @@ def train_decoder(
                     t_log, s_log = now, step
                     print(f"step {step} spec={float(metrics['loss_spec']):.4f} "
                           f"dsp={float(metrics['loss_dsp']):.4f} "
+                          + (f"d={float(metrics['loss_d']):.4f} " if d_join else "")
                           + (f"SKIPPED={skipped} " if skipped else "")
                           + f"({sps:.2f} steps/s, {now - t0:.0f}s)", flush=True)
                 if step % cfg.train.save_interval == 0:

@@ -11,6 +11,9 @@ from typing import Dict
 
 TAG_SPEC = "loss/Spectrogram"
 TAG_DSP = "loss/DSP"
+TAG_FEAT = "loss/Feature Matching"
+TAG_G_ADV = "loss/Generator Adversarial"
+TAG_D_ADV = "loss/Discriminator Adversarial"
 TAG_SKIPPED = "train/Skipped Nonfinite Steps"
 
 

@@ -10,6 +10,8 @@ inverse of the transposes in `tinyvc_tpu/utils/torch_compat.py`:
 - depthwise conv kernel ``[K, 1, C]``  -> weight ``[C, 1, K]``
 - full conv kernel ``[K, in, out]``    -> weight ``[out, in, K]``
 - ``bias``, ``gamma``, ``beta``        -> unchanged
+- a discriminator conv's ``v`` (HWIO), ``g`` -> unchanged (the port keeps
+  flax's layout, `models/discriminator.py`)
 
 The fused U-Net (`ops/fused_filternet.py`) takes the FilterNet's weights in
 the packed layouts of `tinyvc_tpu/ops/pallas/filter_stage.py`;
@@ -19,13 +21,14 @@ the packed layouts of `tinyvc_tpu/ops/pallas/filter_stage.py`;
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..config import AudioConfig, DecoderConfig, EncoderConfig
+from ..config import AudioConfig, DecoderConfig, DiscriminatorConfig, EncoderConfig
 from ..models.decoder import Decoder, Downsample, FilterNet, Upsample
+from ..models.discriminator import Discriminator
 from ..models.layers import Conv1d
 from ..models.encoder import Encoder
 
@@ -90,6 +93,16 @@ def decoder_from_jax(tree: Mapping[str, Any], cfg: DecoderConfig = DecoderConfig
     model = Decoder(cfg, audio)
     model.load_state_dict(state_dict_from_jax(tree), strict=True)
     return model.eval()
+
+
+def discriminator_from_jax(tree: Mapping[str, Any],
+                           cfg: DiscriminatorConfig = DiscriminatorConfig()) -> Discriminator:
+    """The port's :class:`Discriminator` holding a JAX discriminator tree
+    (``mpd_{p}/conv_{i}|post/{v,g,bias}``, ``mrd_{r}/...``), on the CPU in
+    train mode."""
+    model = Discriminator(cfg)
+    model.load_state_dict(state_dict_from_jax(tree), strict=True)
+    return model.train()
 
 
 # ---------------------------------------------------------------------------
@@ -201,25 +214,40 @@ def to_jax_layout(t: torch.Tensor, name: str) -> np.ndarray:
     return np.ascontiguousarray(a)
 
 
+def _opt_from_jax(opt: Any, device):
+    """An ``OptState`` from JAX's ``skip_if_nonfinite(chain(clip, adamw))``
+    state: AdamW's moments, Adam's count and the skip count."""
+    from ..train.decoder_train import OptState
+
+    adam = opt.inner[1][0]
+    mu = state_dict_from_jax({"params": adam.mu["params"]})
+    nu = state_dict_from_jax({"params": adam.nu["params"]})
+    return OptState({k: v.to(device) for k, v in mu.items()},
+                    {k: v.to(device) for k, v in nu.items()},
+                    int(np.asarray(adam.count)), int(np.asarray(opt.notfinite_count)))
+
+
 def train_state_from_jax(state: Any, cfg: DecoderConfig = DecoderConfig(),
-                         audio: AudioConfig = AudioConfig(), device="cpu"):
-    """The port's pre-join train state (`train/decoder_train.py::TrainState`)
-    from a JAX ``GanTrainState`` (or its ``gen_params`` tree): the
-    generator's parameters, its moments, Adam's count and the skip count.
-    A fresh JAX state has zero moments, as the port's ``init_state``."""
+                         audio: AudioConfig = AudioConfig(), device="cpu",
+                         disc_cfg: Optional[DiscriminatorConfig] = None):
+    """The port's train state (`train/decoder_train.py::TrainState`) from a
+    JAX ``GanTrainState`` (or its ``gen_params`` tree): the generator's
+    parameters, its moments, Adam's count and the skip count; with
+    ``disc_cfg`` and a state whose ``disc_params`` are not empty, the
+    discriminator's too. A fresh JAX state has zero moments, as the port's
+    ``init_state``."""
     from ..train.decoder_train import TrainState
 
     params = getattr(state, "gen_params", state)
     dec = decoder_from_jax(params, cfg, audio).train().to(device)
-    ts = TrainState.fresh(dec)
-    opt = getattr(state, "gen_opt", None)
-    if opt is not None:
-        adam = opt.inner[1][0]
-        sd = state_dict_from_jax({"params": adam.mu["params"]})
-        ts.mu = {k: v.to(device) for k, v in sd.items()}
-        sd = state_dict_from_jax({"params": adam.nu["params"]})
-        ts.nu = {k: v.to(device) for k, v in sd.items()}
-        ts.count = int(np.asarray(adam.count))
-        ts.notfinite_count = int(np.asarray(opt.notfinite_count))
+    disc_params = getattr(state, "disc_params", None)
+    disc = None
+    if disc_cfg is not None and disc_params:
+        disc = discriminator_from_jax(disc_params, disc_cfg).to(device)
+    ts = TrainState.fresh(dec, disc)
+    if getattr(state, "gen_opt", None) is not None:
+        ts.gen_opt = _opt_from_jax(state.gen_opt, device)
         ts.step = int(np.asarray(state.step))
+        if disc is not None:
+            ts.disc_opt = _opt_from_jax(state.disc_opt, device)
     return ts
