@@ -16,9 +16,11 @@ Phases, each timed; any failure exits non-zero:
    FLOPs. The fused U-Net's kernels (C at its five up stages, D, E, F) run
    every stage's shapes with the two-speaker decoder's weights, in fp32 and
    in bf16; their rows sum the stages of one request. The spectrogram
-   kernel G runs at the serving profile's B=8 (it runs only at B*F >= 2048),
-   the kNN kernel H at B=1 and B=8 against the 2048-row dictionary (and a
-   ragged B=2, F=37 against 300 rows).
+   kernel G runs at the serving profile's B=8 (it runs only at B*F >= 2048;
+   also timed at B=1) and the noise kernel B at B=1 and B=8, each beside
+   its library call and its time before the FFT redesign
+   (``OLD_DESIGN_MS``); the kNN kernel H at B=1 and B=8 against the
+   2048-row dictionary (and a ragged B=2, F=37 against 300 rows).
 4. convert: ``VoiceConverter`` on CUDA with the two-speaker weights and kNN
    index. The fp32 default config answers three requests (the 6 s demo
    utterance cold, warm, then a batch of 4), so the fused U-Net; every
@@ -62,7 +64,11 @@ Phases, each timed; any failure exits non-zero:
    time, peak memory and one profiled post-join step by kernel group.
 
 The last two lines are one JSON object of per-kernel numbers and the
-``{"ok": true, "device": ...}`` result. Needs CUDA and the rest of the repo;
+``{"ok": true, "device": ...}`` result. ``python3 chip_smoke.py --profile
+[DIR]`` runs env, build and the profile phase only, of the port in DIR (a
+checkout of another commit, default this one): unpack the parent commit
+into a git-ignored directory and run parent, change, change, parent in one
+call to compare two commits' request latency on one card. Needs CUDA and the rest of the repo;
 imports nothing of JAX or `tinyvc_tpu`.
 """
 
@@ -89,8 +95,9 @@ PITCH_SHIFT = 11.99  # the demo's own setting (demo/two_speaker/README.md)
 #     frame and stays ~1e-3 from the truth. 1e-2 bounds their difference;
 #     the check against the float64 truth below (under 2e-2 and no more than
 #     1.5x the plain version's error) is the tighter gate.
-#  B: same hashed phases bit for bit; a 961-term fp32 DFT sum against
-#     cuFFT's irfft (1e-5, the JAX package's own kernel-vs-istft bound).
+#  B: same hashed phases bit for bit; an fp32 mixed-radix inverse FFT
+#     against cuFFT's irfft (1e-5, the JAX package's own kernel-vs-istft
+#     bound).
 #  C, D: the same fp32 products and sums in the same order: bit-exact, the
 #     bound allows one rounding at values <= 1.
 #  E, F (relative to the plain version's peak): fp32 sums of up to 3*384
@@ -103,8 +110,10 @@ PITCH_SHIFT = 11.99  # the demo's own setting (demo/two_speaker/README.md)
 #     another order than cuDNN's; an intermediate that straddles a bf16
 #     rounding boundary moves one bf16 step, and the outputs are stored in
 #     bf16: one bf16 step (2**-8) at the peak.
-#  G: 1920-term fp32 DFT sums in another order than cuBLAS's (which splits
-#     the sum at some shapes): 5e-6 of the peak (the H100 showed 1.4e-6).
+#  G: an fp32 mixed-radix FFT against the plain version's 1920-term fp32
+#     DFT product (cuBLAS, which splits the sum at some shapes): 5e-6 of the
+#     peak (the DFT design showed 1.4e-6 on the H100; the FFT's error grows
+#     with log N, the product's with N).
 #  H: fp32 similarities in another order than cuBLAS's may reorder a near
 #     tie: neighbours must agree except where the plain version's
 #     similarities of the two choices differ by under KNN_TIE; where they
@@ -151,6 +160,13 @@ SERVING_MEL_L1_BOUND = 0.09
 SERVING_STAGE_RTOL = {"amps": 2.0**-7, "noise_kernel": 2.0**-7, "out": 2.0**-6}
 SERVING_STAGE_NEARER_BF16 = ("amps", "noise_kernel")
 
+# Kernels G and B in their DFT design, before the FFT one, ms per call on the
+# H100 80GB HBM3 at 700 W (PERF.md sections 5 and 6, from this script's
+# runs then): G ran at B*F >= 2048 only, so it has no B=1 time; B's B=8 time
+# is the profiler's device time of one call in a serving B=8 request.
+OLD_DESIGN_MS = {("spectrogram", 8): 1.3492, ("spectrogram", 1): "not measured",
+                 ("noise", 1): 0.7939, ("noise", 8): 4.710}
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
@@ -181,6 +197,20 @@ def _cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _device_ms(fn, calls: int = 20) -> float:
+    """Device milliseconds of one call of ``fn``: the kernel time that
+    ``torch.profiler`` records over ``calls`` calls, divided by ``calls``.
+    Beside ``_cuda_ms``, whose events also hold the host's launch work
+    whenever it outlasts the kernels."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    kernels, _ = _profile_call(lambda: [fn() for _ in range(calls)])
+    return sum(ms for ms, _ in kernels.values()) / calls
 
 
 def _bound(nbytes: float, flops: float, peak: float = FP32_FLOPS, fp32_flops: float = 0.0):
@@ -269,6 +299,7 @@ def phase_kernels() -> dict:
     rng = np.random.default_rng(0)
     hop, n_fft, bins, H1, factor = 480, 1920, 961, 15, 64
     results = {}
+    cases_b = {}
 
     def report(name, case, err, tol):
         print(f"  {name} {case}: max_abs_err {err:.3e} (tolerance {tol:.0e})")
@@ -308,9 +339,9 @@ def phase_kernels() -> dict:
         bound=_bound(nbytes, 12.0 * H1 * L), library_ms=None,
     )
 
-    # B: noise, seed and angle modes
+    # B: noise, seed and angle modes; B=8 is the serving profile's batch
     errs = []
-    for B, F_ in ((1, 320), (3, 37)):
+    for B, F_ in ((1, 320), (3, 37), (8, 320)):
         mag = torch.from_numpy(np.abs(rng.standard_normal((B, F_, bins))).astype(np.float32)).to(dev)
         ang = torch.from_numpy(rng.uniform(-np.pi, np.pi, (B, F_, bins)).astype(np.float32)).to(dev)
         for mode, angle in (("seed", None), ("angle", ang)):
@@ -320,31 +351,47 @@ def phase_kernels() -> dict:
             err = float((got - want).abs().max())
             report("noise", f"{mode} B={B} F={F_}", err, KERNEL_TOL["noise"])
             errs.append(err)
-        if B == 1:
-            main_b = (mag, ang)
-    mag, ang = main_b
-    F_ = mag.shape[1]
-    spec = F.pad(torch.polar(mag, ang), (0, 0, 1, 0)).transpose(1, 2).contiguous()
+        if F_ == 320:
+            cases_b[B] = (mag, ang)
     win = hann_window(n_fft, dev)
 
-    def lib_istft():
-        return torch.istft(spec, n_fft, hop, window=win, center=True)
+    def noise_case(B):
+        """(kernel ms, plain ms, torch.istft ms, bound) of kernel B at B, F=320."""
+        mag, ang = cases_b[B]
+        F_ = mag.shape[1]
+        spec = F.pad(torch.polar(mag, ang), (0, 0, 1, 0)).transpose(1, 2).contiguous()
 
-    lib_err = float((lib_istft() - oscillate_noise_hashed(mag, 7, hop, n_fft, angle=ang)).abs().max())
-    print(f"  noise: torch.istft vs kernel (angle mode) max_abs_err {lib_err:.3e}")
-    results["noise"] = dict(
-        name="noise", route="cuda", source="tinyvc_tpu_torch/kernels/csrc/noise.cu",
-        replaces="tinyvc_tpu/ops/pallas/noise.py:175", max_abs_err=max(errs),
-        ms=_cuda_ms(lambda: oscillate_noise_hashed(mag, 7, hop, n_fft)),
-        plain_ms=_cuda_ms(lambda: oscillate_noise_plain(mag, 7, hop, n_fft)),
+        def lib_istft():
+            return torch.istft(spec, n_fft, hop, window=win, center=True)
+
+        lib_err = float((lib_istft() - oscillate_noise_hashed(mag, 7, hop, n_fft, angle=ang)
+                         ).abs().max())
+        print(f"  noise B={B}: torch.istft vs kernel (angle mode) max_abs_err {lib_err:.3e}")
         # the work an FFT-based iSTFT needs: per frame a real inverse FFT
         # (2.5 n log2 n, half a complex FFT's 5 n log2 n), the polar product
         # (2 per bin), window and overlap-add (2 per sample) and the envelope
         # divide (1 per output sample); bytes: mag read once, output written once
-        bound=_bound(4 * (mag.numel() + F_ * hop),
-                     F_ * (2.5 * n_fft * math.log2(n_fft) + 2 * bins + 2 * n_fft + hop)),
-        library_ms=_cuda_ms(lib_istft),
-    )
+        bound = _bound(4 * (mag.numel() + B * F_ * hop),
+                       B * F_ * (2.5 * n_fft * math.log2(n_fft) + 2 * bins + 2 * n_fft + hop))
+        def kernel():
+            return oscillate_noise_hashed(mag, 7, hop, n_fft)
+
+        print(f"  noise B={B} F=320: device time of one call: kernel "
+              f"{_device_ms(kernel):.4f} ms, torch.istft {_device_ms(lib_istft):.4f} ms")
+        return (_cuda_ms(kernel), _cuda_ms(lambda: oscillate_noise_plain(mag, 7, hop, n_fft)),
+                _cuda_ms(lib_istft), bound)
+
+    for B in (1, 8):
+        ms, plain_ms, lib_ms, bound = noise_case(B)
+        print(f"  noise B={B} F=320: kernel {ms:.4f} ms (the DFT design: "
+              f"{OLD_DESIGN_MS[('noise', B)]}), torch.istft {lib_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+        if B == 1:
+            results["noise"] = dict(
+                name="noise", route="cuda", source="tinyvc_tpu_torch/kernels/csrc/noise.cu",
+                replaces="tinyvc_tpu/ops/pallas/noise.py:175", max_abs_err=max(errs),
+                ms=ms, plain_ms=plain_ms, bound=bound, library_ms=lib_ms,
+            )
 
     # C: x64 linear upsample of the pooled energy
     errs = []
@@ -568,9 +615,10 @@ def phase_gh_kernels(results: dict, rng, dev) -> None:
     from tinyvc_tpu_torch.utils.weights import load_index
 
     n_fft, hop, bins = 1920, 480, 961
+    cases_g = {}
     with exact_fp32():
         errs = []
-        for B, F_ in ((8, 320), (2, 37)):
+        for B, F_ in ((8, 320), (2, 37), (1, 320)):
             # the request as the converter pads it (F=320), or its first 37 frames
             x = torch.from_numpy(pad_to_bucket(_demo_wave(B), hop)[0][:, :F_ * hop].copy()).to(dev)
             got, want = sp.spectrogram(x), sp.spectrogram_plain(x)
@@ -584,25 +632,36 @@ def phase_gh_kernels(results: dict, rng, dev) -> None:
                   f"{lib_err:.3e}")
             _check(err <= tol, f"spectrogram B={B}: error {err} > {tol}")
             errs.append(err)
+            if F_ == 320:
+                cases_g[B] = x
+        for B in (8, 1):
+            x = cases_g[B]
+            frames = B * (x.shape[1] // hop)
+            row = dict(
+                ms=_cuda_ms(lambda: sp.spectrogram(x)),
+                plain_ms=_cuda_ms(lambda: sp.spectrogram_plain(x)),
+                # the work an FFT-based spectrogram needs: per frame the window
+                # (1 per sample), a real FFT (2.5 n log2 n, half a complex FFT's
+                # 5 n log2 n) and the magnitude (two products, an add and a
+                # square root per bin); bytes: the wave in once, the
+                # magnitudes out once
+                bound=_bound(4 * (x.numel() + frames * bins),
+                             frames * (n_fft + 2.5 * n_fft * math.log2(n_fft) + 4 * bins)),
+                library_ms=_cuda_ms(lambda: fft_spectrogram(x)),
+            )
+            print(f"  spectrogram B={B} F=320: device time of one call: kernel "
+                  f"{_device_ms(lambda: sp.spectrogram(x)):.4f} ms, torch.fft "
+                  f"{_device_ms(lambda: fft_spectrogram(x)):.4f} ms")
+            print(f"  spectrogram B={B} F=320: kernel {row['ms']:.4f} ms (the DFT design: "
+                  f"{OLD_DESIGN_MS[('spectrogram', B)]}), torch.fft {row['library_ms']:.4f} ms, "
+                  f"plain {row['plain_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
+                  f"({row['bound'][1]})")
             if B == 8:
-                main_g = x
-        x = main_g
-        B, L = x.shape
-        frames = B * (L // hop)
-        results["spectrogram"] = dict(
-            name="spectrogram", route="cuda", source="tinyvc_tpu_torch/kernels/csrc/spectrogram.cu",
-            replaces="tinyvc_tpu/ops/pallas/spectrogram.py:165", max_abs_err=max(errs),
-            ms=_cuda_ms(lambda: sp.spectrogram(x)),
-            plain_ms=_cuda_ms(lambda: sp.spectrogram_plain(x)),
-            # the work an FFT-based spectrogram needs, not the kernel's DFT
-            # product: per frame the window (1 per sample), a real FFT
-            # (2.5 n log2 n, half a complex FFT's 5 n log2 n) and the magnitude
-            # (two products, an add and a square root per bin); bytes: the wave
-            # in once, the magnitudes out once
-            bound=_bound(4 * (x.numel() + frames * bins),
-                         frames * (n_fft + 2.5 * n_fft * math.log2(n_fft) + 4 * bins)),
-            library_ms=_cuda_ms(lambda: fft_spectrogram(x)),
-        )
+                results["spectrogram"] = dict(
+                    name="spectrogram", route="cuda",
+                    source="tinyvc_tpu_torch/kernels/csrc/spectrogram.cu",
+                    replaces="tinyvc_tpu/ops/pallas/spectrogram.py:165", max_abs_err=max(errs),
+                    **row)
 
         ref = torch.from_numpy(load_index(os.path.join(ROOT, "models", "two_speaker",
                                                        "index_B.npy"))).to(dev)
@@ -1898,12 +1957,12 @@ PROFILE_GROUPS = (
     ("kernel O (MRD dW, db)", ("mrd_dw_partial", "mrd_dw_sum", "mrd_db_kernel")),
     ("kernel I (oscillator gradient)", ("osc_amps_grad",)),
     ("kernel A (oscillator)", ("osc_frame_sums", "osc_synth")),
-    ("kernel B (noise)", ("noise_synth",)),
+    ("kernel B (noise)", ("noise_fft", "noise_synth")),  # the FFT design, the DFT one
     ("kernel C (upsample)", ("upsample_linear_kernel",)),
     ("kernel D (downsample)", ("downsample_linear_kernel",)),
     ("kernel E (stem, down chains)", ("down_chain_step",)),
     ("kernel F (up chains)", ("up_chain_step",)),
-    ("kernel G (spectrogram)", ("spectrogram_dft",)),
+    ("kernel G (spectrogram)", ("spectrogram_fft", "spectrogram_dft")),
     ("kernel H (kNN)", ("knn_topk", "knn_mean")),
     ("kernel J (resample gradients)", ("upsample_grad_kernel", "downsample_grad_kernel")),
     ("kernel K (up chain gradients)", ("up_grad_",)),
@@ -1976,7 +2035,38 @@ def phase_profile(card: str, vc, target, wave, batches=(1, 4), label: str = "fp3
             print(f"    top {ms:9.3f} ms  x{n:<4d} {name[:100]}")
 
 
-def main() -> int:
+def phase_profile_only(card: str) -> None:
+    """The profile phase alone: fp32 and serving converters of the
+    two-speaker weights, warm requests at B=1 and 4 (fp32), 1 and 8
+    (serving), 15 each."""
+    import torch
+
+    from tinyvc_tpu_torch.config import serving_config
+    from tinyvc_tpu_torch.infer.generator import VoiceConverter
+    from tinyvc_tpu_torch.utils.audio_io import load_audio
+    from tinyvc_tpu_torch.utils.weights import load_index, load_npz
+
+    models = os.path.join(ROOT, "models", "two_speaker")
+    enc = load_npz(os.path.join(models, "encoder_B.npz"))
+    dec = load_npz(os.path.join(models, "decoder_B.npz"))
+    target = torch.from_numpy(load_index(os.path.join(models, "index_B.npy"))).to("cuda")
+    wave = load_audio(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"))
+    vc = VoiceConverter(enc, dec, device="cuda")
+    serving = VoiceConverter(enc, dec, cfg=serving_config(), device="cuda")
+    phase_profile(card, vc, target, wave, requests=15)
+    phase_profile(card, serving, target, wave, batches=(1, 8), label="serving", requests=15)
+
+
+def main(argv=None) -> int:
+    """No arguments: every phase. ``--profile [DIR]``: env, build and the
+    profile phase only, of the port in DIR (a checkout of another commit;
+    default: this one), for comparing two commits in one call (parent,
+    change, change, parent)."""
+    global ROOT
+    args = sys.argv[1:] if argv is None else argv
+    profile_only = bool(args) and args[0] == "--profile"
+    if profile_only and len(args) > 1:
+        ROOT = os.path.abspath(args[1])
     if not os.path.isdir(os.path.join(ROOT, "tinyvc_tpu_torch")):
         print("chip_smoke.py needs the repository around it (tinyvc_tpu_torch/)", file=sys.stderr)
         return 1
@@ -1986,6 +2076,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke.py runs on a GPU", file=sys.stderr)
         return 1
+    if profile_only:
+        print(f"profile of {ROOT}")
+        card = phase_env()
+        phase_build()
+        phase_profile_only(card)
+        return 0
 
     t_all = time.perf_counter()
     t0 = _phase("env")

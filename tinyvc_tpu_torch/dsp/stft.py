@@ -69,10 +69,17 @@ def istft(spec: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     """Inverse STFT matching ``torch.istft(..., center=True)``: complex
     ``[B, F, n_fft//2+1]`` -> ``[B, (F-1)*hop]`` fp32. Hann synthesis window,
     overlap-add, window-envelope normalisation, centre trim."""
+    return overlap_add(torch.fft.irfft(spec, n=n_fft, dim=-1), hop)
+
+
+def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
+    """The rest of :func:`istft` after the inverse FFT: real frames
+    ``[B, F, n_fft]`` times the hann window, overlap-added, divided by the
+    window envelope, centre-trimmed to ``[B, (F-1)*hop]``."""
+    B, nf, n_fft = frames.shape
     ratio = n_fft // hop
-    B, nf, _ = spec.shape
-    win = hann_window(n_fft, spec.device)
-    frames = (torch.fft.irfft(spec, n=n_fft, dim=-1) * win).reshape(B, nf, ratio, hop)
+    win = hann_window(n_fft, frames.device)
+    frames = (frames * win).reshape(B, nf, ratio, hop)
     nb = nf + ratio - 1
     out = frames.new_zeros(B, nb, hop)
     env = frames.new_zeros(1, nb, hop)

@@ -2,7 +2,7 @@
 
 - A, `oscillator.py`: the additive oscillator bank
   (replaces `tinyvc_tpu/ops/pallas/oscillator.py::_pallas_forward`)
-- B, `noise.py`: hashed-phase filtered noise
+- B, `noise.py`: hashed-phase filtered noise by an inverse FFT per frame
   (replaces `tinyvc_tpu/ops/pallas/noise.py::pallas_oscillate_noise`)
 - C, `resample.py`: integer-factor linear upsampling: the energy
   estimator's x64 and the fused U-Net's five up stages
@@ -14,7 +14,7 @@
 - F, `filter_stage.py`: the U-Net's Upsample chains, the last with the
   output conv folded in
   (replaces `tinyvc_tpu/ops/pallas/filter_stage.py::fused_upsample_chain_t`)
-- G, `spectrogram.py`: the magnitude spectrogram as a windowed DFT product
+- G, `spectrogram.py`: the magnitude spectrogram by an FFT per frame
   (replaces `tinyvc_tpu/ops/pallas/spectrogram.py::pallas_spectrogram`)
 - H, `knn.py`: kNN matching against one dictionary, with the mean of its
   bf16-rounded rows
@@ -41,6 +41,9 @@ The post-join GAN step's discriminator (`models/discriminator.py`,
   (replaces the dx sweep of `tinyvc_tpu/ops/pallas/mrd.py::_mrd_bwd`)
 - O, `mrd.py`: its weight and bias gradients
   (replaces the dW/db sweep of `tinyvc_tpu/ops/pallas/mrd.py::_mrd_bwd`)
+
+G and B share the mixed-radix FFT of `csrc/fft.cuh`; `fft.py` mirrors it in
+plain PyTorch for the CPU tests.
 
 C-F, J-L and M-O also take bf16 tensors, the serving profile's and the training
 step's bf16-operand forms. Each wrapper takes

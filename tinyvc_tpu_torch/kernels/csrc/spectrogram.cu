@@ -1,4 +1,4 @@
-// Kernel G: the magnitude spectrogram as a windowed DFT product.
+// Kernel G: the magnitude spectrogram by an FFT inside the kernel.
 //
 // Replaces tinyvc_tpu/ops/pallas/spectrogram.py::pallas_spectrogram
 // (_spec_kernel), which the bf16 serving profile runs at B*F >= 2048
@@ -6,130 +6,78 @@
 // |X| [B, L/hop, n_fft/2 + 1] fp32, with the centre reflect padding by n_fft/2
 // and frame 0 dropped: frame t (t = 0..F-1) covers padded samples
 // [(t+1)*hop, (t+1)*hop + n_fft), i.e. x[(t+1)*hop - n_fft/2 + n] reflected
-// into [0, L).
+// into [0, L). The TPU kernel multiplies the frames with a DFT matrix on its
+// matrix unit.
 //
-// Function: each frame's samples times the fp32 hann window, then one product
-// with the packed (cos | -sin) DFT matrix of n_fft x 2*bins, then
-// sqrt(re^2 + im^2) in fp32.
+// Bound on the H100: bytes. The window, a real FFT and the magnitudes are
+// 0.15 GFLOP at B=8, F=320 (2.2 us at the fp32 peak); moving the wave in
+// and the magnitudes out once is 14.8 MB (4.4 us at 3.35 TB/s).
 //
-// Design. The frames are never materialised: the block stages each chunk of
-// its frames straight from x, reflecting at the ends, and windows it as it
-// is staged (the TPU kernel DMAs hop-sized block rows instead). The DFT
-// matrix is not read either: entry (n, k) is cos/-sin of 2*pi*((n*k) mod N)/N,
-// taken from a table of N cos and N -sin values (computed in float64 and
-// rounded to fp32 by the wrapper) that the block keeps in shared memory.
-// A block computes 64 frames (rows of the flattened [B*F] frame axis) x 32
-// bins, re and im; 256 threads, each 4 frames x 2 bins x (re, im); the
-// reduction runs over chunks of 32 samples. Sums are fp32 FMAs on the CUDA
-// cores, ~1e-6 of the peak (the TPU's bf16x3 gets ~1.5e-5 relative): a 2e-3
-// perturbation of the spectrogram flips 3% of kNN neighbours.
-//
-// Bound on the H100: operations. As a DFT product the spectrogram is
-// 2 * B*F * n_fft * 2*bins flops: 18.9 GFLOP at B=8, F=320, 0.28 ms at the
-// fp32 peak; its bytes (wave in, magnitudes out) take microseconds. An FFT
-// needs ~100x fewer operations, so cuFFT (torch.stft) is expected to win.
+// Design. One warp per frame of the flattened [B*F] frame axis, FRAMES
+// frames per block. The warp stages its frame's n_fft samples straight
+// from x (coalesced; neighbouring frames overlap 4x and hit in L1/L2),
+// reflecting at the ends and windowing with the fp32 hann window as it
+// stages, into a padded shared-memory buffer read as M = n_fft/2 complex
+// values z[n] = x[2n] + i x[2n+1]. It runs the M-point FFT of fft.cuh
+// (960 = 8 x 8 x 15 for n_fft = 1920; twiddles from the wrapper's float64
+// table, rounded to fp32, held in shared memory), then the split step gives
+// bins k and M-k together and the warp writes sqrt(re^2 + im^2), coalesced.
+// fp32 throughout; an FFT's rounding error grows with log N, and the kernel
+// stays within ~1e-6 of the peak of the exact transform.
 
 #include <cuda_runtime.h>
 
+#include "fft.cuh"
+
 namespace {
 
-constexpr int TM = 64;       // frames per block
-constexpr int TK = 32;       // bins per block
-constexpr int NC = 32;       // samples per reduction chunk
-constexpr int THREADS = 256; // 16 bin lanes x 16 frame lanes
-constexpr int MAX_NFFT = 2048;
+constexpr int FRAMES = 8;  // frames per block, one warp each
 
-__global__ void __launch_bounds__(THREADS)
-spectrogram_dft(const float* __restrict__ x, const float* __restrict__ table,
-                const float* __restrict__ win, float* __restrict__ out, int B, int L, int n_fft,
-                int hop) {
-  __shared__ float s_cos[MAX_NFFT];
-  __shared__ float s_nsin[MAX_NFFT];
-  __shared__ float sf[NC][TM + 1];
-  __shared__ float sc[NC][TK];
-  __shared__ float ss[NC][TK];
+__global__ void __launch_bounds__(FRAMES * 32)
+spectrogram_fft(const float* __restrict__ x, const float* __restrict__ table,
+                const float* __restrict__ win, float* __restrict__ out, int B, int L, int hop,
+                const tvc_fft::Plan p) {
+  extern __shared__ float2 smem[];
+  float2* tw = smem;
+  float2* frames = tw + p.n_tw;
+  unsigned short* ptab = reinterpret_cast<unsigned short*>(frames + FRAMES * p.frame_elems);
+  const int n_fft = 2 * p.m;
+  // table = [cos | -sin] of 2*pi*m/n_fft
+  tvc_fft::load_tables(tw, ptab, table, table + n_fft, 1.f, p, threadIdx.x, blockDim.x);
+  __syncthreads();
 
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int F = L / hop;
-  const int R = B * F;
-  const int bins = n_fft / 2 + 1;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int r0 = blockIdx.x * TM;
-  const int k0 = blockIdx.y * TK;
-
-  for (int m = tid; m < n_fft; m += THREADS) {
-    s_cos[m] = table[m];
-    s_nsin[m] = table[n_fft + m];
+  const long long r = static_cast<long long>(blockIdx.x) * FRAMES + warp;
+  if (r >= static_cast<long long>(B) * F) return;
+  const int b = static_cast<int>(r / F), t = static_cast<int>(r - static_cast<long long>(b) * F);
+  float2* z = frames + warp * p.frame_elems;
+  float* zf = reinterpret_cast<float*>(z);
+  const float* xb = x + static_cast<long long>(b) * L;
+  const int s0 = (t + 1) * hop - p.m;  // p.m = n_fft / 2
+#pragma unroll 4
+  for (int n = lane; n < n_fft; n += 32) {
+    int s = s0 + n;
+    s = s < 0 ? -s : s;
+    s = s >= L ? 2 * (L - 1) - s : s;
+    zf[2 * tvc_fft::pad_index(n >> 1, p) + (n & 1)] = __fmul_rn(xb[s], win[n]);
   }
+  __syncwarp();
+  tvc_fft::fft_forward(z, tw, p, lane);
 
-  float re[4][2], im[4][2];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) re[a][j] = im[a][j] = 0.f;
-
-  for (int n0 = 0; n0 < n_fft; n0 += NC) {
-    __syncthreads();  // the table is in place; the last chunk is consumed
-    // frames: element (m, n) reads x[b, (t+1)*hop - n_fft/2 + n0 + n], reflected
-    for (int e = tid; e < TM * NC; e += THREADS) {
-      const int n = e % NC, m = e / NC;
-      const int r = r0 + m;
-      float v = 0.f;
-      if (r < R) {
-        const int b = r / F, t = r - b * F;
-        int s = (t + 1) * hop - n_fft / 2 + n0 + n;
-        s = s < 0 ? -s : s;
-        s = s >= L ? 2 * (L - 1) - s : s;
-        v = __fmul_rn(x[static_cast<long long>(b) * L + s], win[n0 + n]);
-      }
-      sf[n][m] = v;
-    }
-    // DFT entries of the chunk: (n0 + n) * k mod n_fft indexes the table
-    for (int e = tid; e < NC * TK; e += THREADS) {
-      const int kk = e % TK, n = e / TK;
-      const int k = k0 + kk;
-      float c = 0.f, s = 0.f;
-      if (k < bins) {
-        const int idx = static_cast<int>((static_cast<long long>(n0 + n) * k) % n_fft);
-        c = s_cos[idx];
-        s = s_nsin[idx];
-      }
-      sc[n][kk] = c;
-      ss[n][kk] = s;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int n = 0; n < NC; ++n) {
-      float f[4], c[2], s[2];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) f[a] = sf[n][ty + 16 * a];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        c[j] = sc[n][tx + 16 * j];
-        s[j] = ss[n][tx + 16 * j];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          re[a][j] = fmaf(f[a], c[j], re[a][j]);
-          im[a][j] = fmaf(f[a], s[j], im[a][j]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = r0 + ty + 16 * a;
-    if (r >= R) continue;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int k = k0 + tx + 16 * j;
-      if (k >= bins) continue;
-      out[static_cast<long long>(r) * bins + k] =
-          sqrtf(__fadd_rn(__fmul_rn(re[a][j], re[a][j]), __fmul_rn(im[a][j], im[a][j])));
-    }
+  const float2* w = tw + p.split_off;
+  float* o = out + r * (p.m + 1);
+  for (int k = lane; k <= p.m / 2; k += 32) {
+    const float2 a = z[ptab[k]];
+    const float2 c = z[ptab[k == 0 ? 0 : p.m - k]];  // Z[M-k]; Z[M] = Z[0]
+    // E = (A + conj C) / 2, O = -i (A - conj C) / 2
+    const float2 e = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
+    const float2 od = make_float2(0.5f * (a.y + c.y), 0.5f * (c.x - a.x));
+    const float2 wo = tvc_fft::cmul(od, w[k]);
+    const float re1 = e.x + wo.x, im1 = e.y + wo.y;  // X[k]
+    const float re2 = e.x - wo.x, im2 = e.y - wo.y;  // conj X[M-k]
+    o[k] = sqrtf(__fadd_rn(__fmul_rn(re1, re1), __fmul_rn(im1, im1)));
+    if (2 * k != p.m) o[p.m - k] = sqrtf(__fadd_rn(__fmul_rn(re2, re2), __fmul_rn(im2, im2)));
   }
 }
 
@@ -137,15 +85,19 @@ spectrogram_dft(const float* __restrict__ x, const float* __restrict__ table,
 
 // x [B, L] fp32 (L a multiple of hop, L > n_fft/2), table [2, n_fft]
 // (cos | -sin of 2*pi*m/n_fft), win [n_fft] -> out [B, L/hop, n_fft/2 + 1].
+// n_fft: even, <= 2048, n_fft/2 with prime factors 2, 3, 5 only.
 extern "C" int tvc_spectrogram(const float* x, const float* table, const float* win, float* out,
                                int B, int L, int n_fft, int hop, void* stream) {
-  if (B <= 0 || hop <= 0 || n_fft <= 0 || n_fft > MAX_NFFT || n_fft % NC != 0 ||
-      L % hop != 0 || L <= n_fft / 2)
+  tvc_fft::Plan p;
+  if (B <= 0 || hop <= 0 || L % hop != 0 || L <= n_fft / 2 || !tvc_fft::make_plan(n_fft, &p))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long R = static_cast<long long>(B) * (L / hop);
-  const int bins = n_fft / 2 + 1;
-  const dim3 grid(static_cast<unsigned>((R + TM - 1) / TM), (bins + TK - 1) / TK);
-  spectrogram_dft<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(x, table, win, out, B,
-                                                                          L, n_fft, hop);
+  const size_t smem = tvc_fft::smem_bytes(p, FRAMES);
+  const cudaError_t err = cudaFuncSetAttribute(
+      spectrogram_fft, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned grid = static_cast<unsigned>((R + FRAMES - 1) / FRAMES);
+  spectrogram_fft<<<grid, FRAMES * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, table, win, out, B, L, hop, p);
   return static_cast<int>(cudaGetLastError());
 }

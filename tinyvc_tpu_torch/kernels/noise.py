@@ -1,12 +1,15 @@
-"""Kernel B: filtered noise from hashed phases (`csrc/noise.cu`).
+"""Kernel B: filtered noise from hashed phases (`csrc/noise.cu`,
+`csrc/fft.cuh`).
 
 Replaces `tinyvc_tpu/ops/pallas/noise.py::pallas_oscillate_noise`: magnitude
 ``[B, F, bins]`` -> noise ``[B, F*hop]`` by a unit-phase spectrum, one
-prepended zero frame and the inverse STFT. The phases come from the TPU
-kernel's murmur3 counter hash, so the same int32 seed gives the same noise
-bit for bit (:func:`noise_angles`); an explicit ``angle`` replaces them.
-The port holds itself to the JAX kernel's ``dtype_name="float32"`` result:
-the bf16 default there is a TPU matrix-unit choice.
+prepended zero frame and the inverse STFT, which the kernel runs as an
+inverse mixed-radix FFT per frame (`kernels/fft.py` mirrors it). The phases
+come from the TPU kernel's murmur3 counter hash, so the same int32 seed
+gives the same noise bit for bit (:func:`noise_angles`); an explicit
+``angle`` replaces them. The port holds itself to the JAX kernel's
+``dtype_name="float32"`` result: the bf16 default there is a TPU
+matrix-unit choice.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 from ..dsp.stft import hann_window
 from ..dsp.synth import oscillate_noise
 from . import build
+from .fft import check_n_fft
 
 _M32 = 0xFFFFFFFF
 _TWO_PI = float(np.float32(2.0 * np.pi))
@@ -80,7 +84,8 @@ def oscillate_noise_plain(
 
 @functools.lru_cache(maxsize=None)
 def _dft_tables(n_fft: int, device: torch.device):
-    """cos/sin of 2*pi*m/n_fft (computed in float64) and the hann window."""
+    """cos/sin of 2*pi*m/n_fft (computed in float64), the kernel's twiddles,
+    and the hann window."""
     ang = 2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft
     cos = torch.from_numpy(np.cos(ang).astype(np.float32)).to(device)
     sin = torch.from_numpy(np.sin(ang).astype(np.float32)).to(device)
@@ -92,12 +97,15 @@ def oscillate_noise_hashed(
     angle: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """mag ``[B, F, n_fft//2+1]`` -> noise ``[B, F*frame_size]``. CPU tensors
-    take the plain version; CUDA tensors launch kernel B."""
+    take the plain version; CUDA tensors launch kernel B, which takes an
+    even ``n_fft <= 2048`` whose half has the prime factors 2, 3 and 5 only;
+    any other raises."""
     if n_fft != 4 * frame_size:
         raise ValueError("the noise synthesis needs n_fft == 4 * frame_size")
     tensors = (mag,) if angle is None else (mag, angle)
     if build.on_cpu(*tensors):
         return oscillate_noise_plain(mag, seed, frame_size, n_fft, angle)
+    check_n_fft(n_fft)
     build.check_input("mag", mag, 3)
     B, F, bins = mag.shape
     if bins != n_fft // 2 + 1:

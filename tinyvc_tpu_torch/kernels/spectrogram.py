@@ -1,18 +1,21 @@
-"""Kernel G: the magnitude spectrogram as a windowed DFT product
-(`csrc/spectrogram.cu`).
+"""Kernel G: the magnitude spectrogram by an FFT inside the kernel
+(`csrc/spectrogram.cu`, `csrc/fft.cuh`).
 
 Replaces `tinyvc_tpu/ops/pallas/spectrogram.py::pallas_spectrogram`: wave
 ``[B, L]`` -> ``[B, L/hop, n_fft/2+1]`` fp32, the centre reflect padding and
-frame-0 drop of `dsp/stft.py::spectrogram`, computed as the frames times
-the fp32 hann window times the packed (cos | -sin) DFT matrix, whose
-entries are cos/-sin of ``2*pi*((n*k) mod n_fft)/n_fft`` from a float64
-table rounded to fp32 (the TPU builds the matrix itself in float64,
-`_dft_splits`). The serving profile runs it where
-`infer/generator.py::serving_spectrogram` picks it. The kernel's fp32 sums
-stay within ~1e-6 of the peak of the exact transform; the TPU's default
-bf16x3 split is ~1.5e-5 relative.
+frame-0 drop of `dsp/stft.py::spectrogram`: the frames times the fp32 hann
+window, transformed, ``sqrt(re^2 + im^2)``. The kernel runs a mixed-radix
+FFT whose twiddles are entries of a float64 table rounded to fp32
+(:func:`_table_np`; `kernels/fft.py` mirrors its decomposition); the plain
+version multiplies with the DFT matrix built from the same table (the TPU
+builds the matrix itself in float64, `_dft_splits`). The serving profile
+runs it where `infer/generator.py::serving_spectrogram` picks it. Both stay
+within ~1e-6 of the peak of the exact transform; the TPU's default bf16x3
+split is ~1.5e-5 relative.
 
-CPU tensors take the plain version; CUDA tensors launch kernel G.
+CPU tensors take the plain version; CUDA tensors launch kernel G, which
+takes an even ``n_fft <= 2048`` whose half has the prime factors 2, 3 and
+5 only; any other raises.
 """
 
 from __future__ import annotations
@@ -24,11 +27,13 @@ import torch
 
 from ..dsp.stft import _frame, hann_window
 from . import build
+from .fft import check_n_fft
 
 
 @functools.lru_cache(maxsize=None)
 def _table_np(n_fft: int) -> np.ndarray:
-    """``[2, n_fft]``: cos and -sin of ``2*pi*m/n_fft`` (float64, then fp32)."""
+    """``[2, n_fft]``: cos and -sin of ``2*pi*m/n_fft`` (float64, then fp32):
+    the kernel's twiddles and the plain version's DFT matrix entries."""
     ang = 2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft
     return np.stack([np.cos(ang), -np.sin(ang)]).astype(np.float32)
 
@@ -41,8 +46,8 @@ def _tables(n_fft: int, device: torch.device):
 
 @functools.lru_cache(maxsize=4)
 def dft_matrix(n_fft: int, device: torch.device) -> torch.Tensor:
-    """The packed ``[n_fft, 2*bins]`` (cos | -sin) DFT matrix the kernel
-    reads entry by entry from its table."""
+    """The packed ``[n_fft, 2*bins]`` (cos | -sin) DFT matrix, entry
+    ``(n, k)`` from :func:`_table_np` at ``(n*k) mod n_fft``."""
     bins = n_fft // 2 + 1
     idx = (np.arange(n_fft)[:, None] * np.arange(bins)[None, :]) % n_fft
     t = _table_np(n_fft)
@@ -69,6 +74,7 @@ def spectrogram(x: torch.Tensor, n_fft: int = 1920, hop: int = 480) -> torch.Ten
     B, L = x.shape
     if L % hop or n_fft % hop or L <= n_fft // 2:
         raise ValueError(f"need L ({L}) a multiple of hop ({hop}) and > n_fft/2 ({n_fft // 2})")
+    check_n_fft(n_fft)
     out = torch.empty((B, L // hop, n_fft // 2 + 1), device=x.device, dtype=torch.float32)
     table, win = _tables(n_fft, x.device)
     build.launch("tvc_spectrogram", x, x, table, win, out, B, L, n_fft, hop)
