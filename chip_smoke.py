@@ -52,8 +52,10 @@ Phases, each timed; any failure exits non-zero:
 7. post-join: the discriminator and the GAN step after its join. Kernels
    M, N, O (the fused MRD forward, its dy/dx sweep, its dW/db sweep)
    against their plain versions at the step's shapes (B=16, the 8000-sample
-   crop, all four resolutions) in fp32 and bf16, timed beside the conv
-   chain by ``F.conv2d`` (``MRD_TOL``); one fp32 post-join step with the
+   crop, all four resolutions; two ragged shapes) in fp32 and bf16, timed
+   beside the conv chain by ``F.conv2d`` and M's and N's first design
+   (``MRD_TOL``, ``MRD_OLD_DESIGN_MS``), M's and N's device time per layer
+   and resolution and their launches per call; one fp32 post-join step with the
    fused MRD (the two-speaker encoder and decoder, a discriminator drawn
    from the seed, the log-mel loss), its kernel path against its plain path
    (six losses, every gradient leaf of both networks, ``STEP_*``; M, N and
@@ -211,6 +213,23 @@ def _device_ms(fn, calls: int = 20) -> float:
     torch.cuda.synchronize()
     kernels, _ = _profile_call(lambda: [fn() for _ in range(calls)])
     return sum(ms for ms, _ in kernels.values()) / calls
+
+
+def _host_ms(fn, calls: int = 10) -> float:
+    """Host milliseconds to enqueue one call of ``fn``: the wall time of
+    ``calls`` calls without a synchronise between them (their launches are
+    asynchronous), after one that ends in a synchronise. The part of an
+    event-timed call the device may wait for."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
 
 
 def _bound(nbytes: float, flops: float, peak: float = FP32_FLOPS, fp32_flops: float = 0.0):
@@ -1288,6 +1307,11 @@ def phase_train_kernels(results: dict, rng, dev) -> None:
 MRD_TOL = {"fp32": 2e-5, "fp32_grad": 3e-5, "bf16": 5e-3, "sum": 1e-5}
 MRD_T, MRD_B = 8000, 16
 MRD_CALLS_PER_STEP = {"mrd_fwd": 8, "mrd_dx": 12, "mrd_dw": 12}  # per resolution x crops
+# Kernels M and N in their first design (CUDA-core products, every row of
+# N's planes), ms per crop (B=16 x 8000 samples, four resolutions) on the H100
+# 80GB HBM3 at 700 W (PERF.md section 6, from this script's last run then).
+MRD_OLD_DESIGN_MS = {"mrd_fwd": 14.0046, "mrd_fwd_bf16": 14.1034, "mrd_dx": 32.9156,
+                     "mrd_dx_bf16": 34.1208}
 
 
 def _mrd_flops(plan, B: int) -> float:
@@ -1339,11 +1363,19 @@ def _conv_chain(x, ws, bs):
 
 def phase_mrd_kernels(results: dict, rng, dev) -> None:
     """Kernels M, N, O against their plain versions at the post-join step's
-    shapes, all four resolutions, fp32 and bf16, and at a ragged small shape
-    (B=3, T=2400, small widths); one row per kernel and precision summing one
-    call per resolution (one crop), timed. Library: the conv chain by
-    ``F.conv2d`` (cuDNN, TF32 off) forward for M, its autograd backward to
-    the spectrogram for N and to the weights and biases for O."""
+    shapes, all four resolutions, fp32 and bf16, and at two ragged small
+    shapes (B=3, T=2400: widths (4, 16, 2) at r=64; widths (24, 48, 3) at
+    r=128, where Wp = 21 is odd and no 32-channel stage or 128-row tile is
+    full); one row per kernel and precision summing one call per resolution
+    (one crop), timed, beside M's and N's first design
+    (``MRD_OLD_DESIGN_MS``). Library: the conv chain by ``F.conv2d`` (cuDNN,
+    TF32 off) forward for M, its autograd backward to the spectrogram for N
+    and to the weights and biases for O. Each row also gives the kernel's
+    and the library's device time (the profiler) and host enqueue time
+    (``_host_ms``): an event-timed call holds the host work the device
+    waits for. M's and N's device time per layer and resolution from the
+    profiler, which also counts their launches per call
+    (``_mrd_launch_layers``)."""
     import numpy as np
     import torch
 
@@ -1361,10 +1393,11 @@ def phase_mrd_kernels(results: dict, rng, dev) -> None:
             dt, sfx = (torch.bfloat16, "_bf16") if bf16 else (torch.float32, "")
             isz = 2 if bf16 else 4
             peak = BF16_FLOPS if bf16 else FP32_FLOPS
-            acc = {k: dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bounds=[])
+            acc = {k: dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bounds=[], dev=0.0, lib_dev=0.0,
+                           host=0.0, lib_host=0.0)
                    for k in ("mrd_fwd", "mrd_dx", "mrd_dw")}
             cases = [(r, MRD_B, MRD_T, (32, 256, 4)) for r in (32, 64, 128, 256)]
-            cases += [(64, 3, 2400, (4, 16, 2))]
+            cases += [(64, 3, 2400, (4, 16, 2)), (128, 3, 2400, (24, 48, 3))]
             for res, B, T, widths in cases:
                 full = B == MRD_B
                 plan, spec_pm, ws, bs, dense = _mrd_setup(rng, dev, res, B, T, widths)
@@ -1423,6 +1456,13 @@ def phase_mrd_kernels(results: dict, rng, dev) -> None:
                     _bound(isz * (2 * maps + spec.numel()) + wbytes, flops, peak))
                 acc["mrd_dw"]["bounds"].append(
                     _bound(isz * (spec.numel() + 2 * maps) + wbytes, flops, peak))
+                for k, fn in (("mrd_fwd", lambda: mrd.mrd_forward(spec, ws, bs, plan)),
+                              ("mrd_dx", lambda: mrd.mrd_dx(cots, ws, plan))):
+                    per_layer = _layer_device_ms(fn, _mrd_launch_layers(k, len(plan.layers),
+                                                                        bf16))
+                    print(f"    {k}{sfx} r={res}: device ms per layer "
+                          + ", ".join(f"{ms:.4f}" for ms in per_layer)
+                          + f" (sum {sum(per_layer):.4f})")
                 for k, fn, plain in (
                         ("mrd_fwd", lambda: mrd.mrd_forward(spec, ws, bs, plan),
                          lambda: mrd.mrd_forward_plain(spec, ws, bs, plan)),
@@ -1431,6 +1471,8 @@ def phase_mrd_kernels(results: dict, rng, dev) -> None:
                         ("mrd_dw", lambda: mrd.mrd_dw(xs, wdx[1], plan),
                          lambda: mrd.mrd_dw_plain(xs, wdx[1], plan))):
                     acc[k]["ms"] += _cuda_ms(fn)
+                    acc[k]["dev"] += _device_ms(fn, calls=5)
+                    acc[k]["host"] += _host_ms(fn)
                     acc[k]["plain"] += _cuda_ms(plain, reps=5, warmup=1)
                 # library: the dense conv chain in the operand dtype
                 x = dense.to(dt).requires_grad_()
@@ -1438,26 +1480,83 @@ def phase_mrd_kernels(results: dict, rng, dev) -> None:
                 bl = [b.to(dt).requires_grad_() for b in bs]
                 outs = _conv_chain(x, wl, bl)
                 dcots = [torch.randn_like(o) for o in outs]
-                with torch.no_grad():
-                    acc["mrd_fwd"]["lib"] += _cuda_ms(lambda: _conv_chain(x.detach(), wl, bl))
-                acc["mrd_dx"]["lib"] += _cuda_ms(lambda: torch.autograd.grad(
-                    outs, [x], dcots, retain_graph=True))
-                acc["mrd_dw"]["lib"] += _cuda_ms(lambda: torch.autograd.grad(
-                    outs, wl + bl, dcots, retain_graph=True))
+
+                def lib_fwd():
+                    with torch.no_grad():
+                        return _conv_chain(x.detach(), wl, bl)
+
+                for k, fn in (("mrd_fwd", lib_fwd),
+                              ("mrd_dx", lambda: torch.autograd.grad(
+                                  outs, [x], dcots, retain_graph=True)),
+                              ("mrd_dw", lambda: torch.autograd.grad(
+                                  outs, wl + bl, dcots, retain_graph=True))):
+                    acc[k]["lib"] += _cuda_ms(fn)
+                    acc[k]["lib_dev"] += _device_ms(fn, calls=5)
+                    acc[k]["lib_host"] += _host_ms(fn)
                 del outs, dcots
-            for k, name, replaces in (
-                    ("mrd_fwd", "mrd_fwd", "tinyvc_tpu/ops/pallas/mrd.py:178"),
-                    ("mrd_dx", "mrd_dx", "tinyvc_tpu/ops/pallas/mrd.py:356"),
-                    ("mrd_dw", "mrd_dw", "tinyvc_tpu/ops/pallas/mrd.py:385")):
+            for k, name, src, replaces in (
+                    ("mrd_fwd", "mrd_fwd", "mrd_fwd.cu", "tinyvc_tpu/ops/pallas/mrd.py:178"),
+                    ("mrd_dx", "mrd_dx", "mrd_dx.cu", "tinyvc_tpu/ops/pallas/mrd.py:356"),
+                    ("mrd_dw", "mrd_dw", "mrd.cu", "tinyvc_tpu/ops/pallas/mrd.py:385")):
                 a = acc[k]
                 bound_ms, bound_by = _sum_bounds(a["bounds"])
                 results[name + sfx] = dict(
-                    name=name + sfx, route="cuda", source="tinyvc_tpu_torch/kernels/csrc/mrd.cu",
+                    name=name + sfx, route="cuda", source="tinyvc_tpu_torch/kernels/csrc/" + src,
                     replaces=replaces, max_abs_err=a["err"], ms=a["ms"], plain_ms=a["plain"],
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=a["lib"])
+                old = MRD_OLD_DESIGN_MS.get(name + sfx)
                 print(f"  {name}{sfx} (one crop, four resolutions; {MRD_CALLS_PER_STEP[k]} calls "
-                      f"a step): kernel {a['ms']:.4f} ms, plain {a['plain']:.4f} ms, library "
-                      f"{a['lib']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                      f"a step): kernel {a['ms']:.4f} ms"
+                      + (f" (first design {old} ms)" if old else "")
+                      + f", plain {a['plain']:.4f} ms, library {a['lib']:.4f} ms, bound "
+                      f"{bound_ms:.4f} ms ({bound_by}, {bound_ms / a['ms']:.1%} of it); device "
+                      f"kernel {a['dev']:.4f} ms ({bound_ms / a['dev']:.1%} of the bound), library "
+                      f"{a['lib_dev']:.4f} ms; host enqueue kernel {a['host']:.4f} ms, library "
+                      f"{a['lib_host']:.4f} ms")
+
+
+def _mrd_launch_layers(kernel: str, layers: int, bf16: bool):
+    """The layer of each launch of one call of M or N, in launch order: M one
+    a layer, bottom up; N top down, two a layer in fp32 (dy, dx), in bf16 the
+    top layer's dy and then one a layer (each forms the next layer's dy)."""
+    if kernel == "mrd_fwd":
+        return list(range(layers))
+    if not bf16:
+        return [li for li in range(layers - 1, -1, -1) for _ in range(2)]
+    return [layers - 1] + list(range(layers - 1, -1, -1))
+
+
+def _layer_device_ms(fn, launch_layers, calls: int = 5, tries: int = 3):
+    """Device ms of each layer of one call of ``fn`` (M or N), from the
+    profiler's kernels in launch order over ``calls`` calls after one more,
+    ``launch_layers`` giving each launch's layer; fails unless each of those
+    calls launched that many kernels, the same in each. The profiler now and
+    then misses a kernel record: a count that does not fit is measured again,
+    ``tries`` times in all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n = len(launch_layers)
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls + 1):
+                fn()
+            torch.cuda.synchronize()
+        evts = sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)[-calls * n:]
+        names = [e.name for e in evts]
+        if len(evts) == calls * n and all(names[i] == names[i % n] for i in range(len(names))):
+            break
+    _check(len(evts) == calls * n and all(names[i] == names[i % n] for i in range(len(names))),
+           f"the last {calls} calls did not launch the same {n} kernels ({len(evts)} kernels): "
+           + ", ".join(sorted({m[:40] for m in names})))
+    ms = [0.0] * (max(launch_layers) + 1)
+    for i, e in enumerate(evts):
+        ms[launch_layers[i % n]] += e.time_range.elapsed_us() / 1e3 / calls
+    return ms
 
 
 def _tent_taps(f: int):
@@ -1939,11 +2038,12 @@ def _print_breakdown(label: str, kernels: dict, wall_ms: float) -> None:
         return
     print(f"  {label}: device busy {busy:.3f} ms in {sum(v[1] for v in kernels.values())} "
           f"kernels, idle share {1.0 - busy / wall_ms:.3f}")
-    groups = defaultdict(float)
-    for name, (ms, _) in kernels.items():
+    groups, counts = defaultdict(float), defaultdict(int)
+    for name, (ms, n) in kernels.items():
         groups[_profile_group(name)] += ms
+        counts[_profile_group(name)] += n
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"    {group:38s} {ms:9.3f} ms  {ms / busy:6.1%}")
+        print(f"    {group:38s} {ms:9.3f} ms  {ms / busy:6.1%}  {counts[group]:6d} kernels")
     for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"    top {ms:9.3f} ms  x{n:<4d} {name[:100]}")
 
@@ -1952,8 +2052,8 @@ def _print_breakdown(label: str, kernels: dict, wall_ms: float) -> None:
 # cuDNN's convolutions are implicit GEMMs ("fprop_implicit_gemm",
 # "implicit_convolve_sgemm"), so they are matched before plain GEMMs.
 PROFILE_GROUPS = (
-    ("kernel M (MRD forward)", ("mrd_fwd_kernel",)),
-    ("kernel N (MRD dy, dx)", ("mrd_dy_kernel", "mrd_dx_kernel")),
+    ("kernel M (MRD forward)", ("mrd_fwd_",)),
+    ("kernel N (MRD dy, dx)", ("mrd_dy_", "mrd_dx_")),
     ("kernel O (MRD dW, db)", ("mrd_dw_partial", "mrd_dw_sum", "mrd_db_kernel")),
     ("kernel I (oscillator gradient)", ("osc_amps_grad",)),
     ("kernel A (oscillator)", ("osc_frame_sums", "osc_synth")),

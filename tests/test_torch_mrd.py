@@ -6,6 +6,7 @@ CPU as `tests/test_mrd_fused.py` runs them. Inputs from a numpy seed; each
 comparison prints its measured error."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -14,7 +15,10 @@ import pytest
 import torch
 
 from tinyvc_tpu.dsp.stft import stft_magnitude as j_stft_magnitude
+from jax.experimental import pallas as pl
+
 from tinyvc_tpu.ops import mrd_planes as jmp
+from tinyvc_tpu.ops.pallas.mrd import _bwd_kernel_dx, _pack_w
 from tinyvc_tpu.ops.pallas.mrd import mrd_chain as j_mrd_chain
 from tinyvc_tpu_torch.kernels import mrd
 from tinyvc_tpu_torch.ops import mrd_planes as pmp
@@ -22,6 +26,10 @@ from tinyvc_tpu_torch.ops import mrd_planes as pmp
 T = 8000
 FULL = (32, 256, 4)  # channels, max_channels, num_layers
 SMALL = (4, 16, 2)  # tests/test_training.py::small_config
+# widths no 32-channel stage, 64- or 128-row tile or 16-deep K step divides
+# (the kernels' edges); at r=128, T=2400 its Wp = 21 is odd, so plane blocks
+# start at odd element offsets
+RAGGED = (24, 48, 3)
 
 
 @pytest.fixture(autouse=True)
@@ -118,18 +126,21 @@ def test_pack_and_unpack_match_jax(rng, res):
             np.asarray(jmp.unpack_planes(jnp.asarray(y), plan, li)))
 
 
-@pytest.mark.parametrize("res", [32, 256])
-def test_plain_chain_matches_jax_kernel(rng, res):
-    """Full widths, T=8000, B=2, fp32: every output within 2e-5 of its peak
-    (the bound JAX holds its kernel to, `tests/test_mrd_fused.py:99-112`)."""
-    plan = pmp.make_plan(res, T)
-    spec_pm = _spec_pm(rng, res, plan)
+@pytest.mark.parametrize("res, widths, length", [(32, FULL, T), (256, FULL, T),
+                                                (128, RAGGED, 2400)],
+                         ids=["32", "256", "128-ragged"])
+def test_plain_chain_matches_jax_kernel(rng, res, widths, length):
+    """Full widths, T=8000, B=2 (and the ragged widths at T=2400), fp32:
+    every output within 2e-5 of its peak (the bound JAX holds its kernel to,
+    `tests/test_mrd_fused.py:99-112`)."""
+    plan = pmp.make_plan(res, length, *widths)
+    spec_pm = _spec_pm(rng, res, plan, length=length)
     ws, bs = _chain(plan, rng)
-    want = _jax_outs(spec_pm, ws, bs, jmp.make_plan(res, T), "float32")
+    want = _jax_outs(spec_pm, ws, bs, jmp.make_plan(res, length, *widths), "float32")
     got = mrd.mrd_chain(_t(spec_pm), [_t(w) for w in ws], [_t(b) for b in bs], plan, "float32")
     errs = [_rel_peak(g.numpy(), np.asarray(w).reshape(g.shape)) for g, w in zip(got, want)]
-    print(f"r={res}: fp32 plain chain vs JAX kernel, max error of the peak per layer "
-          + ", ".join(f"{e:.2e}" for e in errs))
+    print(f"r={res} widths {widths}: fp32 plain chain vs JAX kernel, max error of the peak per "
+          "layer " + ", ".join(f"{e:.2e}" for e in errs))
     assert max(errs) <= 2e-5
     for li, g in enumerate(got):  # exact zeros off the valid positions
         off = torch.from_numpy(plan.out_mask(li).reshape(-1)) == 0
@@ -216,6 +227,88 @@ def test_plain_dx_and_dw_equal_autograd_of_the_plain_chain(rng):
     for g, w in zip([dspec.reshape(s.shape), *dws, *dbs], want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
                                    atol=1e-5 * float(w.abs().max()))
+
+
+def _jax_dx_kernel(cots, ws, plan):
+    """JAX's `_bwd_kernel_dx` in interpret mode, as `_mrd_bwd`'s first pass
+    runs it: fp32 cotangents -> (dspec, the masked cotangents dy)."""
+    B = cots[0].shape[0]
+    flat = [jnp.asarray(c) for c in cots]
+    w_in = [_pack_w(jnp.asarray(w)) for w in ws]
+    blk = lambda a: pl.BlockSpec((1,) + a.shape[1:], lambda b: (b,) + (0,) * (a.ndim - 1))  # noqa: E731
+    wblk = lambda w: pl.BlockSpec(w.shape, lambda b: (0,) * w.ndim)  # noqa: E731
+    spec_len = plan.s0 * (plan.layers[0].g_in + 4) * plan.Wp
+    outs = pl.pallas_call(
+        functools.partial(_bwd_kernel_dx, plan, jnp.float32),
+        grid=(B,),
+        in_specs=[blk(c) for c in flat] + [wblk(w) for w in w_in],
+        out_specs=[pl.BlockSpec((1, 1, spec_len), lambda b: (b, 0, 0))] + [blk(c) for c in flat],
+        out_shape=[jax.ShapeDtypeStruct((B, 1, spec_len), jnp.float32)]
+        + [jax.ShapeDtypeStruct(c.shape, jnp.float32) for c in flat],
+        interpret=True,
+    )(*flat, *w_in)
+    return np.asarray(outs[0]), [np.asarray(o) for o in outs[1:]]
+
+
+@pytest.mark.parametrize("res", [32, 256])
+def test_plain_dx_matches_jax_bwd_kernel_dx(rng, res):
+    """The plain N forms dy with a select, as the kernel does, where JAX's
+    `_bwd_kernel_dx` multiplies by the mask: on finite cotangents dspec and
+    every dy agree within 3e-5 of their peaks (full widths, T=2400, B=2,
+    fp32; the sums run in another order)."""
+    plan = pmp.make_plan(res, 2400)
+    B = 2
+    cots = [rng.standard_normal((B, lp.cout, plan.flat_len(li))).astype(np.float32)
+            for li, lp in enumerate(plan.layers)]
+    ws, _ = _chain(plan, rng)
+    want = _jax_dx_kernel(cots, ws, jmp.make_plan(res, 2400))
+    dspec, dys = mrd.mrd_dx_plain([_t(c) for c in cots], [_t(w) for w in ws], plan)
+    errs = [_rel_peak(dspec.numpy(), want[0])] + [_rel_peak(g.numpy(), w)
+                                                   for g, w in zip(dys, want[1])]
+    print(f"r={res}: plain N vs JAX's _bwd_kernel_dx, max error of the peak (dspec, dy) "
+          + ", ".join(f"{e:.2e}" for e in errs))
+    assert max(errs) <= 3e-5
+
+
+def _rows_kernel_n_writes(plan, li):
+    """0/1 over layer ``li``'s flat input: the positions of the fp32 dx that
+    kernel N computes and carries to layer ``li - 1`` (``li >= 1``), rows
+    ``[2, 2 + valid rows of layer li - 1's plane)`` of each plane."""
+    lp, below = plan.layers[li], plan.layers[li - 1]
+    m = torch.zeros((lp.s_in, lp.g_in + 4, plan.Wp))
+    for phi in range(lp.s_in):
+        m[phi, 2:2 + below.valid_out[phi]] = 1.0
+    return m.reshape(-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("res", [32, 256])
+def test_dx_rows_the_kernel_skips_are_never_read(rng, res, dtype):
+    """Kernel N computes dx only on the rows the layer below reads
+    (`csrc/mrd_dx.cu`: in fp32 it carries only those down, in bf16 its
+    epilogue forms the layer below's dy from them). The plain N layer by
+    layer with every other position of that dx set to NaN gives dspec and
+    every dy finite and equal to `mrd_dx_plain`'s (full widths, T=2400,
+    B=2)."""
+    plan = pmp.make_plan(res, 2400)
+    B = 2
+    cots = [torch.from_numpy(rng.standard_normal((B, lp.cout, plan.flat_len(li)))
+                             .astype(np.float32)).to(dtype)
+            for li, lp in enumerate(plan.layers)]
+    ws = [_t(w) for w in _chain(plan, rng)[0]]
+    want_dspec, want_dys = mrd.mrd_dx_plain(cots, ws, plan)
+    above, dys, skipped = None, [None] * len(plan.layers), 0
+    for li in range(len(plan.layers) - 1, -1, -1):
+        dys[li], dx = mrd.mrd_dx_layer_plain(cots[li], above, ws[li], plan, li)
+        if li > 0:
+            written = _rows_kernel_n_writes(plan, li) != 0
+            skipped += int((~written).sum())
+            above = torch.where(written, dx, torch.full_like(dx, float("nan")))
+    dspec = dx.to(dtype)
+    assert skipped > 0
+    for got, want in zip([dspec] + dys, [want_dspec] + want_dys):
+        assert bool(torch.isfinite(got.float()).all())
+        assert torch.equal(got, want)
 
 
 def test_wrappers_refuse_mixed_devices(rng):

@@ -50,9 +50,9 @@ SIGNATURES = {
     "tvc_up_chain_grad": [_P] * 19 + [_LL] + [_I] * 8 + [_P],
     "tvc_down_chain_grad": [_P] * 20 + [_LL] + [_I] * 7 + [_P],
     "tvc_conv3_grad": [_P] * 7 + [_LL] + [_I] * 7 + [_P],
-    "tvc_mrd_fwd": [_P] * 4 + [_I] * 14 + [_P],
-    "tvc_mrd_dx": [_P] * 5 + [_I] * 15 + [_P],
-    "tvc_mrd_dw": [_P] * 3 + [_LL] + [_P] * 2 + [_I] * 15 + [_P],
+    "tvc_mrd_fwd": [_P] * 9 + [_I] * 18 + [_P],
+    "tvc_mrd_dx": [_P] * 12 + [_I] * 19 + [_P],
+    "tvc_mrd_dw": [_P] * 3 + [_LL] + [_P] * 2 + [_I] * 16 + [_P],
 }
 
 _lib = None

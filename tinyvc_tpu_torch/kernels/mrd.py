@@ -1,5 +1,5 @@
 """Kernels M, N and O: the fused MRD chain, its input gradient and its
-weight gradient (`csrc/mrd.cu`).
+weight gradient (`csrc/mrd_fwd.cu`, `csrc/mrd_dx.cu`, `csrc/mrd.cu`).
 
 - M, :func:`mrd_forward`, replaces `tinyvc_tpu/ops/pallas/mrd.py::
   _fwd_pallas` (``_fwd_kernel``): one MRD resolution's whole conv stack in
@@ -24,7 +24,19 @@ of N and O are written out below as the TPU kernels compute them (their
 fp32 results equal autograd through the plain chain,
 `tests/test_torch_mrd.py`). Each wrapper counts its calls that launched
 (``launches``, ``launches_bf16``); a call is one CUDA launch per layer for M,
-two for N and three for O.
+at most two for N and three for O.
+
+With bf16 operands M and N run their products on the tensor cores from
+weights packed to bf16 ``[kh*3, pad32(cin), pad32(cout)]`` (:func:`_packed`)
+and from a position-major copy of the operand, ``[B, positions,
+pad32(channels)]``: M's launch of layer ``li`` packs layer ``li + 1``'s
+weights and writes its output both ways; N's launch of layer ``li`` packs
+layer ``li - 1``'s and forms the layer below's dy from its own dx in its
+epilogue, both ways (the top layer's dy has a launch of its own, which
+packs its weights): scratch the wrapper allocates, no launch of its own.
+bf16 N is thus one launch a layer and one more, fp32 N two a layer. In
+fp32 N carries dx down, computed only on the rows the layer below reads,
+``[2, 2 + valid rows)`` of each plane; dspec on every position.
 
 :class:`MrdChain` (``mrd_chain``, JAX's name) is the differentiable chain:
 forward M, backward N then O, with ``mrd.py::mrd_chain``'s signature.
@@ -57,7 +69,24 @@ def _mask(plan: MrdPlan, li: int, device) -> torch.Tensor:
 def _layer_args(plan: MrdPlan, li: int, B: int) -> Tuple[int, ...]:
     lp = plan.layers[li]
     return (B, lp.cin, lp.cout, lp.kh, lp.stride, lp.ph, lp.s_in, lp.s_out, lp.g_in, lp.g_out,
-            plan.Wp, plan.W, lp.h_out)
+            plan.Wp, plan.W, lp.h_in, lp.h_out)
+
+
+def _pad32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def _packed(plan: MrdPlan, layers: Sequence[int], device) -> List[torch.Tensor]:
+    """One bf16 scratch buffer, cut into each of ``layers``' packed weights
+    ``[kh*3*pad32(cin)*pad32(cout)]`` (16-byte aligned); None elsewhere."""
+    sizes = {li: plan.layers[li].kh * plan.layers[li].kw * _pad32(plan.layers[li].cin)
+             * _pad32(plan.layers[li].cout) for li in layers}
+    buf = torch.empty(sum(sizes.values()), device=device, dtype=torch.bfloat16)
+    out, off = [None] * len(plan.layers), 0
+    for li, n in sizes.items():
+        out[li] = buf[off:off + n]
+        off += n
+    return out
 
 
 def _in_len(plan: MrdPlan, li: int) -> int:
@@ -98,27 +127,36 @@ def mrd_dx_plain(cots: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
     """Plain version of N: the cotangents of every layer's flat output, in
     the operand dtype -> (dspec ``[B, 1, S0*(G0+4)*Wp]`` and the masked
     cotangents ``dy``, in that dtype)."""
-    dt = cots[0].dtype
-    bf16 = dt == torch.bfloat16
-    B, Wp = cots[0].shape[0], plan.Wp
     dys: List[torch.Tensor] = [None] * len(plan.layers)
     above = None
     for li in range(len(plan.layers) - 1, -1, -1):
-        lp = plan.layers[li]
-        L, blk_in, blk_out = lp.g_out * Wp, (lp.g_in + 4) * Wp, (lp.g_out + 4) * Wp
-        cur = cots[li].float()
-        if above is not None:
-            cur = cur + above
-        dys[li] = (cur * _mask(plan, li, cur.device)).to(dt)
-        dy = dys[li].float()
-        w = _operand(ws[li].reshape(lp.kh * lp.kw, lp.cin, lp.cout), bf16)
-        dx = torch.zeros((B, lp.cin, lp.s_in, blk_in), device=dy.device)
-        for q, taps in enumerate(_tap_slices(lp, Wp)):
-            dyq = dy[:, :, q * blk_out + 2 * Wp: q * blk_out + 2 * Wp + L]
-            for t_i, (phi, s0) in enumerate(taps):
-                dx[:, :, phi, s0:s0 + L] += torch.einsum("cf,bfl->bcl", w[t_i], dyq)
-        above = dx.reshape(B, lp.cin, -1)
-    return above.to(dt), dys
+        dys[li], above = mrd_dx_layer_plain(cots[li], above, ws[li], plan, li)
+    return above.to(cots[0].dtype), dys
+
+
+def mrd_dx_layer_plain(cot: torch.Tensor, above, w: torch.Tensor, plan: MrdPlan,
+                       li: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer of the plain N: layer ``li``'s output cotangent ``cot`` (the
+    operand dtype) and the fp32 dx carried from the layer above (None at the
+    top) -> (``dy = where(valid, cot + above, 0)`` in the operand dtype, the
+    fp32 gradient of the layer's input on every position). A select, as the
+    kernel forms it: ``above`` off the valid positions is never read."""
+    dt = cot.dtype
+    lp, Wp = plan.layers[li], plan.Wp
+    B = cot.shape[0]
+    L, blk_in, blk_out = lp.g_out * Wp, (lp.g_in + 4) * Wp, (lp.g_out + 4) * Wp
+    cur = cot.float()
+    if above is not None:
+        cur = cur + above
+    dy = torch.where(_mask(plan, li, cur.device) != 0, cur, 0.0).to(dt)
+    w = _operand(w.reshape(lp.kh * lp.kw, lp.cin, lp.cout), dt == torch.bfloat16)
+    dyf = dy.float()
+    dx = torch.zeros((B, lp.cin, lp.s_in, blk_in), device=dyf.device)
+    for q, taps in enumerate(_tap_slices(lp, Wp)):
+        dyq = dyf[:, :, q * blk_out + 2 * Wp: q * blk_out + 2 * Wp + L]
+        for t_i, (phi, s0) in enumerate(taps):
+            dx[:, :, phi, s0:s0 + L] += torch.einsum("cf,bfl->bcl", w[t_i], dyq)
+    return dy, dx.reshape(B, lp.cin, -1)
 
 
 def mrd_dw_plain(xs: Sequence[torch.Tensor], dys: Sequence[torch.Tensor],
@@ -159,13 +197,24 @@ def mrd_forward(spec: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[tor
     _check("spec", spec, (B, 1, _in_len(plan, 0)), spec.dtype)
     _check_weights(ws, bs, plan)
     bf16 = spec.dtype == torch.bfloat16
-    outs, x = [], spec
+    nl = len(plan.layers)
+    mma = [bf16 and lp.cin > 1 and lp.cout > 1 for lp in plan.layers]
+    if mma[0]:
+        raise ValueError("layer 0 must read one channel: nothing packs its weights")
+    wp = _packed(plan, [li for li in range(nl) if mma[li]], spec.device)
+    outs, x, xt = [], spec, None
     for li, lp in enumerate(plan.layers):
         out = torch.empty((B, lp.cout, plan.flat_len(li)), device=spec.device, dtype=spec.dtype)
-        build.launch("tvc_mrd_fwd", spec, x, ws[li], bs[li], out, *_layer_args(plan, li, B),
-                     int(bf16))
+        nxt = li + 1 < nl and mma[li + 1]
+        wn, dims = (ws[li + 1], plan.layers[li + 1]) if nxt else (None, None)
+        outt = (torch.empty((B, plan.flat_len(li), _pad32(lp.cout)), device=spec.device,
+                            dtype=torch.bfloat16) if nxt else None)
+        build.launch("tvc_mrd_fwd", spec, x, xt, ws[li], bs[li], out, outt, wp[li], wn,
+                     wp[li + 1] if nxt else None, *((dims.kh, dims.cin, dims.cout) if nxt
+                                                    else (0, 0, 0)),
+                     *_layer_args(plan, li, B), int(bf16))
         outs.append(out)
-        x = out
+        x, xt = out, outt
     mrd_forward.launches += 1
     mrd_forward.launches_bf16 += bf16
     return outs
@@ -187,19 +236,38 @@ def mrd_dx(cots: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
     B = cots[0].shape[0]
     for li, (lp, c) in enumerate(zip(plan.layers, cots)):
         _check(f"cot{li}", c, (B, lp.cout, plan.flat_len(li)), dt)
-        build.check_input(f"w{li}", ws[li], 4)
+        _check(f"w{li}", ws[li], (lp.kh, lp.kw, lp.cin, lp.cout), torch.float32)
     bf16 = dt == torch.bfloat16
-    dys: List[torch.Tensor] = [None] * len(plan.layers)
-    above = None
-    for li in range(len(plan.layers) - 1, -1, -1):
-        lp = plan.layers[li]
-        dys[li] = torch.empty_like(cots[li])
-        dx = torch.empty((B, lp.cin, _in_len(plan, li)), device=dys[li].device,
-                         dtype=dt if li == 0 else torch.float32)
-        wt = ws[li].reshape(lp.kh * lp.kw, lp.cin, lp.cout).transpose(1, 2).contiguous()
-        build.launch("tvc_mrd_dx", cots[li], cots[li], above, dys[li], dx, wt,
-                     *_layer_args(plan, li, B), int(bf16), int(bf16 and li == 0))
-        above = dx
+    nl = len(plan.layers)
+    dys: List[torch.Tensor] = [torch.empty_like(c) for c in cots]
+    if not bf16:  # dy, then dx, a layer; the fp32 dx carried down
+        above = None
+        for li in range(nl - 1, -1, -1):
+            lp = plan.layers[li]
+            dx = torch.empty((B, lp.cin, _in_len(plan, li)), device=dys[li].device,
+                             dtype=torch.float32)
+            build.launch("tvc_mrd_dx", cots[li], cots[li], above, dys[li], None, dx, ws[li], None,
+                         None, None, None, None, None, 0, 0, 0, *_layer_args(plan, li, B), 0, 0)
+            above = dx
+    else:  # the top layer's dy, then one launch a layer forming the next dy
+        mma = [lp.cin > 1 for lp in plan.layers]
+        if mma[0] or not all(mma[1:]):
+            raise ValueError("only layer 0 may read one channel")
+        wp = _packed(plan, [li for li in range(nl) if mma[li]], cots[0].device)
+        dyt = [torch.empty((B, plan.flat_len(li), _pad32(lp.cout)), device=dys[li].device,
+                           dtype=torch.bfloat16) if mma[li] else None
+               for li, lp in enumerate(plan.layers)]
+        for li in range(nl - 1, 0, -1):
+            lb, below = plan.layers[li - 1], li - 1
+            nxt = mma[below]
+            build.launch("tvc_mrd_dx", cots[li], cots[li] if li == nl - 1 else None, None,
+                         dys[li], dyt[li], None, ws[li], wp[li], cots[below], dys[below],
+                         dyt[below], ws[below] if nxt else None, wp[below] if nxt else None,
+                         *((lb.kh, lb.cin, lb.cout) if nxt else (0, 0, 0)),
+                         *_layer_args(plan, li, B), 1, 0)
+        above = torch.empty((B, 1, _in_len(plan, 0)), device=dys[0].device, dtype=dt)
+        build.launch("tvc_mrd_dx", cots[0], None, None, dys[0], None, above, ws[0], None, None,
+                     None, None, None, None, 0, 0, 0, *_layer_args(plan, 0, B), 1, 1)
     mrd_dx.launches += 1
     mrd_dx.launches_bf16 += bf16
     return above, dys
