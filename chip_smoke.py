@@ -1347,6 +1347,19 @@ def _mrd_setup(rng, dev, res: int, B: int, T: int, widths=(32, 256, 4)):
     return plan, spec_pm, ws, bs, spec[:, None].contiguous()
 
 
+def _nan_halos(t, plan, li: int):
+    """``t``, layer ``li``'s output position-major ``[B, s_out*(g_out+4)*Wp,
+    C]`` (or None), with the two halo rows at each end of every plane set
+    to NaN, in place: rows that kernel O must never read."""
+    if t is None:
+        return None
+    lp = plan.layers[li]
+    v = t.view(t.shape[0], lp.s_out, lp.g_out + 4, plan.Wp, t.shape[2])
+    v[:, :, :2] = float("nan")
+    v[:, :, lp.g_out + 2:] = float("nan")
+    return t
+
+
 def _conv_chain(x, ws, bs):
     """The MRD's conv form (the "lax" lowering) by ``F.conv2d``: the
     library call beside M, N and O."""
@@ -1371,11 +1384,15 @@ def phase_mrd_kernels(results: dict, rng, dev) -> None:
     (``MRD_OLD_DESIGN_MS``). Library: the conv chain by ``F.conv2d`` (cuDNN,
     TF32 off) forward for M, its autograd backward to the spectrogram for N
     and to the weights and biases for O. Each row also gives the kernel's
-    and the library's device time (the profiler) and host enqueue time
+    and the library's device time (the profiler: the kernel's as the sum of
+    its per-layer times, whose launches are counted) and host enqueue time
     (``_host_ms``): an event-timed call holds the host work the device
-    waits for. M's and N's device time per layer and resolution from the
-    profiler, which also counts their launches per call
-    (``_mrd_launch_layers``)."""
+    waits for. M's, N's and O's device time per layer and resolution from
+    the profiler, which also counts their launches per call
+    (``_mrd_launch_layers``). O sums M's and N's outputs (the main path's
+    operands), under bf16 from their position-major copies with every halo
+    row set to NaN (``_nan_halos``: O must read none), and two calls must
+    give the same bits."""
     import numpy as np
     import torch
 
@@ -1402,19 +1419,27 @@ def phase_mrd_kernels(results: dict, rng, dev) -> None:
                 full = B == MRD_B
                 plan, spec_pm, ws, bs, dense = _mrd_setup(rng, dev, res, B, T, widths)
                 spec = spec_pm.to(dt)
-                got = mrd.mrd_forward(spec, ws, bs, plan)
+                got, copies = mrd.mrd_forward(spec, ws, bs, plan)
                 want = mrd.mrd_forward_plain(spec, ws, bs, plan)
                 cots = [torch.from_numpy(rng.standard_normal(o.shape).astype(np.float32))
                         .to(dev, dt) for o in want]
                 gdx = mrd.mrd_dx(cots, ws, plan)
                 wdx = mrd.mrd_dx_plain(cots, ws, plan)
-                xs = [spec] + want[:-1]
-                gdw = mrd.mrd_dw(xs, wdx[1], plan)
-                wdw = mrd.mrd_dw_plain(xs, wdx[1], plan)
+                # O on M's and N's outputs and copies, as the chain hands them over
+                xs, dys = [spec] + got[:-1], gdx[1]
+                xts = [None] + [_nan_halos(c, plan, li) for li, c in enumerate(copies[:-1])]
+                dyts = [_nan_halos(c, plan, li) for li, c in enumerate(gdx[2])]
+                gdw = mrd.mrd_dw(xs, dys, plan, xts, dyts)
+                again = mrd.mrd_dw(xs, dys, plan, xts, dyts)
+                wdw = mrd.mrd_dw_plain(xs, dys, plan)
                 # the magnitudes each dW and db element sums: sum |x| |dy|, sum |dy|
                 mag = mrd.mrd_dw_plain([x.float().abs() for x in xs],
-                                       [d.float().abs() for d in wdx[1]], plan)
+                                       [d.float().abs() for d in dys], plan)
                 torch.cuda.synchronize()
+                _check(all(bool(torch.isfinite(a).all()) for a in gdw[0] + gdw[1]),
+                       f"mrd_dw{sfx} r={res}: a non-finite dW or db (a halo row was read)")
+                _check(all(torch.equal(a, b) for a, b in zip(gdw[0] + gdw[1], again[0] + again[1])),
+                       f"mrd_dw{sfx} r={res}: two calls differ")
                 tol_f = MRD_TOL["bf16" if bf16 else "fp32"]
                 tol_g = MRD_TOL["bf16" if bf16 else "fp32_grad"]
                 names = [f"dW{i}" for i in range(len(plan.layers))] + [
@@ -1438,7 +1463,7 @@ def phase_mrd_kernels(results: dict, rng, dev) -> None:
                       f"{e['mrd_fwd']:.2e}, N {e['mrd_dx']:.2e} (tolerance {tol_f:.0e} / "
                       f"{tol_g:.0e}); O {e['mrd_dw']:.2e} of the sum of |terms| at {o_worst} "
                       f"(tolerance {MRD_TOL['sum']:.0e}; max of each output's peak "
-                      f"{o_peak:.2e})")
+                      f"{o_peak:.2e}; halo rows NaN, two calls bit-identical)")
                 _check(e["mrd_fwd"] <= tol_f, f"mrd_fwd{sfx} r={res}: {e['mrd_fwd']} > {tol_f}")
                 _check(e["mrd_dx"] <= tol_g, f"mrd_dx{sfx} r={res}: {e['mrd_dx']} > {tol_g}")
                 _check(e["mrd_dw"] <= MRD_TOL["sum"],
@@ -1456,22 +1481,28 @@ def phase_mrd_kernels(results: dict, rng, dev) -> None:
                     _bound(isz * (2 * maps + spec.numel()) + wbytes, flops, peak))
                 acc["mrd_dw"]["bounds"].append(
                     _bound(isz * (spec.numel() + 2 * maps) + wbytes, flops, peak))
+                nl = len(plan.layers)
                 for k, fn in (("mrd_fwd", lambda: mrd.mrd_forward(spec, ws, bs, plan)),
-                              ("mrd_dx", lambda: mrd.mrd_dx(cots, ws, plan))):
-                    per_layer = _layer_device_ms(fn, _mrd_launch_layers(k, len(plan.layers),
-                                                                        bf16))
-                    print(f"    {k}{sfx} r={res}: device ms per layer "
-                          + ", ".join(f"{ms:.4f}" for ms in per_layer)
-                          + f" (sum {sum(per_layer):.4f})")
+                              ("mrd_dx", lambda: mrd.mrd_dx(cots, ws, plan)),
+                              ("mrd_dw", lambda: mrd.mrd_dw(xs, dys, plan, xts, dyts))):
+                    launch_layers = _mrd_launch_layers(k, nl, bf16)
+                    per_layer = _layer_device_ms(fn, launch_layers)
+                    shown = (f"the gathers of layers 0 and {nl - 1} {per_layer[0]:.4f}, layers "
+                             + ", ".join(f"{ms:.4f}" for ms in per_layer[1:nl - 1])
+                             + f", the partials' sum {per_layer[nl]:.4f}"
+                             if k == "mrd_dw" and bf16
+                             else "per layer " + ", ".join(f"{ms:.4f}" for ms in per_layer))
+                    print(f"    {k}{sfx} r={res}: device ms {shown} (sum {sum(per_layer):.4f}; "
+                          f"{len(launch_layers)} launches a call)")
+                    acc[k]["dev"] += sum(per_layer)
                 for k, fn, plain in (
                         ("mrd_fwd", lambda: mrd.mrd_forward(spec, ws, bs, plan),
                          lambda: mrd.mrd_forward_plain(spec, ws, bs, plan)),
                         ("mrd_dx", lambda: mrd.mrd_dx(cots, ws, plan),
                          lambda: mrd.mrd_dx_plain(cots, ws, plan)),
-                        ("mrd_dw", lambda: mrd.mrd_dw(xs, wdx[1], plan),
-                         lambda: mrd.mrd_dw_plain(xs, wdx[1], plan))):
+                        ("mrd_dw", lambda: mrd.mrd_dw(xs, dys, plan, xts, dyts),
+                         lambda: mrd.mrd_dw_plain(xs, dys, plan))):
                     acc[k]["ms"] += _cuda_ms(fn)
-                    acc[k]["dev"] += _device_ms(fn, calls=5)
                     acc[k]["host"] += _host_ms(fn)
                     acc[k]["plain"] += _cuda_ms(plain, reps=5, warmup=1)
                 # library: the dense conv chain in the operand dtype
@@ -1497,7 +1528,7 @@ def phase_mrd_kernels(results: dict, rng, dev) -> None:
             for k, name, src, replaces in (
                     ("mrd_fwd", "mrd_fwd", "mrd_fwd.cu", "tinyvc_tpu/ops/pallas/mrd.py:178"),
                     ("mrd_dx", "mrd_dx", "mrd_dx.cu", "tinyvc_tpu/ops/pallas/mrd.py:356"),
-                    ("mrd_dw", "mrd_dw", "mrd.cu", "tinyvc_tpu/ops/pallas/mrd.py:385")):
+                    ("mrd_dw", "mrd_dw", "mrd_dw.cu", "tinyvc_tpu/ops/pallas/mrd.py:385")):
                 a = acc[k]
                 bound_ms, bound_by = _sum_bounds(a["bounds"])
                 results[name + sfx] = dict(
@@ -1516,18 +1547,25 @@ def phase_mrd_kernels(results: dict, rng, dev) -> None:
 
 
 def _mrd_launch_layers(kernel: str, layers: int, bf16: bool):
-    """The layer of each launch of one call of M or N, in launch order: M one
-    a layer, bottom up; N top down, two a layer in fp32 (dy, dx), in bf16 the
-    top layer's dy and then one a layer (each forms the next layer's dy)."""
+    """The layer of each launch of one call of M, N or O, in launch order: M
+    one a layer, bottom up; N top down, two a layer in fp32 (dy, dx), in bf16
+    the top layer's dy and then one a layer (each forms the next layer's
+    dy); O in fp32 three a layer (partials, db, their sum), bottom up, in
+    bf16 the gathers of the width-1 layers (0 and ``layers - 1``, counted
+    as layer 0), one a tensor-core layer, and the partials' sum
+    (``layers``, past the last)."""
     if kernel == "mrd_fwd":
         return list(range(layers))
+    if kernel == "mrd_dw":
+        return ([0] + list(range(1, layers - 1)) + [layers] if bf16
+                else [li for li in range(layers) for _ in range(3)])
     if not bf16:
         return [li for li in range(layers - 1, -1, -1) for _ in range(2)]
     return [layers - 1] + list(range(layers - 1, -1, -1))
 
 
 def _layer_device_ms(fn, launch_layers, calls: int = 5, tries: int = 3):
-    """Device ms of each layer of one call of ``fn`` (M or N), from the
+    """Device ms of each layer of one call of ``fn`` (M, N or O), from the
     profiler's kernels in launch order over ``calls`` calls after one more,
     ``launch_layers`` giving each launch's layer; fails unless each of those
     calls launched that many kernels, the same in each. The profiler now and
@@ -2054,7 +2092,7 @@ def _print_breakdown(label: str, kernels: dict, wall_ms: float) -> None:
 PROFILE_GROUPS = (
     ("kernel M (MRD forward)", ("mrd_fwd_",)),
     ("kernel N (MRD dy, dx)", ("mrd_dy_", "mrd_dx_")),
-    ("kernel O (MRD dW, db)", ("mrd_dw_partial", "mrd_dw_sum", "mrd_db_kernel")),
+    ("kernel O (MRD dW, db)", ("mrd_dw_", "mrd_db_kernel")),
     ("kernel I (oscillator gradient)", ("osc_amps_grad",)),
     ("kernel A (oscillator)", ("osc_frame_sums", "osc_synth")),
     ("kernel B (noise)", ("noise_fft", "noise_synth")),  # the FFT design, the DFT one

@@ -97,7 +97,7 @@ def test_kernel_build_recipe():
     sources = build.sources()
     assert {s.name for s in sources} == {"oscillator.cu", "noise.cu", "resample.cu",
                                         "filter_stage.cu", "filter_stage_bwd.cu",
-                                        "spectrogram.cu", "knn.cu", "mrd.cu", "mrd_fwd.cu",
+                                        "spectrogram.cu", "knn.cu", "mrd_dw.cu", "mrd_fwd.cu",
                                         "mrd_dx.cu"}
     assert len(compiles) == len(sources)  # one nvcc call for each kernel source
     for cmd, src in zip(compiles, sources):

@@ -18,7 +18,7 @@ from tinyvc_tpu.dsp.stft import stft_magnitude as j_stft_magnitude
 from jax.experimental import pallas as pl
 
 from tinyvc_tpu.ops import mrd_planes as jmp
-from tinyvc_tpu.ops.pallas.mrd import _bwd_kernel_dx, _pack_w
+from tinyvc_tpu.ops.pallas.mrd import _bwd_kernel_dw, _bwd_kernel_dx, _pack_w
 from tinyvc_tpu.ops.pallas.mrd import mrd_chain as j_mrd_chain
 from tinyvc_tpu_torch.kernels import mrd
 from tinyvc_tpu_torch.ops import mrd_planes as pmp
@@ -268,6 +268,176 @@ def test_plain_dx_matches_jax_bwd_kernel_dx(rng, res):
     print(f"r={res}: plain N vs JAX's _bwd_kernel_dx, max error of the peak (dspec, dy) "
           + ", ".join(f"{e:.2e}" for e in errs))
     assert max(errs) <= 3e-5
+
+
+def _jax_dw_kernel(xs, dys, plan, dtype):
+    """JAX's `_bwd_kernel_dw` in interpret mode, as `_mrd_bwd`'s second pass
+    runs it (one `pl.pallas_call`, the dW and db blocks revisited across the
+    batch grid): each layer's flat input and dy -> (dW [kh*kw, cin, cout],
+    db [1, cout]) per layer, fp32."""
+    B = xs[0].shape[0]
+    x_in = [jnp.asarray(x, dtype) for x in xs]
+    d_in = [jnp.asarray(d, dtype) for d in dys]
+    blk = lambda a: pl.BlockSpec((1,) + a.shape[1:], lambda b: (b,) + (0,) * (a.ndim - 1))  # noqa: E731
+    wblk = lambda s: pl.BlockSpec(s.shape, lambda b: (0,) * len(s.shape))  # noqa: E731
+    dw_shapes = [jax.ShapeDtypeStruct((lp.kh * lp.kw, lp.cin, lp.cout), jnp.float32)
+                 for lp in plan.layers]
+    db_shapes = [jax.ShapeDtypeStruct((1, lp.cout), jnp.float32) for lp in plan.layers]
+    outs = pl.pallas_call(
+        functools.partial(_bwd_kernel_dw, plan, dtype, B),
+        grid=(B,),
+        in_specs=[blk(x) for x in x_in] + [blk(d) for d in d_in],
+        out_specs=[wblk(s) for s in dw_shapes] + [wblk(s) for s in db_shapes],
+        out_shape=dw_shapes + db_shapes,
+        interpret=True,
+    )(*x_in, *d_in)
+    nl = len(plan.layers)
+    return [np.asarray(o) for o in outs[:nl]], [np.asarray(o) for o in outs[nl:]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("res", [32, 256])
+def test_plain_dw_matches_jax_bwd_kernel_dw(rng, res, dtype):
+    """The plain O against JAX's `_bwd_kernel_dw` on the same inputs (full
+    widths, T=2400, B=2; random maps and cotangents masked as N forms
+    them): every dW and db element within 1e-5 of the sum of its terms'
+    magnitudes, sum |x| |dy| (sum |dy| for db), the scale the sums'
+    rounding in another order is proportional to (`chip_smoke.py`'s
+    `MRD_TOL["sum"]`). Under bf16 both sides take the same bf16 operands,
+    whose products are exact in fp32."""
+    plan = pmp.make_plan(res, 2400)
+    B = 2
+    xs = [rng.standard_normal((B, lp.cin, plan.layers[li].s_in * plan.buf_len(li)))
+          .astype(np.float32) for li, lp in enumerate(plan.layers)]
+    dys = [(rng.standard_normal((B, lp.cout, plan.flat_len(li)))
+            * plan.out_mask(li).reshape(-1)).astype(np.float32)
+           for li, lp in enumerate(plan.layers)]
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want_dw, want_db = _jax_dw_kernel(xs, dys, jmp.make_plan(res, 2400), jdt)
+    xt = [_t(x).to(dtype) for x in xs]
+    dt = [_t(d).to(dtype) for d in dys]
+    dws, dbs = mrd.mrd_dw_plain(xt, dt, plan)
+    mag_w, mag_b = mrd.mrd_dw_plain([x.float().abs() for x in xt], [d.float().abs() for d in dt],
+                                    plan)
+    errs = []
+    for li, lp in enumerate(plan.layers):
+        gw = dws[li].numpy().reshape(lp.kh * lp.kw, lp.cin, lp.cout)
+        mw = mag_w[li].numpy().reshape(gw.shape)
+        errs.append(float((np.abs(gw - want_dw[li]) / np.maximum(mw, 1e-30)).max()))
+    for li in range(len(plan.layers)):
+        errs.append(float((np.abs(dbs[li].numpy() - want_db[li].reshape(-1))
+                           / np.maximum(mag_b[li].numpy(), 1e-30)).max()))
+    print(f"r={res} {dtype}: plain O vs JAX's _bwd_kernel_dw, max error of the sum of |terms| "
+          "(dW, db) " + ", ".join(f"{e:.2e}" for e in errs))
+    assert max(errs) <= 1e-5
+
+
+def _valid_positions(plan, li, B):
+    """1 at each (b, q, l) of layer ``li`` that lies in plane q's valid rows,
+    ``l < valid_out[q] * Wp``, the positions bf16 O sums."""
+    lp = plan.layers[li]
+    m = np.zeros((B, lp.s_out, lp.g_out * plan.Wp), np.int64)
+    for q, v in enumerate(lp.valid_out):
+        m[:, q, :v * plan.Wp] = 1
+    return m
+
+
+@pytest.mark.parametrize("res", [32, 64, 128, 256])
+def test_dw_split_schedule_covers_every_position_once(res):
+    """bf16 O's split schedule (`kernels/mrd.py::dw_schedule`, the kernel's
+    walk mirrored by `dw_split_chunks`) at the post-join crop (full widths,
+    T=8000, B=16): across the splits of every tensor-core layer, each
+    position of each plane's valid rows falls in exactly one split's chunks
+    and none outside them does; each split sums at least one chunk; the
+    layer's grid comes within a factor 1.5 of ``DW_FILL`` blocks, and not
+    over it. The
+    width-1 layers take one partial per block of their gathers."""
+    plan = pmp.make_plan(res, T)
+    B = 16
+    parts = mrd.dw_schedule(plan, B)
+    assert len(parts) == len(plan.layers)
+    mma = 0
+    for li, lp in enumerate(plan.layers):
+        if lp.cin == 1 or lp.cout == 1:
+            assert parts[li] == B * sum(mrd.dw_plane_chunks(plan, li, mrd.DW_GATHER))
+            continue
+        mma += 1
+        seen = np.zeros((B, lp.s_out, lp.g_out * plan.Wp), np.int64)
+        for s in range(parts[li]):
+            chunks = mrd.dw_split_chunks(plan, li, B, s)
+            assert chunks
+            for b, q, l0 in chunks:
+                end = min(l0 + mrd.DW_BK, lp.valid_out[q] * plan.Wp)
+                assert l0 < end
+                seen[b, q, l0:end] += 1
+        np.testing.assert_array_equal(seen, _valid_positions(plan, li, B))
+        bm = 32 if lp.cin <= 32 else 64
+        blocks = parts[li] * lp.kh * -(-lp.cin // bm) * -(-lp.cout // mrd.DW_BN)
+        assert mrd.DW_FILL / 1.5 <= blocks <= mrd.DW_FILL, (li, blocks)
+    assert mma == 4
+
+
+def _launcher_workspace(dims, layers):
+    """What `tvc_mrd_dw_bf16` (`csrc/mrd_dw.cu`) requires of its
+    arguments, mirrored: per layer the MRD layer arguments and its partials
+    (a tensor-core layer's splits in [1, its chunks of 128 positions]; a
+    width-1 layer's B times its passes of 256), and the workspace exactly
+    the partials' floats, kh*3*cin*cout + cout each. The chunk and pass
+    sizes are the source's ``DW_BK`` and ``GW_POS``."""
+    need = 0
+    for li in range(layers):
+        (B, cin, cout, kh, stride, ph, s_in, s_out, g_in, g_out, Wp, W, h_in, h_out,
+         parts) = dims[15 * li:15 * li + 15]
+        rows = [(h_out - q + s_out - 1) // s_out if q < h_out else 0 for q in range(s_out)]
+        if cin > 1 and cout > 1:
+            chunks = B * sum(-(-r * Wp // 128) for r in rows)
+            assert 1 <= parts <= max(chunks, 1)
+        else:
+            assert parts == B * sum(-(-r * Wp // 256) for r in rows)
+        need += parts * (kh * 3 * cin * cout + cout)
+    return need
+
+
+@pytest.mark.parametrize("res, widths, B", [(32, FULL, 16), (128, RAGGED, 3)],
+                         ids=["32-full", "128-ragged"])
+def test_dw_wrapper_allocates_what_the_launcher_checks(monkeypatch, res, widths, B):
+    """bf16 O's wrapper, its launch intercepted: the workspace it allocates
+    is the size it passes, and the size the launcher's check requires from
+    the dims it passes; the tensor-core layers pass the position-major
+    copies, the width-1 layers the plane-major maps; without the copies it
+    refuses."""
+    plan = pmp.make_plan(res, 8000 if res == 32 else 2400, *widths)
+    nl = len(plan.layers)
+    bf = torch.bfloat16
+    xs = [torch.empty((B, lp.cin, mrd._in_len(plan, li)), dtype=bf)
+          for li, lp in enumerate(plan.layers)]
+    dys = [torch.empty((B, lp.cout, plan.flat_len(li)), dtype=bf)
+           for li, lp in enumerate(plan.layers)]
+    mma = [lp.cin > 1 and lp.cout > 1 for lp in plan.layers]
+    xts = [torch.empty((B, mrd._in_len(plan, li), -(-lp.cin // 32) * 32), dtype=bf)
+           if mma[li] else None for li, lp in enumerate(plan.layers)]
+    dyts = [torch.empty((B, plan.flat_len(li), -(-lp.cout // 32) * 32), dtype=bf)
+            if mma[li] else None for li, lp in enumerate(plan.layers)]
+    calls = []
+    monkeypatch.setattr(mrd.build, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(mrd.build, "check_input", lambda *a, **k: None)
+    monkeypatch.setattr(mrd.build, "launch", lambda name, t, *args: calls.append((name, args)))
+    before = mrd.mrd_dw.launches_bf16
+    dws, dbs = mrd.mrd_dw(xs, dys, plan, xts, dyts)
+    assert [c[0] for c in calls] == ["tvc_mrd_dw_bf16"] and mrd.mrd_dw.launches_bf16 == before + 1
+    ptrs, dims, layers, work, ws_len = calls[0][1]
+    assert layers == nl and len(dims) == 15 * nl and len(ptrs) == 6 * nl
+    assert work.numel() == ws_len == mrd.dw_workspace(plan, B)
+    assert ws_len == _launcher_workspace(list(dims), nl)
+    for li in range(nl):
+        x, xt, dy, dyt, dw, db = ptrs[6 * li:6 * li + 6]
+        if mma[li]:
+            assert (x, xt, dy, dyt) == (None, xts[li].data_ptr(), None, dyts[li].data_ptr())
+        else:
+            assert (x, xt, dy, dyt) == (xs[li].data_ptr(), None, dys[li].data_ptr(), None)
+        assert (dw, db) == (dws[li].data_ptr(), dbs[li].data_ptr())
+    with pytest.raises(ValueError, match="position-major copies"):
+        mrd.mrd_dw(xs, dys, plan)
 
 
 def _rows_kernel_n_writes(plan, li):

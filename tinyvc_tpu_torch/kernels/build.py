@@ -52,7 +52,8 @@ SIGNATURES = {
     "tvc_conv3_grad": [_P] * 7 + [_LL] + [_I] * 7 + [_P],
     "tvc_mrd_fwd": [_P] * 9 + [_I] * 18 + [_P],
     "tvc_mrd_dx": [_P] * 12 + [_I] * 19 + [_P],
-    "tvc_mrd_dw": [_P] * 3 + [_LL] + [_P] * 2 + [_I] * 16 + [_P],
+    "tvc_mrd_dw": [_P] * 3 + [_LL] + [_P] * 2 + [_I] * 15 + [_P],
+    "tvc_mrd_dw_bf16": [_P, _P, _I, _P, _LL, _P],
 }
 
 _lib = None

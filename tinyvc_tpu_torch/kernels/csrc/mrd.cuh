@@ -1,5 +1,5 @@
 // The phase-plane layout shared by kernels M (mrd_fwd.cu), N (mrd_dx.cu) and
-// O (mrd.cu): one MRD layer's geometry, its taps, and the launchers' checks.
+// O (mrd_dw.cu): one MRD layer's geometry, its taps, and the launchers' checks.
 //
 // Layout (tinyvc_tpu_torch/ops/mrd_planes.py): a feature map is flat
 // [B, C, S * (G + 4) * Wp]; plane p's block holds G + 4 rows of Wp columns,

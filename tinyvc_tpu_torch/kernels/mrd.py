@@ -1,5 +1,5 @@
 """Kernels M, N and O: the fused MRD chain, its input gradient and its
-weight gradient (`csrc/mrd_fwd.cu`, `csrc/mrd_dx.cu`, `csrc/mrd.cu`).
+weight gradient (`csrc/mrd_fwd.cu`, `csrc/mrd_dx.cu`, `csrc/mrd_dw.cu`).
 
 - M, :func:`mrd_forward`, replaces `tinyvc_tpu/ops/pallas/mrd.py::
   _fwd_pallas` (``_fwd_kernel``): one MRD resolution's whole conv stack in
@@ -24,7 +24,8 @@ of N and O are written out below as the TPU kernels compute them (their
 fp32 results equal autograd through the plain chain,
 `tests/test_torch_mrd.py`). Each wrapper counts its calls that launched
 (``launches``, ``launches_bf16``); a call is one CUDA launch per layer for M,
-at most two for N and three for O.
+at most two for N and three for O (bf16 O: one for both width-1 layers'
+gathers, one a tensor-core layer, one for the partials' sum).
 
 With bf16 operands M and N run their products on the tensor cores from
 weights packed to bf16 ``[kh*3, pad32(cin), pad32(cout)]`` (:func:`_packed`)
@@ -36,7 +37,14 @@ epilogue, both ways (the top layer's dy has a launch of its own, which
 packs its weights): scratch the wrapper allocates, no launch of its own.
 bf16 N is thus one launch a layer and one more, fp32 N two a layer. In
 fp32 N carries dx down, computed only on the rows the layer below reads,
-``[2, 2 + valid rows)`` of each plane; dspec on every position.
+``[2, 2 + valid rows)`` of each plane; dspec on every position. M and N
+hand their copies back (:func:`mrd_forward`'s ``copies``, :func:`mrd_dx`'s
+``dyts``), and bf16 O reads its tensor-core layers' operands from them,
+interior rows only (the copies' halo rows are never written): x of layer
+``li`` is M's copy of layer ``li - 1``'s output. Its blocks split each such
+layer's positions as :func:`dw_schedule` says and write partials that its
+last launch adds in a fixed order; the width-1 layers (cin = 1, cout = 1)
+read the plane-major maps.
 
 :class:`MrdChain` (``mrd_chain``, JAX's name) is the differentiable chain:
 forward M, backward N then O, with ``mrd.py::mrd_chain``'s signature.
@@ -44,6 +52,8 @@ forward M, backward N then O, with ``mrd.py::mrd_chain``'s signature.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import List, Sequence, Tuple
 
 import torch
@@ -52,7 +62,12 @@ from ..ops.mrd_planes import MrdPlan, _operand, _tap_slices, mrd_chain_xla
 from . import build
 
 DTYPES = (torch.float32, torch.bfloat16)
-WGRAD_CHUNK = 1024  # positions of one block's weight-gradient partial sum
+WGRAD_CHUNK = 1024  # positions of one block's weight-gradient partial sum, fp32 O
+# bf16 O's tensor-core tiles (`csrc/mrd_dw.cu`): positions a chunk of the
+# split schedule, output channels a block, and the blocks a layer's grid
+# aims at, twice the H100 SXM's 132 SMs
+DW_BK, DW_BN, DW_FILL = 128, 64, 2 * 132
+DW_GATHER = 256  # positions a block of its width-1 layers' gathers
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -186,12 +201,15 @@ def mrd_dw_plain(xs: Sequence[torch.Tensor], dys: Sequence[torch.Tensor],
 
 
 def mrd_forward(spec: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
-                plan: MrdPlan) -> List[torch.Tensor]:
+                plan: MrdPlan) -> Tuple[List[torch.Tensor], List]:
     """Kernel M: ``spec [B, 1, S0*(G0+4)*Wp]`` (fp32 or bf16, the operand
-    dtype) -> every layer's flat output ``[B, cout, s_out*(g_out+4)*Wp]`` in
-    that dtype (the last is the logits)."""
+    dtype) -> (every layer's flat output ``[B, cout, s_out*(g_out+4)*Wp]`` in
+    that dtype, the last the logits; ``copies``: under bf16, layer ``li``'s
+    output position-major ``[B, s_out*(g_out+4)*Wp, pad32(cout)]`` where
+    layer ``li + 1`` reads it on the tensor cores, halo rows unwritten, else
+    None)."""
     if build.on_cpu(spec, *ws, *bs):
-        return mrd_forward_plain(spec, ws, bs, plan)
+        return mrd_forward_plain(spec, ws, bs, plan), [None] * len(plan.layers)
     build.check_input("spec", spec, 3, DTYPES)
     B = spec.shape[0]
     _check("spec", spec, (B, 1, _in_len(plan, 0)), spec.dtype)
@@ -202,7 +220,7 @@ def mrd_forward(spec: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[tor
     if mma[0]:
         raise ValueError("layer 0 must read one channel: nothing packs its weights")
     wp = _packed(plan, [li for li in range(nl) if mma[li]], spec.device)
-    outs, x, xt = [], spec, None
+    outs, copies, x, xt = [], [], spec, None
     for li, lp in enumerate(plan.layers):
         out = torch.empty((B, lp.cout, plan.flat_len(li)), device=spec.device, dtype=spec.dtype)
         nxt = li + 1 < nl and mma[li + 1]
@@ -214,10 +232,11 @@ def mrd_forward(spec: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[tor
                                                     else (0, 0, 0)),
                      *_layer_args(plan, li, B), int(bf16))
         outs.append(out)
+        copies.append(outt)
         x, xt = out, outt
     mrd_forward.launches += 1
     mrd_forward.launches_bf16 += bf16
-    return outs
+    return outs, copies
 
 
 mrd_forward.launches = 0
@@ -225,12 +244,15 @@ mrd_forward.launches_bf16 = 0  # of them, on bf16 inputs
 
 
 def mrd_dx(cots: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
-           plan: MrdPlan) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+           plan: MrdPlan) -> Tuple[torch.Tensor, List[torch.Tensor], List]:
     """Kernel N: the cotangents of every layer's flat output (fp32 or bf16,
     the operand dtype) -> (dspec ``[B, 1, S0*(G0+4)*Wp]``, the masked
-    cotangents ``dy``), in that dtype."""
+    cotangents ``dy``, in that dtype; ``dyts``: under bf16, each ``dy``
+    position-major ``[B, s_out*(g_out+4)*Wp, pad32(cout)]`` where the layer
+    reads more than one channel (its halo rows unwritten below the top
+    layer), else None)."""
     if build.on_cpu(*cots, *ws):
-        return mrd_dx_plain(cots, ws, plan)
+        return (*mrd_dx_plain(cots, ws, plan), [None] * len(plan.layers))
     dt = cots[0].dtype
     build.check_input("cot0", cots[0], 3, DTYPES)
     B = cots[0].shape[0]
@@ -240,6 +262,7 @@ def mrd_dx(cots: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
     bf16 = dt == torch.bfloat16
     nl = len(plan.layers)
     dys: List[torch.Tensor] = [torch.empty_like(c) for c in cots]
+    dyt: List = [None] * nl
     if not bf16:  # dy, then dx, a layer; the fp32 dx carried down
         above = None
         for li in range(nl - 1, -1, -1):
@@ -270,7 +293,7 @@ def mrd_dx(cots: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
                      None, None, None, None, 0, 0, 0, *_layer_args(plan, 0, B), 1, 1)
     mrd_dx.launches += 1
     mrd_dx.launches_bf16 += bf16
-    return above, dys
+    return above, dys, dyt
 
 
 mrd_dx.launches = 0
@@ -278,14 +301,79 @@ mrd_dx.launches_bf16 = 0
 
 
 def _dw_chunks(plan: MrdPlan, li: int, B: int) -> int:
+    """fp32 O's partials of layer ``li``: fixed ``WGRAD_CHUNK`` slices of
+    each (b, q)."""
     lp = plan.layers[li]
     return B * lp.s_out * (-(-lp.g_out * plan.Wp // WGRAD_CHUNK))
 
 
-def mrd_dw(xs: Sequence[torch.Tensor], dys: Sequence[torch.Tensor],
-           plan: MrdPlan) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+def _dw_mma(lp) -> bool:
+    """bf16 O runs layer ``lp`` on the tensor cores (else a gather)."""
+    return lp.cin > 1 and lp.cout > 1
+
+
+def dw_plane_chunks(plan: MrdPlan, li: int, size: int = DW_BK) -> List[int]:
+    """bf16 O's chunks of ``size`` positions in each output plane's valid
+    rows, for one batch row (`csrc/mrd_dw.cu::make_walk`)."""
+    return [-(-v * plan.Wp // size) for v in plan.layers[li].valid_out]
+
+
+@functools.lru_cache(maxsize=64)
+def dw_schedule(plan: MrdPlan, B: int) -> Tuple[int, ...]:
+    """bf16 O's partials of each layer, from the shape alone: for a
+    tensor-core layer the number of splits of its chunk list (batch row,
+    plane, chunk; :func:`dw_split_chunks`), so that its grid (kh x cin
+    tiles x cout tiles blocks a split) comes near ``DW_FILL`` blocks and
+    not over (a third block on an SM outlasts the others), at most one
+    split a chunk; for a width-1 layer one per ``DW_GATHER``
+    positions of each plane's valid rows (a block of its gather)."""
+    parts = []
+    for li, lp in enumerate(plan.layers):
+        if not _dw_mma(lp):
+            parts.append(B * sum(dw_plane_chunks(plan, li, DW_GATHER)))
+            continue
+        bm = 32 if lp.cin <= 32 else 64
+        tiles = lp.kh * -(-lp.cin // bm) * -(-lp.cout // DW_BN)
+        chunks = B * sum(dw_plane_chunks(plan, li))
+        parts.append(max(1, min(chunks, DW_FILL // tiles)))
+    return tuple(parts)
+
+
+def dw_split_chunks(plan: MrdPlan, li: int, B: int, split: int) -> List[Tuple[int, int, int]]:
+    """The (b, q, first position) of each chunk that split ``split`` of
+    tensor-core layer ``li`` sums, in its order: chunks ``[split * n //
+    S, (split + 1) * n // S)`` of the layer's n chunks, batch row by batch
+    row, plane by plane (the kernel's walk)."""
+    per_q = dw_plane_chunks(plan, li)
+    per_b, S = sum(per_q), dw_schedule(plan, B)[li]
+    n = B * per_b
+    out = []
+    for c in range(split * n // S, (split + 1) * n // S):
+        b, w = divmod(c, per_b)
+        q = 0
+        while w >= per_q[q]:
+            w -= per_q[q]
+            q += 1
+        out.append((b, q, w * DW_BK))
+    return out
+
+
+def dw_workspace(plan: MrdPlan, B: int) -> int:
+    """Floats of bf16 O's partials: each layer's ``dw_schedule`` partials
+    of ``kh*3*cin*cout + cout`` (dW, then db)."""
+    return sum(n * (lp.kh * lp.kw * lp.cin * lp.cout + lp.cout)
+               for n, lp in zip(dw_schedule(plan, B), plan.layers))
+
+
+def mrd_dw(xs: Sequence[torch.Tensor], dys: Sequence[torch.Tensor], plan: MrdPlan,
+           xts: Sequence | None = None, dyts: Sequence | None = None
+           ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Kernel O: each layer's flat input and masked cotangent (fp32 or bf16,
-    the operand dtype) -> (HWIO weight gradients, bias gradients), fp32."""
+    the operand dtype) -> (HWIO weight gradients, bias gradients), fp32.
+    Under bf16 on CUDA, ``xts`` and ``dyts`` give each tensor-core layer's
+    input and dy position-major (``xts[li]`` is :func:`mrd_forward`'s
+    ``copies[li - 1]``, ``dyts`` :func:`mrd_dx`'s); only their interior rows
+    are read. The plain version and fp32 ignore them."""
     if build.on_cpu(*xs, *dys):
         return mrd_dw_plain(xs, dys, plan)
     dt = xs[0].dtype
@@ -294,20 +382,36 @@ def mrd_dw(xs: Sequence[torch.Tensor], dys: Sequence[torch.Tensor],
     for li, lp in enumerate(plan.layers):
         _check(f"x{li}", xs[li], (B, lp.cin, _in_len(plan, li)), dt)
         _check(f"dy{li}", dys[li], (B, lp.cout, plan.flat_len(li)), dt)
-    bf16 = dt == torch.bfloat16
-    ws_len = max(_dw_chunks(plan, li, B) * lp.kh * lp.kw * lp.cin * lp.cout
-                 for li, lp in enumerate(plan.layers))
-    work = torch.empty(ws_len, device=xs[0].device)
-    dws, dbs = [], []
-    for li, lp in enumerate(plan.layers):
-        dw = torch.empty((lp.kh, lp.kw, lp.cin, lp.cout), device=work.device)
-        db = torch.empty((lp.cout,), device=work.device)
-        build.launch("tvc_mrd_dw", xs[li], xs[li], dys[li], work, ws_len, dw, db,
-                     *_layer_args(plan, li, B), int(bf16), WGRAD_CHUNK)
-        dws.append(dw)
-        dbs.append(db)
+    dev = xs[0].device
+    dws = [torch.empty((lp.kh, lp.kw, lp.cin, lp.cout), device=dev) for lp in plan.layers]
+    dbs = [torch.empty((lp.cout,), device=dev) for lp in plan.layers]
+    if dt == torch.float32:
+        ws_len = max(_dw_chunks(plan, li, B) * lp.kh * lp.kw * lp.cin * lp.cout
+                     for li, lp in enumerate(plan.layers))
+        work = torch.empty(ws_len, device=dev)
+        for li in range(len(plan.layers)):
+            build.launch("tvc_mrd_dw", xs[li], xs[li], dys[li], work, ws_len, dws[li], dbs[li],
+                         *_layer_args(plan, li, B), WGRAD_CHUNK)
+    else:
+        ptrs, dims = [], []
+        for li, (lp, parts) in enumerate(zip(plan.layers, dw_schedule(plan, B))):
+            if _dw_mma(lp):
+                if xts is None or dyts is None or xts[li] is None or dyts[li] is None:
+                    raise ValueError(f"layer {li}: bf16 O reads the position-major copies "
+                                     "of its input and dy (xts, dyts)")
+                _check(f"xt{li}", xts[li], (B, _in_len(plan, li), _pad32(lp.cin)), dt)
+                _check(f"dyt{li}", dyts[li], (B, plan.flat_len(li), _pad32(lp.cout)), dt)
+                ptrs += [None, xts[li].data_ptr(), None, dyts[li].data_ptr()]
+            else:
+                ptrs += [xs[li].data_ptr(), None, dys[li].data_ptr(), None]
+            ptrs += [dws[li].data_ptr(), dbs[li].data_ptr()]
+            dims += [*_layer_args(plan, li, B), parts]
+        ws_len = dw_workspace(plan, B)
+        work = torch.empty(ws_len, device=dev)
+        build.launch("tvc_mrd_dw_bf16", xs[0], (ctypes.c_void_p * len(ptrs))(*ptrs),
+                     (ctypes.c_int * len(dims))(*dims), len(plan.layers), work, ws_len)
     mrd_dw.launches += 1
-    mrd_dw.launches_bf16 += bf16
+    mrd_dw.launches_bf16 += dt == torch.bfloat16
     return dws, dbs
 
 
@@ -323,9 +427,9 @@ mrd_dw.launches_bf16 = 0
 class MrdChain(torch.autograd.Function):
     """``spec_pm [B, 1, S0, (G0+4)*Wp]`` (fp32) and the effective weights
     and biases -> every layer's flat output in the operand dtype. Forward M
-    on the spectrogram cast to the operand dtype; backward N then O, the
-    cotangents cast to the operand dtype first (`mrd.py:337-339`) and
-    dspec upcast after (`:373`)."""
+    on the spectrogram cast to the operand dtype, keeping its position-major
+    copies for O; backward N then O, the cotangents cast to the operand
+    dtype first (`mrd.py:337-339`) and dspec upcast after (`:373`)."""
 
     @staticmethod
     def forward(ctx, spec_pm, plan, dtype_name, *wb):
@@ -333,8 +437,8 @@ class MrdChain(torch.autograd.Function):
         ws, bs = [w.detach() for w in wb[:nl]], [b.detach() for b in wb[nl:]]
         B = spec_pm.shape[0]
         spec = spec_pm.detach().reshape(B, 1, -1).to(_dtype(dtype_name)).contiguous()
-        outs = mrd_forward(spec, ws, bs, plan)
-        ctx.save_for_backward(spec, *ws, *outs)
+        outs, copies = mrd_forward(spec, ws, bs, plan)
+        ctx.save_for_backward(spec, *ws, *outs, *copies[:-1])
         ctx.plan, ctx.shape, ctx.spec_dtype = plan, spec_pm.shape, spec_pm.dtype
         return tuple(outs)
 
@@ -343,11 +447,11 @@ class MrdChain(torch.autograd.Function):
         plan = ctx.plan
         nl = len(plan.layers)
         spec, *rest = ctx.saved_tensors
-        ws, outs = rest[:nl], rest[nl:]
+        ws, outs, copies = rest[:nl], rest[nl:2 * nl], rest[2 * nl:]
         cots = [torch.zeros_like(o) if c is None else c.to(o.dtype).contiguous()
                 for c, o in zip(cots, outs)]
-        dspec, dys = mrd_dx(cots, ws, plan)
-        dws, dbs = mrd_dw([spec, *outs[:-1]], dys, plan)
+        dspec, dys, dyts = mrd_dx(cots, ws, plan)
+        dws, dbs = mrd_dw([spec, *outs[:-1]], dys, plan, [None, *copies], dyts)
         return (dspec.to(ctx.spec_dtype).reshape(ctx.shape), None, None, *dws, *dbs)
 
 
