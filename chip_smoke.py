@@ -76,6 +76,7 @@ imports nothing of JAX or `tinyvc_tpu`.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1194,7 +1195,10 @@ def phase_train_kernels(results: dict, rng, dev) -> None:
             row("resample_grad" + sfx, "resample.cu", "tinyvc_tpu/ops/pallas/resample.py:268",
                 acc["err"], acc["ms"], acc["plain"], acc["bounds"], acc["lib"])
 
-        # K and L with the two-speaker decoder's packed weights
+        # K and L with the two-speaker decoder's packed weights. Each check
+        # runs the kernel with NaN in every element torch.empty hands it
+        # (the workspace, its copies, the outputs), so an unwritten read
+        # shows, and a second call must give the same bits.
         dec = decoder_from_jax(load_npz(os.path.join(ROOT, "models", "two_speaker",
                                                      "decoder_B.npz"))).to(dev)
         w = pack_filter_net(dec.filter_net, 24)
@@ -1205,23 +1209,48 @@ def phase_train_kernels(results: dict, rng, dev) -> None:
             rel_tol, max_tol = CHAIN_GRAD_RTOL["bf16" if bf16 else "fp32"]
 
             def check(name, case, kernel, plain, full):
-                got, want = kernel(), plain()
+                with _nan_empty() as sizes:
+                    got = kernel()
+                    again = kernel()
+                want = plain()
                 torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
                 errs = [(float((a - b).abs().max()), float(b.abs().max()), _rel_l2(a, b))
                         for a, b in zip(got, want)]
                 worst_rel = max(e[2] for e in errs)
                 worst_max = max(e[0] / max(e[1], 1e-30) for e in errs)
+                ws = f", workspace {sizes[0]} bytes" if sizes else ""
                 print(f"  {name}{sfx} {case}: relative L2 {worst_rel:.2e}, max {worst_max:.2e} "
-                      f"of the peak (tolerance {'L2 %.0e' % rel_tol if full else 'max %.0e' % max_tol})")
+                      f"of the peak (tolerance {'L2 %.0e' % rel_tol if full else 'max %.0e' % max_tol})"
+                      f"; NaN-filled workspace{ws}; two calls bit-identical: {same}")
+                _check(same, f"{name}{sfx} {case}: two calls differ")
                 if full:
                     _check(worst_rel <= rel_tol, f"{name}{sfx} {case}: L2 {worst_rel} > {rel_tol}")
                 else:
                     _check(worst_max <= max_tol, f"{name}{sfx} {case}: max {worst_max} > {max_tol}")
                 return max(e[0] for e in errs)
 
+            def groups(label, kind, fn, flops):
+                """Device ms of one call of ``fn`` by launch group (the
+                profiler, K's and L's own kernels), checking its launches:
+                the tensor-core design in bf16, the CUDA-core one in fp32."""
+                design = "tensor-core design" if bf16 else "CUDA-core design"
+                launch_groups = _unet_launch_groups(kind, bf16)
+                ms = _layer_device_ms(fn, launch_groups, keep=_unet_kernel)
+                rate = " ".join(f"{UNET_GROUPS[g]} {flops[g] / (ms[g] * 1e9):.1f}"
+                                for g in sorted(flops) if ms[g] > 0)
+                print(f"    {label} {design}: {len(launch_groups)} launches, device "
+                      f"{sum(ms):.4f} ms: " + ", ".join(
+                          f"{UNET_GROUPS[g]} {m:.4f}" for g, m in enumerate(ms))
+                      + (f"; TFLOP/s {rate}" if rate else ""))
+                acc["dev_" + kind] += sum(ms)
+
             acc = {k: dict(err=0.0, ms=0.0, plain=0.0, bounds=[]) for k in ("up", "down")}
-            # K: up_2 [96 -> 48, 2400], up_3 [48 -> 24, 9600], up_4 [24 -> 1 folded, 48000]
-            for i, (b, T) in ((2, (B, 2400)), (3, (B, 9600)), (4, (B, L)), (4, (2, 777))):
+            acc["dev_up"] = acc["dev_down"] = acc["dev_stem"] = 0.0
+            # K: up_2 [96 -> 48, 2400], up_3 [48 -> 24, 9600], up_4 [24 -> 1 folded,
+            # 48000], each also at a ragged (2, 777)
+            for i, (b, T) in ((2, (B, 2400)), (2, (2, 777)), (3, (B, 9600)), (3, (2, 777)),
+                              (4, (B, L)), (4, (2, 777))):
                 wu = w.up[i]
                 C = wu[0].shape[1]
                 fold = i == 4
@@ -1244,6 +1273,10 @@ def phase_train_kernels(results: dict, rng, dev) -> None:
                     a["bounds"].append(_bound(isz * 2 * b * C * T + 4 * b * T * (co + 2 * C),
                                               96.0 * b * T * C * C + 6.0 * b * T * k5 * C,
                                               peak_flops))
+                    E = T + 2 * (R_UP_OF[fold])
+                    flops = {1: 32.0 * b * E * C * C, 2: 32.0 * b * E * C * C + 2.0 * b * E * k5 * C,
+                             3: 32.0 * b * E * C * C + 2.0 * b * T * k5 * C}
+                    groups(f"up_{i}", "up", lambda: fs.upsample_chain_grad(*args), flops)
             # L: the stem [24 (17) -> 24, 48000], down_1 [24 -> 48, 9600],
             # down_2 [48 -> 96, 2400]
             for case, b, T in (("stem", B, L), ("stem", 2, 777)):
@@ -1261,6 +1294,9 @@ def phase_train_kernels(results: dict, rng, dev) -> None:
                     a["plain"] += _cuda_ms(lambda: fs.conv3_grad_plain(x, *w.stem, gy), reps=5)
                     a["bounds"].append(_bound(isz * b * 24 * T + 4 * b * T * (24 + 24),
                                               12.0 * b * T * 17 * 24, peak_flops))
+                    co = w.stem[0].shape[0]
+                    flops = {2: 6.0 * b * (T + 2) * co * 24, 3: 6.0 * b * T * co * 24}
+                    groups("stem", "stem", lambda: fs.conv3_grad(x, *w.stem, gy), flops)
             for i, b, T in ((0, B, 9600), (1, B, 2400), (0, 2, 333)):
                 wd = w.down[i]
                 co, cin = wd[0].shape
@@ -1278,12 +1314,93 @@ def phase_train_kernels(results: dict, rng, dev) -> None:
                     a["bounds"].append(_bound(isz * b * cin * T + 4 * b * T * (co + cin),
                                               b * T * (36.0 * cin * cin + 16.0 * cin * co),
                                               peak_flops))
+                    E = T + 14
+                    flops = {1: 12.0 * b * E * cin * cin,
+                             2: b * E * (12.0 * cin * cin + 6.0 * cin * co) + 2.0 * b * T * cin * co,
+                             3: b * E * 12.0 * cin * cin + b * T * 8.0 * cin * co}
+                    groups(f"down_{i + 1}", "down", lambda: fs.downsample_chain_grad(z, *wd, gy),
+                           flops)
+            if bf16:
+                # a width the decoder does not use: C (K) and Cin (L) of 12,
+                # whose bf16 copies carry 4 zero channels; ragged, random
+                # weights from their own generator
+                wr = np.random.default_rng(12)
+
+                def rnd(*shape, dt=torch.float32, scale=0.3):
+                    return torch.from_numpy((scale * wr.standard_normal(shape)).astype(
+                        np.float32)).to(dev, dt)
+
+                for fold in (False, True):
+                    C, co, k5 = 12, 1 if fold else 20, 7 if fold else 20
+                    args = (rnd(2, C, 777, dt=dt), rnd(2, C, 777, dt=dt), rnd(4, C, 3 * C),
+                            rnd(4, C, 1), rnd(4 * C, C), rnd(4 * C, 1), rnd(k5, C), rnd(k5, 1),
+                            rnd(2, co, 777, scale=1.0), 7 if fold else 0,
+                            rnd(1, 1) if fold else None)
+                    check("up_chain_grad", f"C=12 B=2 [12 -> {co}{' folded' if fold else ''}, 777]",
+                          lambda: fs.upsample_chain_grad(*args),
+                          lambda: fs.upsample_chain_grad_plain(*args), False)
+                wd = (rnd(20, 12), rnd(20, 1), rnd(12, 36), rnd(12, 1), rnd(12, 36), rnd(12, 1),
+                      rnd(20, 36), rnd(20, 1))
+                z, gy = rnd(2, 12, 333, dt=dt), rnd(2, 20, 333, scale=1.0)
+                check("down_chain_grad", "Cin=12 B=2 [12 -> 20, 333]",
+                      lambda: fs.downsample_chain_grad(z, *wd, gy),
+                      lambda: fs.downsample_chain_grad_plain(z, *wd, gy), False)
+            print(f"  kernel K{sfx}: device {acc['dev_up']:.4f} ms a step (up_2 + up_3 + up_4); "
+                  f"kernel L{sfx}: device {acc['dev_down'] + acc['dev_stem']:.4f} ms a step "
+                  f"(stem + down_1 + down_2)")
             for key, name, replaces in (
                     ("up", "up_chain_grad", "tinyvc_tpu/ops/pallas/filter_stage.py:1031"),
                     ("down", "down_chain_grad", "tinyvc_tpu/ops/pallas/filter_stage.py:1266")):
                 a = acc[key]
                 row(name + sfx, "filter_stage_bwd.cu", replaces, a["err"], a["ms"], a["plain"],
                     a["bounds"])
+
+
+R_UP_OF = {False: 40, True: 43}  # the up chain's pad, without and with the folded k=7 conv
+UNET_GROUPS = ("copies and packing", "recompute", "input gradients", "weight gradients",
+               "partial sums and folds")
+
+
+def _unet_kernel(name: str) -> bool:
+    """A kernel of K or L (the profile groups' test)."""
+    return "up_grad_" in name or "down_grad_" in name
+
+
+def _unet_launch_groups(kind: str, tc: bool):
+    """The group (an index of UNET_GROUPS) of each launch of one call of K
+    (``kind`` "up"), L on a down chain ("down") or on the stem ("stem"), in
+    launch order: the tensor-core design (``tc``) or the CUDA-core one
+    (`csrc/filter_stage_bwd.cu`)."""
+    rec, bwd, wg = {"up": (5, 6, 6), "down": (2, 4, 4), "stem": (0, 1, 1)}[kind]
+    if tc:
+        return [0] + [1] * rec + [2] * bwd + [3] * wg + [4]
+    bwd += 2 if kind == "up" else 0  # the two FiLM-gradient passes
+    folds = 2 if kind == "up" else 1
+    return [1] * rec + [2] * bwd + [3, 4] * wg + [4] * folds
+
+
+@contextlib.contextmanager
+def _nan_empty():
+    """torch.empty and torch.empty_like return NaN (every byte 0xff) while
+    in the context, which yields the sizes of the byte tensors made in it
+    (the bf16 entries' workspaces)."""
+    import torch
+
+    orig = torch.empty, torch.empty_like
+    sizes = []
+
+    def filled(t):
+        if t.dtype == torch.uint8:
+            sizes.append(t.numel())
+            return t.fill_(255)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    torch.empty = lambda *a, **k: filled(orig[0](*a, **k))
+    torch.empty_like = lambda *a, **k: filled(orig[1](*a, **k))
+    try:
+        yield sizes
+    finally:
+        torch.empty, torch.empty_like = orig
 
 
 # Kernels M, N, O against their plain versions at the post-join step's
@@ -1564,13 +1681,14 @@ def _mrd_launch_layers(kernel: str, layers: int, bf16: bool):
     return [layers - 1] + list(range(layers - 1, -1, -1))
 
 
-def _layer_device_ms(fn, launch_layers, calls: int = 5, tries: int = 3):
-    """Device ms of each layer of one call of ``fn`` (M, N or O), from the
-    profiler's kernels in launch order over ``calls`` calls after one more,
-    ``launch_layers`` giving each launch's layer; fails unless each of those
-    calls launched that many kernels, the same in each. The profiler now and
-    then misses a kernel record: a count that does not fit is measured again,
-    ``tries`` times in all."""
+def _layer_device_ms(fn, launch_layers, calls: int = 5, tries: int = 3, keep=None):
+    """Device ms of each layer of one call of ``fn`` (M, N or O; or K's and
+    L's launch groups), from the profiler's kernels in launch order over
+    ``calls`` calls after one more, ``launch_layers`` giving each launch's
+    layer, only the kernels whose name passes ``keep`` if given; fails
+    unless each of those calls launched that many kernels, the same in each.
+    The profiler now and then misses a kernel record: a count that does not
+    fit is measured again, ``tries`` times in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1583,7 +1701,8 @@ def _layer_device_ms(fn, launch_layers, calls: int = 5, tries: int = 3):
                 fn()
             torch.cuda.synchronize()
         evts = sorted((e for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and (keep is None or keep(e.name))),
                       key=lambda e: e.time_range.start)[-calls * n:]
         names = [e.name for e in evts]
         if len(evts) == calls * n and all(names[i] == names[i % n] for i in range(len(names))):
@@ -1782,6 +1901,24 @@ def phase_train_step(card: str) -> dict:
     print(f"  fp32 step (forward and backward) warm: {statistics.median(times) * 1e3:.3f} ms "
           f"median of 3 ({card})")
     _print_breakdown("fp32 step", kernels, statistics.median(times) * 1e3)
+    # the CLI's pre-join step (bf16 operands on the card, the multi-scale
+    # STFT loss, the update), warm: host time, peak memory over the timed
+    # steps, one profiled step
+    step16 = dt.make_train_step(cfg, d_join=False)
+    step16(state, enc, wave, key)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step16(state, enc, wave, key)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    kernels, _ = _profile_call(lambda: step16(state, enc, wave, key))
+    print(f"  bf16 pre-join step warm: {statistics.median(times) * 1e3:.3f} ms median of 3, "
+          f"peak memory {peak / 2**30:.3f} GiB ({card})")
+    _print_breakdown("bf16 pre-join step", kernels, statistics.median(times) * 1e3)
     return launches
 
 
@@ -2199,11 +2336,14 @@ def main(argv=None) -> int:
     """No arguments: every phase. ``--profile [DIR]``: env, build and the
     profile phase only, of the port in DIR (a checkout of another commit;
     default: this one), for comparing two commits in one call (parent,
-    change, change, parent)."""
+    change, change, parent). ``--train-step [DIR]``: env, build and the
+    pre-join step phase only (the fp32 step's checks, the bf16 step's device
+    time and peak memory), of the port in DIR."""
     global ROOT
     args = sys.argv[1:] if argv is None else argv
     profile_only = bool(args) and args[0] == "--profile"
-    if profile_only and len(args) > 1:
+    step_only = bool(args) and args[0] == "--train-step"
+    if (profile_only or step_only) and len(args) > 1:
         ROOT = os.path.abspath(args[1])
     if not os.path.isdir(os.path.join(ROOT, "tinyvc_tpu_torch")):
         print("chip_smoke.py needs the repository around it (tinyvc_tpu_torch/)", file=sys.stderr)
@@ -2214,11 +2354,14 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke.py runs on a GPU", file=sys.stderr)
         return 1
-    if profile_only:
-        print(f"profile of {ROOT}")
+    if profile_only or step_only:
+        print(f"{'profile' if profile_only else 'pre-join step'} of {ROOT}")
         card = phase_env()
         phase_build()
-        phase_profile_only(card)
+        if profile_only:
+            phase_profile_only(card)
+        else:
+            phase_train_step(card)
         return 0
 
     t_all = time.perf_counter()

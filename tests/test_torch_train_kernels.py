@@ -300,11 +300,13 @@ class _Launched(RuntimeError):
     pass
 
 
-@pytest.mark.parametrize("name", ["I", "J", "K", "L", "stem"])
+@pytest.mark.parametrize("name", ["I", "J", "K", "L", "stem", "K_bf16", "L_bf16", "stem_bf16"])
 def test_cuda_tensors_launch_the_kernel_or_raise(monkeypatch, rng, name):
     """A tensor that is not on the CPU never reaches the plain version: the
     wrapper launches its kernel (here a stand-in that fails, as a card
-    without the library would), and the failure propagates."""
+    without the library would), and the failure propagates. With bf16
+    inputs K and L reach their bf16 entries (the tensor-core route), at
+    widths that are not multiples of 8 (K's C 12, L's Cin 4)."""
     launched = []
 
     def fake_launch(kernel, *args):
@@ -319,26 +321,30 @@ def test_cuda_tensors_launch_the_kernel_or_raise(monkeypatch, rng, name):
         for mod in (oscillator, resample, fs):
             if hasattr(mod, plain):
                 monkeypatch.setattr(mod, plain, None)  # calling it would fail differently
+    dt = torch.bfloat16 if name.endswith("_bf16") else torch.float32
+    sfx = "_bf16" if name.endswith("_bf16") else ""
     if name == "I":
         call, kernel = (lambda: oscillator.oscillator_amps_grad(
             torch.full((1, 4), 100.0), torch.zeros(1, 15, 4 * 480))), "tvc_oscillator_amps_grad"
     elif name == "J":
         call, kernel = (lambda: resample.resample_grad(
             torch.zeros(2, 40), 10, 4, True)), "tvc_resample_grad"
-    elif name == "K":
-        ws = [_t(w) for w in _up_weights(rng, 8, 4, 0)]
+    elif name.startswith("K"):
+        C = 12 if sfx else 8  # bf16: a width whose copies are padded to 16 channels
+        ws = [_t(w) for w in _up_weights(rng, C, 4, 0)]
         call, kernel = (lambda: fs.upsample_chain_grad(
-            torch.zeros(1, 8, 50), torch.zeros(1, 8, 50), *ws, torch.zeros(1, 4, 50))), \
-            "tvc_up_chain_grad"
-    elif name == "L":
+            torch.zeros(1, C, 50, dtype=dt), torch.zeros(1, C, 50, dtype=dt), *ws,
+            torch.zeros(1, 4, 50))), "tvc_up_chain_grad" + sfx
+    elif name.startswith("L"):
         ws = [torch.zeros(s) for s in ((8, 4), (8, 1), (4, 12), (4, 1), (4, 12), (4, 1),
                                        (8, 12), (8, 1))]
         call, kernel = (lambda: fs.downsample_chain_grad(
-            torch.zeros(1, 4, 50), *ws, torch.zeros(1, 8, 50))), "tvc_down_chain_grad"
+            torch.zeros(1, 4, 50, dtype=dt), *ws, torch.zeros(1, 8, 50))), \
+            "tvc_down_chain_grad" + sfx
     else:
         call, kernel = (lambda: fs.conv3_grad(
-            torch.zeros(1, 8, 50), torch.zeros(4, 24), torch.zeros(4, 1),
-            torch.zeros(1, 4, 50))), "tvc_conv3_grad"
+            torch.zeros(1, 8, 50, dtype=dt), torch.zeros(4, 24), torch.zeros(4, 1),
+            torch.zeros(1, 4, 50))), "tvc_conv3_grad" + sfx
     with pytest.raises(_Launched):
         call()
     assert launched == [kernel]

@@ -19,7 +19,11 @@
 //
 // Design (the TPU kernel recomputes and backpropagates tile by tile in
 // VMEM and accumulates weight gradients across its sequential grid): a
-// sequence of launches over a workspace of [B, rows, E] fp32 buffers,
+// sequence of launches over a workspace, in two routes.
+//
+// fp32 operands (tvc_up_chain_grad, tvc_down_chain_grad, tvc_conv3_grad;
+// exact products, TF32 would break the tolerance): CUDA-core tiles over
+// [B, rows, E] fp32 buffers,
 //   - the recompute: the FiLM rows (one [4C, C] product over cond), then
 //     each conv as in the forward, keeping u (before the FiLM) and r (after
 //     it);
@@ -31,10 +35,22 @@
 //     summing one 1024-column chunk of one batch row into its own partial,
 //     then a second pass summing the partials in a fixed order: no float
 //     atomics, so runs are reproducible. Bias gradients ride along.
-// Launches per call: K 27, L 15 for a down chain and 4 for the stem.
+//   Launches per call: K 27, L 15 for a down chain and 4 for the stem.
+// bf16 operands (tvc_up_chain_grad_bf16, tvc_down_chain_grad_bf16,
+// tvc_conv3_grad_bf16): the tensor-core tiles of unet_tiles.cuh over
+// position-major bf16 copies; fp32 buffers only for what an epilogue reads
+// in fp32 (the pre-activations whose sign makes a mask, u2 and u4 for gs,
+// r1, the FiLM rows, g_r1 and g_r2). Launches per call: one that writes the
+// inputs' copies and packs the weights (from the forward's weights, their
+// transposes read in place), one per conv (the FiLM's backward and the bias
+// gradients' partial sums in the epilogues), one per weight gradient, one
+// that adds the partials and folds the pads: K 19, L 12 for a down chain
+// and 4 for the stem. Each entry sizes its own workspace: called with a
+// null ws it writes the bytes it needs to *ws_bytes and launches nothing.
 //
 // Precision (the TPU's dtype_name): fp32, or bf16 operands with fp32
-// accumulation, rounded where the TPU's backward kernels round them: every
+// accumulation, rounded where the TPU's backward kernels round them (the
+// bf16 route; conv_body's and wgrad_body's round flag is always 0): every
 // product's two operands (the activation after its leaky ReLU, the weight,
 // the cotangent entering a transposed conv or a weight gradient, cond and
 // the input as stored in bf16); the folded output conv, fp32 in the
@@ -44,13 +60,13 @@
 // Bound on the H100: operations. The backward does twice the forward's
 // products (each conv's transpose and its weight gradient) plus the
 // recompute: 96 C^2 FLOPs per sample for the up chain, at up_4 (B=16, C=24,
-// T=48000) 42 GFLOP, 0.63 ms at 67 TFLOP/s; its bytes (the inputs and the
-// cotangent read once, the gradients written once) 0.3 GB, 0.09 ms.
-// All products run on the CUDA cores in fp32; wgmma would be a later PR's.
+// T=48000) 42 GFLOP, 0.63 ms at 67 TFLOP/s in fp32, 0.04 ms at 989 TFLOP/s
+// on the tensor cores; its bytes (the inputs and the cotangent read once,
+// the gradients written once) 0.3 GB, 0.09 ms.
 
 #include <cuda_runtime.h>
 
-#include "bf16.cuh"
+#include "unet_tiles.cuh"
 
 namespace {
 
@@ -58,32 +74,6 @@ constexpr int TCOL = 64;      // columns per block
 constexpr int CI_CHUNK = 16;  // input rows per shared-memory stage
 constexpr int THREADS = 256;
 constexpr int MAX_D3 = 27;    // largest dilation of a k=3 conv
-
-// A [B, rows, rstride] operand read at extended column e (t = e - off):
-// outside [0, len) the edge value (zero == 0, the chain input's edge
-// replication) or 0 (zero != 0, a tensor defined only on a range).
-struct Src {
-  const void* p;
-  long long bstride;
-  int rstride;
-  int off;
-  int len;
-  int zero;
-  int bf16;
-};
-
-__device__ __forceinline__ float src_at(const Src& s, int b, int row, int col) {
-  int t = col - s.off;
-  if (t < 0 || t >= s.len) {
-    if (s.zero) return 0.f;
-    t = t < 0 ? 0 : s.len - 1;
-  }
-  const long long i = b * s.bstride + static_cast<long long>(row) * s.rstride + t;
-  return s.bf16 ? to_f32(static_cast<const __nv_bfloat16*>(s.p)[i])
-                : static_cast<const float*>(s.p)[i];
-}
-
-__device__ __forceinline__ float lrelu(float v) { return v > 0.f ? v : 0.1f * v; }
 
 enum Epilogue { EP_STORE = 0, EP_FILM = 1, EP_DLRELU = 2 };
 
@@ -502,8 +492,8 @@ long long chunks(int B, int E, int chunk) { return static_cast<long long>(B) * (
 
 }  // namespace
 
-// Kernel K. Forward inputs xu [B, C, xu_stride] (read over [0, T)), cond
-// [B, C, T], both bf16 when bf16 != 0; the forward weights of kernel F
+// Kernel K, fp32 operands. Forward inputs xu [B, C, xu_stride] (read over
+// [0, T)), cond [B, C, T]; the forward weights of kernel F
 // (wconv [4, C, 3C], bconv [4, C], wfilm [4C, C], bfilm [4C]), the
 // transposed ones (wconvT [4, C, 3C] with the taps reversed, wfilmT
 // [C, 4C]) and w5T: [C, co] (the output 1x1 transposed), or with fold_k = 7
@@ -519,8 +509,8 @@ extern "C" int tvc_up_chain_grad(const void* xu, const void* cond, const float* 
                                  const float* gy, float* gx, float* gc, float* gwconv,
                                  float* gbconv, float* gwfilm, float* gbfilm, float* gw5,
                                  float* gb5, float* ws, long long ws_floats, int B, int C, int co,
-                                 int T, int xu_stride, int fold_k, int bf16, int chunk,
-                                 void* stream) {
+                                 int T, int xu_stride, int fold_k, int chunk, void* stream) {
+  constexpr int bf16 = 0;  // bf16 operands take tvc_up_chain_grad_bf16
   if (B <= 0 || B > 65535 || C <= 0 || co <= 0 || T <= 0 || xu_stride < T || chunk <= 0 ||
       (fold_k != 0 && fold_k != 7) || (fold_k && co != 1))
     return kInvalid;
@@ -657,8 +647,8 @@ extern "C" int tvc_up_chain_grad(const void* xu, const void* cond, const float* 
   return run_fold<true>(gce, B, C, E, 4, E - 4, R, T, T, gc, st);
 }
 
-// Kernel L, down chain. z [B, cin, z_stride] (read over [0, T), bf16 when
-// bf16 != 0); the forward's w1, b1, w2, b2 and the transposed w1T, w2T
+// Kernel L, down chain, fp32 operands. z [B, cin, z_stride] (read over
+// [0, T)); the forward's w1, b1, w2, b2 and the transposed w1T, w2T
 // ([cin, 3 cin]), w3T ([cin, 3 co]) with the taps reversed and wresT
 // [cin, co]; gy [B, co, T] fp32. Out (fp32): gz [B, cin, z_stride], gwres
 // [co, cin], gbres, gw1, gb1, gw2, gb2, gw3 [co, 3 cin], gb3. ws: at least
@@ -670,8 +660,8 @@ extern "C" int tvc_down_chain_grad(const void* z, const float* w1, const float* 
                                    const float* gy, float* gz, float* gwres, float* gbres,
                                    float* gw1, float* gb1, float* gw2, float* gb2, float* gw3,
                                    float* gb3, float* ws, long long ws_floats, int B, int cin,
-                                   int co, int T, int z_stride, int bf16, int chunk,
-                                   void* stream) {
+                                   int co, int T, int z_stride, int chunk, void* stream) {
+  constexpr int bf16 = 0;  // bf16 operands take tvc_down_chain_grad_bf16
   if (B <= 0 || B > 65535 || cin <= 0 || co <= 0 || T <= 0 || z_stride < T || chunk <= 0)
     return kInvalid;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -719,14 +709,14 @@ extern "C" int tvc_down_chain_grad(const void* z, const float* w1, const float* 
   return run_fold<false>(gxe, B, cin, E, 0, E, R, T, z_stride, gz, st);
 }
 
-// Kernel L, stem. x [B, cin, x_stride] (read over [0, T), bf16 when
-// bf16 != 0), wT [cin, 3 co] (the stem's taps reversed and transposed), gy
+// Kernel L, stem, fp32 operands. x [B, cin, x_stride] (read over [0, T)),
+// wT [cin, 3 co] (the stem's taps reversed and transposed), gy
 // [B, co, T] fp32 -> gx [B, cin, x_stride], gw [co, 3 cin], gb [co] (fp32).
 // ws: at least B cin (T+2) + B ceil((T+2)/chunk) (3 co cin + co) floats.
 extern "C" int tvc_conv3_grad(const void* x, const float* wT, const float* gy, float* gx,
                               float* gw, float* gb, float* ws, long long ws_floats, int B,
-                              int cin, int co, int T, int x_stride, int bf16, int chunk,
-                              void* stream) {
+                              int cin, int co, int T, int x_stride, int chunk, void* stream) {
+  constexpr int bf16 = 0;  // bf16 operands take tvc_conv3_grad_bf16
   if (B <= 0 || B > 65535 || cin <= 0 || co <= 0 || T <= 0 || x_stride < T || chunk <= 0)
     return kInvalid;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -741,4 +731,610 @@ extern "C" int tvc_conv3_grad(const void* x, const float* wT, const float* gy, f
   TRY((run_wgrad<false, 3>(wgrad(gyz, co, xin, cin, 0, bf16, 1, R, R + T, chunk), B, gw, gb,
                            scratch, st)));
   return run_fold<false>(gxe, B, cin, E, 0, E, R, T, x_stride, gx, st);
+}
+
+// ===========================================================================
+// The bf16 route (unet_tiles.cuh): tensor-core tiles over position-major
+// copies. Launches per call: K 19, L 12 for a down chain and 4 for the stem.
+// ===========================================================================
+namespace {
+
+// blocks an SM the conv tiles are built for (their register budget): on
+// the H100 the 32 x 128 tile ran faster at 6 (80 registers) than at 4 or 8
+// (spills), the 48- and 64-row ones at 5 than at 4, the 32 x 256 one at 4
+template <int MT, int NT>
+constexpr int conv_blocks() { return MT == 2 && NT == 4 ? 6 : NT == 4 ? 5 : 4; }
+
+template <int MT, int NT>
+__global__ void __launch_bounds__(TC_THREADS, conv_blocks<MT, NT>())
+    up_grad_tc_conv(TcConv c) { tc_conv<MT, NT>(c); }
+template <int MT, int NT>
+__global__ void __launch_bounds__(TC_THREADS, conv_blocks<MT, NT>())
+    down_grad_tc_conv(TcConv c) { tc_conv<MT, NT>(c); }
+template <int MT, int NT>
+__global__ void __launch_bounds__(TC_THREADS) up_grad_tc_wgrad(TcWgrad w) { tc_wgrad<MT, NT>(w); }
+template <int MT, int NT>
+__global__ void __launch_bounds__(TC_THREADS) down_grad_tc_wgrad(TcWgrad w) { tc_wgrad<MT, NT>(w); }
+__global__ void __launch_bounds__(TC_THREADS) up_grad_tc_prep(Prep p) { prep_body(p); }
+__global__ void __launch_bounds__(TC_THREADS) down_grad_tc_prep(Prep p) { prep_body(p); }
+__global__ void __launch_bounds__(TC_THREADS) up_grad_tc_finish(Finish f) { finish_body(f); }
+__global__ void __launch_bounds__(TC_THREADS) down_grad_tc_finish(Finish f) { finish_body(f); }
+
+constexpr int kMaxSmem = 232448;  // a block's shared memory on the H100
+
+template <typename Kern, typename Arg>
+int launch_tc(Kern kern, dim3 grid, int smem, const Arg& arg, cudaStream_t st) {
+  if (smem > kMaxSmem || grid.x == 0 || grid.y > 65535 || grid.z > 65535) return kInvalid;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess)
+    return kInvalid;
+  kern<<<grid, TC_THREADS, smem, st>>>(arg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the conv's blocks along the positions of a batch row
+int conv_tiles(int co, int ep, int len) { return cdiv(len, 32 * conv_nt(tc_mt(co), ep)); }
+
+template <bool UP>
+int run_tc_conv(const TcConv& c, int B, cudaStream_t st) {
+  if (c.hi <= c.lo || c.co <= 0 || c.cin_p <= 0 || c.cin_p % 8 || c.taps < 1 || c.d < 1 ||
+      c.kp % 16 || c.kp < c.taps * c.cin_p || (c.taps - 1) / 2 * c.d > MAX_D3)
+    return kInvalid;
+  const int mt = tc_mt(c.co);
+  const dim3 grid(conv_tiles(c.co, c.ep, c.hi - c.lo), cdiv(c.co, 16 * mt), B);
+  const int smem = conv_smem(mt, c);
+  if (mt == 2 && c.ep == TC_STORE)
+    return launch_tc(UP ? up_grad_tc_conv<2, 8> : down_grad_tc_conv<2, 8>, grid, smem, c, st);
+  if (mt == 2)
+    return launch_tc(UP ? up_grad_tc_conv<2, 4> : down_grad_tc_conv<2, 4>, grid, smem, c, st);
+  if (mt == 3)
+    return launch_tc(UP ? up_grad_tc_conv<3, 4> : down_grad_tc_conv<3, 4>, grid, smem, c, st);
+  return launch_tc(UP ? up_grad_tc_conv<4, 4> : down_grad_tc_conv<4, 4>, grid, smem, c, st);
+}
+
+template <bool UP>
+int run_tc_wgrad(const TcWgrad& w, cudaStream_t st) {
+  const int mt = tc_mt(w.gm);
+  const dim3 grid(cdiv(w.gm, 16 * mt) * cdiv(w.taps * (w.ac / 8), wgrad_nt(mt)), w.splits);
+  const int smem = wgrad_smem(mt, w);
+  if (mt == 2)
+    return launch_tc(UP ? up_grad_tc_wgrad<2, wgrad_nt(2)> : down_grad_tc_wgrad<2, wgrad_nt(2)>,
+                     grid, smem, w, st);
+  if (mt == 3)
+    return launch_tc(UP ? up_grad_tc_wgrad<3, wgrad_nt(3)> : down_grad_tc_wgrad<3, wgrad_nt(3)>,
+                     grid, smem, w, st);
+  return launch_tc(UP ? up_grad_tc_wgrad<4, wgrad_nt(4)> : down_grad_tc_wgrad<4, wgrad_nt(4)>,
+                   grid, smem, w, st);
+}
+
+// The call's workspace, taken region by region, each 256-byte aligned; on
+// a null base it only counts the bytes (the entries' size query)
+struct Arena {
+  void* base;
+  long long used;
+  template <typename T>
+  T* take(long long n) {
+    T* p = base ? reinterpret_cast<T*>(static_cast<char*>(base) + used) : nullptr;
+    used += (n * static_cast<long long>(sizeof(T)) + 255) / 256 * 256;
+    return p;
+  }
+};
+
+// after the regions: the query's answer (null ws), or the size check
+int sized(const Arena& ar, long long* ws_bytes) {
+  if (!ar.base) {
+    *ws_bytes = ar.used;
+    return 1;
+  }
+  return 0;
+}
+
+using bf16_t = __nv_bfloat16;
+
+// a copy [B][E][cp] of `src`'s rows over [lo, hi), with its bias partials in
+// bp (or null)
+CopyJob copy_job(Src src, int rows, int act, bf16_t* dst, int cp, int E, int lo, int hi,
+                 float* bp) {
+  return CopyJob{src, rows, act, dst, cp, E, lo, hi, cdiv(hi - lo, TC_POS), bp};
+}
+
+// weights [co][kp] (kp = taps pad8(cin) rounded up to 16) from w [co][taps][cin]
+PackJob pack_job(const float* w, bf16_t* wp, int co, int taps, int cin) {
+  return PackJob{w, wp, co, taps, cin, pad8(cin), pad16(taps * pad8(cin)), 0, 1LL * taps * cin,
+                 cin, 1};
+}
+
+// the transposed conv's weights [co][kp] from the forward's w [cin][taps][co]
+// (this conv's cin and co), its taps reversed: the input gradient's
+PackJob pack_taps_t(const float* w, bf16_t* wp, int co, int taps, int cin) {
+  return PackJob{w, wp, co, taps, cin, pad8(cin), pad16(taps * pad8(cin)),
+                 (taps - 1LL) * co, 1, -co, 1LL * taps * co};
+}
+
+template <bool UP>
+int run_prep(Prep p, int B, cudaStream_t st) {
+  int blocks = 0, cp = 8;
+  for (int j = 0; j < p.ncopy; ++j) {
+    if (p.copy[j].cp > PREP_MAX_CP) return kInvalid;
+    cp = p.copy[j].cp > cp ? p.copy[j].cp : cp;
+    p.first[j] = blocks;
+    blocks += B * p.copy[j].tiles;
+  }
+  p.ss = cp + 8;
+  const int smem = 2 * TC_POS * p.ss;  // below 48 KB
+  for (int j = 0; j < p.npack; ++j) {
+    p.first[p.ncopy + j] = blocks;
+    blocks += cdiv(p.pack[j].co * p.pack[j].kp, TC_THREADS);
+  }
+  p.first[p.ncopy + p.npack] = blocks;
+  if constexpr (UP) up_grad_tc_prep<<<blocks, TC_THREADS, smem, st>>>(p);
+  else down_grad_tc_prep<<<blocks, TC_THREADS, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool UP>
+int run_finish(Finish f, cudaStream_t st) {
+  int blocks = 0;
+  for (int j = 0; j < f.nsum; ++j) {
+    f.first[j] = blocks;
+    blocks += cdiv(f.sum[j].n, FIN_WARPS);
+  }
+  for (int j = 0; j < f.nfold; ++j) {
+    f.first[f.nsum + j] = blocks;
+    blocks += cdiv(f.fold[j].rows, TC_THREADS);
+  }
+  f.first[f.nsum + f.nfold] = blocks;
+  if constexpr (UP) up_grad_tc_finish<<<blocks, TC_THREADS, 0, st>>>(f);
+  else down_grad_tc_finish<<<blocks, TC_THREADS, 0, st>>>(f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a conv over [lo, hi) of `in` (a copy defined on [in_lo, in_hi)) with the
+// packed weights w [co][kp]
+TcConv tc_conv_of(const bf16_t* in, int cin_p, int in_lo, int in_hi, const bf16_t* w, int taps,
+                  int d, int co, int E, int lo, int hi) {
+  TcConv c{};
+  c.in = in;
+  c.cin_p = cin_p;
+  c.in_lo = in_lo;
+  c.in_hi = in_hi;
+  c.w = w;
+  c.kp = pad16(taps * cin_p);
+  c.taps = taps;
+  c.d = d;
+  c.co = co;
+  c.E = E;
+  c.lo = lo;
+  c.hi = hi;
+  c.ep = TC_STORE;
+  return c;
+}
+
+// one weight gradient of a call: the cotangent's copy (gc channels, co
+// rows; with grp, rows in groups of grp, each group pad8(grp) channels: the
+// FiLM rows), the operand's copy (defined on [a_lo, a_hi)), taps, dilation,
+// the product's range and the gradient [co, taps cin]
+struct Wg {
+  const bf16_t* g;
+  int gc, co, grp;
+  const bf16_t* a;
+  int a_lo, a_hi, taps, d, lo, hi;
+  float* out;
+};
+
+// product q over a [B][E][ac] copy of cin channels, with `splits` partials
+TcWgrad tc_wgrad_of(const Wg& q, int ac, int cin, int B, int E, int splits, float* partial) {
+  const int rg = q.grp ? q.grp : q.co, rgp = q.grp ? pad8(q.grp) : q.co;
+  return TcWgrad{q.g,  q.gc, q.co, cdiv(q.co, rg) * rgp, rg, rgp, q.a, ac, q.a_lo, q.a_hi,
+                 cin,  q.taps, q.d, B, E, q.lo, q.hi, splits, partial};
+}
+
+// splits within [1, chunks] of a product over [lo, hi)
+bool splits_ok(int splits, int B, int lo, int hi) {
+  return splits >= 1 && splits <= B * cdiv(hi - lo, TC_CHUNK);
+}
+
+void add_sum(Finish& f, const float* part, int parts, int n, float* out) {
+  f.sum[f.nsum++] = SumJob{part, out, parts, n};
+}
+
+void add_fold(Finish& f, float* gx, const float* edges, int rows, int stride, int T, int R,
+              int vlo, int vhi) {
+  f.fold[f.nfold++] = FoldJob{gx, edges, rows, stride, T, R, vlo, vhi};
+}
+
+}  // namespace
+
+// Kernel K, bf16 operands: xu [B, C, xu_stride] (read over [0, T)) and cond
+// [B, C, T] bf16, any C; the forward weights wconv [4, C, 3C], bconv,
+// wfilm [4C, C], bfilm and w5 ([co, C], or with fold_k = 7 the folded conv
+// [7, C]); gy and the outputs as tvc_up_chain_grad's. splits: the partials
+// of the call's six weight gradients (kernels/filter_stage.py::
+// up_grad_products, in their order: the four convs from the last, the FiLM
+// rows, the output conv), each in [1, its chunks]. ws: 16-byte aligned, of
+// *ws_bytes bytes, at least the regions taken below; with ws null the entry
+// writes that size to *ws_bytes and launches nothing.
+extern "C" int tvc_up_chain_grad_bf16(const void* xu, const void* cond, const float* wconv,
+                                      const float* bconv, const float* wfilm, const float* bfilm,
+                                      const float* w5, const float* gy, float* gx, float* gc,
+                                      float* gwconv, float* gbconv, float* gwfilm, float* gbfilm,
+                                      float* gw5, float* gb5, void* ws, long long* ws_bytes,
+                                      const int* splits, int B, int C, int co, int T,
+                                      int xu_stride, int fold_k, void* stream) {
+  if (B <= 0 || B > 65535 || C <= 0 || co <= 0 || T <= 0 || xu_stride < T ||
+      (fold_k != 0 && fold_k != 7) || (fold_k && co != 1) || !ws_bytes ||
+      reinterpret_cast<uintptr_t>(ws) % 16)
+    return kInvalid;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int R = 40 + (fold_k ? (fold_k - 1) / 2 : 0), E = T + 2 * R;
+  const long long n = static_cast<long long>(B) * C * E, pe = static_cast<long long>(B) * E;
+  const long long CE = static_cast<long long>(C) * E;
+  const int Cp = pad8(C), taps5 = fold_k ? fold_k : 1, gyc_c = pad8(co), kp3 = pad16(3 * Cp);
+  auto tiles = [&](int len) { return static_cast<long long>(B) * cdiv(len, TC_POS); };
+  Arena ar{ws, 0};
+  // fp32, read by the epilogues' elementwise steps
+  float* films = ar.take<float>(4 * n);  // s1 | t1 | s2 | t2
+  float* u1 = ar.take<float>(n);
+  float* u2 = ar.take<float>(n);
+  float* r1 = ar.take<float>(n);
+  float* u3 = ar.take<float>(n);
+  float* u4 = ar.take<float>(n);
+  float* gr2 = ar.take<float>(n);
+  float* gr1 = ar.take<float>(n);
+  // the products' operands, position-major bf16
+  bf16_t* xa = ar.take<bf16_t>(pe * Cp);  // lrelu(x)
+  bf16_t* ce = ar.take<bf16_t>(pe * Cp);  // cond
+  bf16_t* a1 = ar.take<bf16_t>(pe * Cp);  // lrelu(u1)
+  bf16_t* a2 = ar.take<bf16_t>(pe * Cp);  // lrelu(r1)
+  bf16_t* a3 = ar.take<bf16_t>(pe * Cp);  // lrelu(u3)
+  bf16_t* r2c = ar.take<bf16_t>(pe * Cp);
+  bf16_t* gu4c = ar.take<bf16_t>(pe * Cp);
+  bf16_t* gu3c = ar.take<bf16_t>(pe * Cp);
+  bf16_t* gu2c = ar.take<bf16_t>(pe * Cp);
+  bf16_t* gu1c = ar.take<bf16_t>(pe * Cp);
+  bf16_t* gfc = ar.take<bf16_t>(pe * 4 * Cp);  // gs1 | gt1 | gs2 | gt2, Cp channels each
+  bf16_t* gyc = ar.take<bf16_t>(pe * gyc_c);
+  // the packed weights
+  bf16_t* wcp = ar.take<bf16_t>(4LL * C * kp3);
+  bf16_t* wfp = ar.take<bf16_t>(4LL * C * pad16(Cp));
+  bf16_t* wtp = ar.take<bf16_t>(4LL * C * kp3);
+  bf16_t* wftp = ar.take<bf16_t>(static_cast<long long>(C) * pad16(4 * Cp));
+  bf16_t* w5p = ar.take<bf16_t>(static_cast<long long>(C) * pad16(taps5 * gyc_c));
+  // the pads' columns of gx and gc
+  float* ex = ar.take<float>(2LL * R * B * C);
+  float* ec = ar.take<float>(2LL * R * B * C);
+  // bias partials
+  float* gb5p = ar.take<float>(tiles(T) * co);
+  float* gb4p = ar.take<float>(tiles(E - 8) * C);
+  float* gbf2p = ar.take<float>(tiles(E - 8) * 2 * C);
+  float* gb3p = ar.take<float>(tiles(E - 26) * C);
+  float* gb2p = ar.take<float>(tiles(E - 8) * C);
+  float* gbf1p = ar.take<float>(tiles(E - 8) * 2 * C);
+  float* gb1p = ar.take<float>(tiles(E - 2) * C);
+  const Wg wg[6] = {
+      {gu4c, Cp, C, 0, a3, 13, E - 13, 3, 27, 40, E - 40, gwconv + 3 * 3LL * C * C},
+      {gu3c, Cp, C, 0, a2, 4, E - 4, 3, 9, 13, E - 13, gwconv + 2 * 3LL * C * C},
+      {gu2c, Cp, C, 0, a1, 1, E - 1, 3, 3, 4, E - 4, gwconv + 3LL * C * C},
+      {gu1c, Cp, C, 0, xa, 0, E, 3, 1, 1, E - 1, gwconv},
+      {gfc, 4 * Cp, 4 * C, C, ce, 4, E - 4, 1, 1, 4, E - 4, gwfilm},
+      {gyc, gyc_c, co, 0, r2c, 40, E - 40, taps5, 1, R, R + T, gw5}};
+  float* part[6];
+  for (int i = 0; i < 6; ++i) {
+    if (!splits_ok(splits[i], B, wg[i].lo, wg[i].hi)) return kInvalid;
+    part[i] = ar.take<float>(static_cast<long long>(splits[i]) * wg[i].co * wg[i].taps * C);
+  }
+  if (sized(ar, ws_bytes)) return 0;
+  if (ar.used > *ws_bytes) return kInvalid;
+
+  const Src xin = input(xu, C, xu_stride, R, T, 0, 1);
+  auto film_rows = [&](int j) { return buf(films + j * CE, 4 * C, E, 4, E - 4); };
+
+  // ---- the inputs' copies and the packed weights ----
+  Prep p{};
+  p.copy[p.ncopy++] = copy_job(xin, C, 1, xa, Cp, E, 0, E, nullptr);
+  p.copy[p.ncopy++] = copy_job(input(cond, C, T, R, T, 0, 1), C, 0, ce, Cp, E, 4, E - 4, nullptr);
+  p.copy[p.ncopy++] = copy_job(input(gy, co, T, R, T, 1, 0), co, 0, gyc, gyc_c, E, R, R + T, gb5p);
+  p.pack[p.npack++] = pack_job(wconv, wcp, 4 * C, 3, C);
+  p.pack[p.npack++] = pack_job(wfilm, wfp, 4 * C, 1, C);
+  for (int j = 0; j < 4; ++j)
+    p.pack[p.npack++] = pack_taps_t(wconv + j * 3LL * C * C, wtp + j * C * kp3, C, 3, C);
+  // cond's gradient through the FiLM rows: [C][4 Cp] from wfilm [4][C][C]
+  p.pack[p.npack++] = PackJob{wfilm, wftp, C, 4, C, Cp, pad16(4 * Cp), 0, 1, 1LL * C * C, C};
+  // the output 1x1 transposed, or the folded k=7 conv as one over the
+  // 1-row cotangent: tap k of row i is w5[6 - k, i]
+  p.pack[p.npack++] = fold_k ? pack_taps_t(w5, w5p, C, taps5, 1) : pack_taps_t(w5, w5p, C, 1, co);
+  TRY(run_prep<true>(p, B, st));
+
+  // ---- recompute ----
+  TcConv c = tc_conv_of(ce, Cp, 4, E - 4, wfp, 1, 1, 4 * C, E, 4, E - 4);
+  c.bias = bfilm;
+  c.out = films;
+  TRY(run_tc_conv<true>(c, B, st));
+  c = tc_conv_of(xa, Cp, 0, E, wcp, 3, 1, C, E, 1, E - 1);
+  c.bias = bconv;
+  c.out = u1;
+  c.cp0 = a1;
+  c.act = 1;
+  TRY(run_tc_conv<true>(c, B, st));
+  c = tc_conv_of(a1, Cp, 1, E - 1, wcp + C * kp3, 3, 3, C, E, 4, E - 4);
+  c.bias = bconv + C;
+  c.ep = TC_FILM;
+  c.s = film_rows(0);
+  c.t = film_rows(1);
+  c.res = xin;
+  c.out = u2;
+  c.out2 = r1;
+  c.cp0 = a2;
+  c.act = 1;
+  TRY(run_tc_conv<true>(c, B, st));
+  c = tc_conv_of(a2, Cp, 4, E - 4, wcp + 2 * C * kp3, 3, 9, C, E, 13, E - 13);
+  c.bias = bconv + 2 * C;
+  c.out = u3;
+  c.cp0 = a3;
+  c.act = 1;
+  TRY(run_tc_conv<true>(c, B, st));
+  c = tc_conv_of(a3, Cp, 13, E - 13, wcp + 3 * C * kp3, 3, 27, C, E, 40, E - 40);
+  c.bias = bconv + 3 * C;
+  c.ep = TC_FILM;
+  c.s = film_rows(2);
+  c.t = film_rows(3);
+  c.res = buf(r1, C, E, 4, E - 4);
+  c.out = u4;
+  c.cp0 = r2c;
+  TRY(run_tc_conv<true>(c, B, st));
+
+  // ---- backward: each input gradient with its elementwise steps ----
+  // g_r2 over [4, E - 4) (zero outside [40, E - 40), where gy is zero), so
+  // that gs2 and gt2 fill the same range of gfc as gs1 and gt1
+  c = tc_conv_of(gyc, gyc_c, R, R + T, w5p, taps5, 1, C, E, 4, E - 4);
+  c.ep = TC_FILMGRAD;
+  c.s = film_rows(2);
+  c.u = buf(u4, C, E, 40, E - 40);
+  c.out = gr2;
+  c.cp0 = gu4c;
+  c.bp0 = gb4p;
+  c.cp1 = gfc;
+  c.cp1_c = 4 * Cp;
+  c.cp1_row = 2 * Cp;
+  c.bp1 = gbf2p;
+  TRY(run_tc_conv<true>(c, B, st));
+  c = tc_conv_of(gu4c, Cp, 4, E - 4, wtp + 3 * C * kp3, 3, 27, C, E, 13, E - 13);
+  c.m = buf(u3, C, E, 13, E - 13);
+  c.has_m = 1;
+  c.cp0 = gu3c;
+  c.bp0 = gb3p;
+  TRY(run_tc_conv<true>(c, B, st));
+  c = tc_conv_of(gu3c, Cp, 13, E - 13, wtp + 2 * C * kp3, 3, 9, C, E, 4, E - 4);
+  c.m = buf(r1, C, E, 4, E - 4);
+  c.has_m = 1;
+  c.add = buf(gr2, C, E, 4, E - 4);
+  c.has_add = 1;
+  c.ep = TC_FILMGRAD;
+  c.s = film_rows(0);
+  c.u = buf(u2, C, E, 4, E - 4);
+  c.out = gr1;
+  c.cp0 = gu2c;
+  c.bp0 = gb2p;
+  c.cp1 = gfc;
+  c.cp1_c = 4 * Cp;
+  c.cp1_row = 0;
+  c.bp1 = gbf1p;
+  TRY(run_tc_conv<true>(c, B, st));
+  c = tc_conv_of(gu2c, Cp, 4, E - 4, wtp + C * kp3, 3, 3, C, E, 1, E - 1);
+  c.m = buf(u1, C, E, 1, E - 1);
+  c.has_m = 1;
+  c.cp0 = gu1c;
+  c.bp0 = gb1p;
+  TRY(run_tc_conv<true>(c, B, st));
+  c = tc_conv_of(gu1c, Cp, 1, E - 1, wtp, 3, 1, C, E, 0, E);
+  c.m = xin;
+  c.has_m = 1;
+  c.add = buf(gr1, C, E, 4, E - 4);
+  c.has_add = 1;
+  c.ep = TC_GX;
+  c.gx = gx;
+  c.edges = ex;
+  c.gx_stride = xu_stride;
+  c.R = R;
+  c.T = T;
+  TRY(run_tc_conv<true>(c, B, st));
+  c = tc_conv_of(gfc, 4 * Cp, 4, E - 4, wftp, 1, 1, C, E, 4, E - 4);
+  c.ep = TC_GX;
+  c.gx = gc;
+  c.edges = ec;
+  c.gx_stride = T;
+  c.R = R;
+  c.T = T;
+  TRY(run_tc_conv<true>(c, B, st));
+
+  // ---- weight gradients ----
+  for (int i = 0; i < 6; ++i)
+    TRY(run_tc_wgrad<true>(tc_wgrad_of(wg[i], Cp, C, B, E, splits[i], part[i]), st));
+
+  // ---- the partials' sums and the pads' gradients ----
+  Finish f{};
+  for (int i = 0; i < 6; ++i) add_sum(f, part[i], splits[i], wg[i].co * wg[i].taps * C, wg[i].out);
+  const int t8 = B * conv_tiles(C, TC_FILMGRAD, E - 8);  // g_r2's and g_r1's launches
+  add_sum(f, gb4p, t8, C, gbconv + 3 * C);
+  add_sum(f, gb3p, B * conv_tiles(C, TC_STORE, E - 26), C, gbconv + 2 * C);
+  add_sum(f, gb2p, t8, C, gbconv + C);
+  add_sum(f, gb1p, B * conv_tiles(C, TC_STORE, E - 2), C, gbconv);
+  add_sum(f, gbf1p, t8, 2 * C, gbfilm);
+  add_sum(f, gbf2p, t8, 2 * C, gbfilm + 2 * C);
+  add_sum(f, gb5p, static_cast<int>(tiles(T)), co, gb5);
+  add_fold(f, gx, ex, B * C, xu_stride, T, R, 0, E);
+  add_fold(f, gc, ec, B * C, T, T, R, 4, E - 4);
+  return run_finish<true>(f, st);
+}
+
+// Kernel L, down chain, bf16 operands: z [B, cin, z_stride] (read over
+// [0, T)) bf16, any cin; the forward's w1, b1, w2, b2, w3 [co, 3 cin] and
+// wres [co, cin]; gy and the outputs as tvc_down_chain_grad's. splits: the
+// partials of gw3, gw2, gw1, gwres (kernels/filter_stage.py::
+// down_grad_products), each in [1, its chunks]. ws and ws_bytes as
+// tvc_up_chain_grad_bf16's.
+extern "C" int tvc_down_chain_grad_bf16(const void* z, const float* w1, const float* b1,
+                                        const float* w2, const float* b2, const float* w3,
+                                        const float* wres, const float* gy, float* gz,
+                                        float* gwres, float* gbres, float* gw1, float* gb1,
+                                        float* gw2, float* gb2, float* gw3, float* gb3, void* ws,
+                                        long long* ws_bytes, const int* splits, int B, int cin,
+                                        int co, int T, int z_stride, void* stream) {
+  if (B <= 0 || B > 65535 || cin <= 0 || co <= 0 || T <= 0 || z_stride < T || !ws_bytes ||
+      reinterpret_cast<uintptr_t>(ws) % 16)
+    return kInvalid;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int R = 7, E = T + 2 * R, cp = pad8(cin), gyc_c = pad8(co), kp3 = pad16(3 * cp);
+  const long long n = static_cast<long long>(B) * cin * E, pe = static_cast<long long>(B) * E;
+  auto tiles = [&](int len) { return static_cast<long long>(B) * cdiv(len, TC_POS); };
+  Arena ar{ws, 0};
+  float* u1 = ar.take<float>(n);
+  float* u2 = ar.take<float>(n);
+  float* gres = ar.take<float>(n);
+  bf16_t* za = ar.take<bf16_t>(pe * cp);  // lrelu(z)
+  bf16_t* zr = ar.take<bf16_t>(pe * cp);  // z
+  bf16_t* a1 = ar.take<bf16_t>(pe * cp);  // lrelu(u1)
+  bf16_t* a2 = ar.take<bf16_t>(pe * cp);  // lrelu(u2)
+  bf16_t* gu2c = ar.take<bf16_t>(pe * cp);
+  bf16_t* gu1c = ar.take<bf16_t>(pe * cp);
+  bf16_t* gyc = ar.take<bf16_t>(pe * gyc_c);
+  bf16_t* w1p = ar.take<bf16_t>(static_cast<long long>(cin) * kp3);
+  bf16_t* w2p = ar.take<bf16_t>(static_cast<long long>(cin) * kp3);
+  bf16_t* w1Tp = ar.take<bf16_t>(static_cast<long long>(cin) * kp3);
+  bf16_t* w2Tp = ar.take<bf16_t>(static_cast<long long>(cin) * kp3);
+  bf16_t* w3Tp = ar.take<bf16_t>(static_cast<long long>(cin) * pad16(3 * gyc_c));
+  bf16_t* wresTp = ar.take<bf16_t>(static_cast<long long>(cin) * pad16(gyc_c));
+  float* ez = ar.take<float>(2LL * R * B * cin);
+  float* gyp = ar.take<float>(tiles(T) * co);
+  float* gb2p = ar.take<float>(tiles(E - 6) * cin);
+  float* gb1p = ar.take<float>(tiles(E - 2) * cin);
+  const Wg wg[4] = {{gyc, gyc_c, co, 0, a2, 3, E - 3, 3, 4, R, R + T, gw3},
+                    {gu2c, cp, cin, 0, a1, 1, E - 1, 3, 2, 3, E - 3, gw2},
+                    {gu1c, cp, cin, 0, za, 0, E, 3, 1, 1, E - 1, gw1},
+                    {gyc, gyc_c, co, 0, zr, R, R + T, 1, 1, R, R + T, gwres}};
+  float* part[4];
+  for (int i = 0; i < 4; ++i) {
+    if (!splits_ok(splits[i], B, wg[i].lo, wg[i].hi)) return kInvalid;
+    part[i] = ar.take<float>(static_cast<long long>(splits[i]) * wg[i].co * wg[i].taps * cin);
+  }
+  if (sized(ar, ws_bytes)) return 0;
+  if (ar.used > *ws_bytes) return kInvalid;
+
+  const Src zin = input(z, cin, z_stride, R, T, 0, 1);
+  Prep p{};
+  p.copy[p.ncopy++] = copy_job(zin, cin, 1, za, cp, E, 0, E, nullptr);
+  p.copy[p.ncopy++] = copy_job(zin, cin, 0, zr, cp, E, R, R + T, nullptr);
+  p.copy[p.ncopy++] = copy_job(input(gy, co, T, R, T, 1, 0), co, 0, gyc, gyc_c, E, R, R + T, gyp);
+  p.pack[p.npack++] = pack_job(w1, w1p, cin, 3, cin);
+  p.pack[p.npack++] = pack_job(w2, w2p, cin, 3, cin);
+  p.pack[p.npack++] = pack_taps_t(w1, w1Tp, cin, 3, cin);
+  p.pack[p.npack++] = pack_taps_t(w2, w2Tp, cin, 3, cin);
+  p.pack[p.npack++] = pack_taps_t(w3, w3Tp, cin, 3, co);
+  p.pack[p.npack++] = pack_taps_t(wres, wresTp, cin, 1, co);
+  TRY(run_prep<false>(p, B, st));
+
+  // ---- recompute ----
+  TcConv c = tc_conv_of(za, cp, 0, E, w1p, 3, 1, cin, E, 1, E - 1);
+  c.bias = b1;
+  c.out = u1;
+  c.cp0 = a1;
+  c.act = 1;
+  TRY(run_tc_conv<false>(c, B, st));
+  c = tc_conv_of(a1, cp, 1, E - 1, w2p, 3, 2, cin, E, 3, E - 3);
+  c.bias = b2;
+  c.out = u2;
+  c.cp0 = a2;
+  c.act = 1;
+  TRY(run_tc_conv<false>(c, B, st));
+
+  // ---- backward ----
+  c = tc_conv_of(gyc, gyc_c, R, R + T, w3Tp, 3, 4, cin, E, 3, E - 3);
+  c.m = buf(u2, cin, E, 3, E - 3);
+  c.has_m = 1;
+  c.cp0 = gu2c;
+  c.bp0 = gb2p;
+  TRY(run_tc_conv<false>(c, B, st));
+  c = tc_conv_of(gu2c, cp, 3, E - 3, w2Tp, 3, 2, cin, E, 1, E - 1);
+  c.m = buf(u1, cin, E, 1, E - 1);
+  c.has_m = 1;
+  c.cp0 = gu1c;
+  c.bp0 = gb1p;
+  TRY(run_tc_conv<false>(c, B, st));
+  c = tc_conv_of(gyc, gyc_c, R, R + T, wresTp, 1, 1, cin, E, R, R + T);
+  c.out = gres;
+  TRY(run_tc_conv<false>(c, B, st));
+  c = tc_conv_of(gu1c, cp, 1, E - 1, w1Tp, 3, 1, cin, E, 0, E);
+  c.m = zin;
+  c.has_m = 1;
+  c.add = buf(gres, cin, E, R, R + T);
+  c.has_add = 1;
+  c.ep = TC_GX;
+  c.gx = gz;
+  c.edges = ez;
+  c.gx_stride = z_stride;
+  c.R = R;
+  c.T = T;
+  TRY(run_tc_conv<false>(c, B, st));
+
+  // ---- weight gradients ----
+  for (int i = 0; i < 4; ++i)
+    TRY(run_tc_wgrad<false>(tc_wgrad_of(wg[i], cp, cin, B, E, splits[i], part[i]), st));
+
+  Finish f{};
+  for (int i = 0; i < 4; ++i)
+    add_sum(f, part[i], splits[i], wg[i].co * wg[i].taps * cin, wg[i].out);
+  add_sum(f, gyp, static_cast<int>(tiles(T)), co, gb3);
+  add_sum(f, gb2p, B * conv_tiles(cin, TC_STORE, E - 6), cin, gb2);
+  add_sum(f, gb1p, B * conv_tiles(cin, TC_STORE, E - 2), cin, gb1);
+  add_sum(f, gyp, static_cast<int>(tiles(T)), co, gbres);
+  add_fold(f, gz, ez, B * cin, z_stride, T, R, 0, E);
+  return run_finish<false>(f, st);
+}
+
+// Kernel L, stem, bf16 operands: x [B, cin, x_stride] (read over [0, T))
+// bf16; the forward's w [co, 3 cin]; gy and the outputs as tvc_conv3_grad's.
+// splits: the partials of gw (conv3_grad_products), in [1, its chunks]. ws
+// and ws_bytes as tvc_up_chain_grad_bf16's.
+extern "C" int tvc_conv3_grad_bf16(const void* x, const float* w, const float* gy, float* gx,
+                                   float* gw, float* gb, void* ws, long long* ws_bytes,
+                                   const int* splits, int B, int cin, int co, int T, int x_stride,
+                                   void* stream) {
+  if (B <= 0 || B > 65535 || cin <= 0 || co <= 0 || T <= 0 || x_stride < T || !ws_bytes ||
+      reinterpret_cast<uintptr_t>(ws) % 16)
+    return kInvalid;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int R = 1, E = T + 2 * R, xc_c = pad8(cin), gyc_c = pad8(co);
+  const long long pe = static_cast<long long>(B) * E;
+  const long long tiles = static_cast<long long>(B) * cdiv(T, TC_POS);
+  Arena ar{ws, 0};
+  bf16_t* xc = ar.take<bf16_t>(pe * xc_c);
+  bf16_t* gyc = ar.take<bf16_t>(pe * gyc_c);
+  bf16_t* wTp = ar.take<bf16_t>(static_cast<long long>(cin) * pad16(3 * gyc_c));
+  float* ex = ar.take<float>(2LL * R * B * cin);
+  float* gyp = ar.take<float>(tiles * co);
+  if (!splits_ok(splits[0], B, R, R + T)) return kInvalid;
+  float* part = ar.take<float>(static_cast<long long>(splits[0]) * co * 3 * cin);
+  if (sized(ar, ws_bytes)) return 0;
+  if (ar.used > *ws_bytes) return kInvalid;
+
+  const Src xin = input(x, cin, x_stride, R, T, 0, 1);
+  Prep p{};
+  p.copy[p.ncopy++] = copy_job(xin, cin, 0, xc, xc_c, E, 0, E, nullptr);
+  p.copy[p.ncopy++] = copy_job(input(gy, co, T, R, T, 1, 0), co, 0, gyc, gyc_c, E, R, R + T, gyp);
+  p.pack[p.npack++] = pack_taps_t(w, wTp, cin, 3, co);
+  TRY(run_prep<false>(p, B, st));
+  TcConv c = tc_conv_of(gyc, gyc_c, R, R + T, wTp, 3, 1, cin, E, 0, E);
+  c.ep = TC_GX;
+  c.gx = gx;
+  c.edges = ex;
+  c.gx_stride = x_stride;
+  c.R = R;
+  c.T = T;
+  TRY(run_tc_conv<false>(c, B, st));
+  const Wg q{gyc, gyc_c, co, 0, xc, 0, E, 3, 1, R, R + T, gw};
+  TRY(run_tc_wgrad<false>(tc_wgrad_of(q, xc_c, cin, B, E, splits[0], part), st));
+  Finish f{};
+  add_sum(f, part, splits[0], co * 3 * cin, gw);
+  add_sum(f, gyp, static_cast<int>(tiles), co, gb);
+  add_fold(f, gx, ex, B * cin, x_stride, T, R, 0, E);
+  return run_finish<false>(f, st);
 }

@@ -36,7 +36,9 @@ and the folded output conv stay fp32. E returns bf16, F fp32 (or bf16 with
 CPU tensors take the plain versions; CUDA tensors launch the kernels, or
 raise. Each wrapper counts its calls that launched (``launches``); one call
 is 1 CUDA launch for the stem, 3 for a down chain and 5 for an up chain, and
-for their gradients 4, 15 and 27.
+for their gradients 4, 15 and 27 in fp32 (CUDA-core tiles), 4, 12 and 19
+with bf16 operands (tensor-core tiles over position-major bf16 copies,
+`csrc/unet_tiles.cuh`).
 
 The training step's gradients (the JAX package's custom_vjp entries
 ``up_chain_vjp``, ``down_chain_vjp``, ``stem_conv_vjp``):
@@ -67,7 +69,8 @@ or L.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -402,7 +405,96 @@ def upsample_chain_grad_plain(xu: torch.Tensor, cond: torch.Tensor, wconv, bconv
                 (xu, cond, wconv, bconv, wfilm, bfilm, w5, b5, bout), gy)
 
 
-WGRAD_CHUNK = 1024  # columns of one block's weight-gradient partial sum
+WGRAD_CHUNK = 1024  # columns of one block's weight-gradient partial sum (fp32)
+
+# The bf16 route (`csrc/unet_tiles.cuh`): its weight-gradient products'
+# split schedule. The C entries size their own workspace (`_launch_bf16`).
+TC_CHUNK = 128  # positions a stage of a weight-gradient block
+TC_FILL = 264  # blocks a weight-gradient product aims at: two an SM of the H100
+
+
+class WgradProduct(NamedTuple):
+    """One bf16 weight-gradient product: ``gw [co, taps*cin]`` summed over
+    positions ``[lo, hi)`` of each batch row (``co``: the rows its tiles
+    cover, the FiLM rows' four groups each padded to 8)."""
+
+    co: int
+    cin: int
+    taps: int
+    lo: int
+    hi: int
+
+
+def _pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _tc_mt(rows: int) -> int:
+    """m16 tiles of a bf16 block's rows (`unet_tiles.cuh::tc_mt`): 2, 3 or
+    4, the fewest padded rows, then the most rows a block."""
+    return min((4, 3, 2), key=lambda mt: (-(-rows // (16 * mt)) * 16 * mt, -mt))
+
+
+def up_grad_products(C: int, co: int, T: int, fold_k: int = 0) -> Tuple[WgradProduct, ...]:
+    """bf16 K's weight gradients in launch order: the four convs from the
+    last (over each cotangent's range), the FiLM rows, the output 1x1 or
+    the folded k=7 conv (over the cotangent's ``[R, R+T)``)."""
+    R = R_UP + ((fold_k - 1) // 2 if fold_k else 0)
+    E = T + 2 * R
+    conv = [WgradProduct(C, C, 3, lo, E - lo) for lo in (40, 13, 4, 1)]
+    return (*conv, WgradProduct(4 * _pad8(C), C, 1, 4, E - 4),
+            WgradProduct(co, C, fold_k or 1, R, R + T))
+
+
+def down_grad_products(cin: int, co: int, T: int) -> Tuple[WgradProduct, ...]:
+    """bf16 L's weight gradients of a down chain: gw3, gw2, gw1, gwres."""
+    R, E = R_DOWN, T + 2 * R_DOWN
+    return (WgradProduct(co, cin, 3, R, R + T), WgradProduct(cin, cin, 3, 3, E - 3),
+            WgradProduct(cin, cin, 3, 1, E - 1), WgradProduct(co, cin, 1, R, R + T))
+
+
+def conv3_grad_products(cin: int, co: int, T: int) -> Tuple[WgradProduct, ...]:
+    """bf16 L's weight gradient of the stem."""
+    return (WgradProduct(co, cin, 3, 1, 1 + T),)
+
+
+def wgrad_splits(B: int, p: WgradProduct) -> int:
+    """The partials of a bf16 weight-gradient product, from the shape alone:
+    its blocks (``unet_tiles.cuh::tc_wgrad``: rows of 16 ``_tc_mt`` by 10
+    or 6 units of one tap and 8 channels) times the splits come near
+    ``TC_FILL`` and not over, at most one split a chunk. The launcher
+    checks only that the count is within [1, chunks]: a tile shape changed
+    there and not here costs fill, not correctness."""
+    mt = _tc_mt(p.co)
+    units = p.taps * _pad8(p.cin) // 8
+    tiles = -(-p.co // (16 * mt)) * -(-units // (10 if mt == 2 else 6))
+    chunks = B * -(-(p.hi - p.lo) // TC_CHUNK)
+    return max(1, min(chunks, TC_FILL // tiles))
+
+
+def wgrad_split_chunks(B: int, p: WgradProduct, split: int) -> List[Tuple[int, int, int]]:
+    """(b, first, end) of each chunk of positions that split ``split`` of
+    product ``p`` sums, in order: chunks ``[split n / S, (split + 1) n /
+    S)`` of its n, batch row by batch row (the kernel's walk)."""
+    per_b = -(-(p.hi - p.lo) // TC_CHUNK)
+    n, S = B * per_b, wgrad_splits(B, p)
+    out = []
+    for c in range(split * n // S, (split + 1) * n // S):
+        b, k = divmod(c, per_b)
+        first = p.lo + k * TC_CHUNK
+        out.append((b, first, min(first + TC_CHUNK, p.hi)))
+    return out
+
+
+def _launch_bf16(launch, device, B: int, products) -> None:
+    """Launch a bf16 entry of K or L through ``launch(ws, ws_bytes,
+    splits)``, with the splits of ``products``. The entry sizes its
+    workspace itself: asked first with a null workspace, it writes the
+    bytes it needs to ``ws_bytes`` and launches nothing."""
+    splits = (ctypes.c_int * len(products))(*(wgrad_splits(B, p) for p in products))
+    need = ctypes.c_longlong(0)
+    launch(None, ctypes.byref(need), splits)
+    launch(torch.empty(need.value, dtype=torch.uint8, device=device), ctypes.byref(need), splits)
 
 
 def _tapsT(w: torch.Tensor, k: int = 3) -> torch.Tensor:
@@ -428,14 +520,19 @@ def conv3_grad(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gy: torch.Tens
     co = w.shape[0]
     _check_shape("w", w, (co, 3 * cin))
     _check_shape("gy", gy, (B, co, T))
-    E = T + 2
-    ws = torch.empty(B * cin * E + _partial_floats(B, E, co * 3 * cin + co), device=x.device)
     gx = torch.empty((B, cin, T), device=x.device)
     gw = torch.empty_like(w)
     gb = torch.empty((co, 1), device=x.device)
     bf16 = x.dtype == torch.bfloat16
-    build.launch("tvc_conv3_grad", x, x, _tapsT(w), gy, gx, gw, gb, ws, ws.numel(),
-                 B, cin, co, T, T, int(bf16), WGRAD_CHUNK)
+    if bf16:
+        _launch_bf16(lambda *ws: build.launch("tvc_conv3_grad_bf16", x, x, w, gy, gx, gw, gb,
+                                              *ws, B, cin, co, T, T),
+                     x.device, B, conv3_grad_products(cin, co, T))
+    else:
+        E = T + 2
+        ws = torch.empty(B * cin * E + _partial_floats(B, E, co * 3 * cin + co), device=x.device)
+        build.launch("tvc_conv3_grad", x, x, _tapsT(w), gy, gx, gw, gb, ws, ws.numel(),
+                     B, cin, co, T, T, WGRAD_CHUNK)
     conv3_grad.launches += 1
     conv3_grad.launches_bf16 += bf16
     return gx, gw, gb
@@ -463,15 +560,20 @@ def downsample_chain_grad(z: torch.Tensor, wres, bres, w1, b1, w2, b2, w3, b3,
                         ("b1", (cin, 1)), ("w2", (cin, 3 * cin)), ("b2", (cin, 1)),
                         ("w3", (co, 3 * cin)), ("b3", (co, 1))):
         _check_shape(name, ws_[name], shape)
-    E = T + 2 * R_DOWN
-    cols = max(co * 3 * cin + co, cin * 3 * cin + cin)
-    ws = torch.empty(6 * B * cin * E + _partial_floats(B, E, cols), device=z.device)
     out = [torch.empty((B, cin, Tz), device=z.device)] + [torch.empty_like(t)
                                                           for t in ws_.values()]
     bf16 = z.dtype == torch.bfloat16
-    build.launch("tvc_down_chain_grad", z, z, w1, b1, w2, b2, _tapsT(w1), _tapsT(w2),
-                 _tapsT(w3), wres.T.contiguous(), gy, *out, ws, ws.numel(),
-                 B, cin, co, T, Tz, int(bf16), WGRAD_CHUNK)
+    if bf16:
+        _launch_bf16(lambda *ws: build.launch("tvc_down_chain_grad_bf16", z, z, w1, b1, w2, b2,
+                                              w3, wres, gy, *out, *ws, B, cin, co, T, Tz),
+                     z.device, B, down_grad_products(cin, co, T))
+    else:
+        E = T + 2 * R_DOWN
+        cols = max(co * 3 * cin + co, cin * 3 * cin + cin)
+        ws = torch.empty(6 * B * cin * E + _partial_floats(B, E, cols), device=z.device)
+        build.launch("tvc_down_chain_grad", z, z, w1, b1, w2, b2, _tapsT(w1), _tapsT(w2),
+                     _tapsT(w3), wres.T.contiguous(), gy, *out, ws, ws.numel(),
+                     B, cin, co, T, Tz, WGRAD_CHUNK)
     downsample_chain_grad.launches += 1
     downsample_chain_grad.launches_bf16 += bf16
     return tuple(out)
@@ -506,22 +608,28 @@ def upsample_chain_grad(xu: torch.Tensor, cond: torch.Tensor, wconv, bconv, wfil
                         ("b5", (fold_k or co, 1))):
         _check_shape(name, ws_[name], shape)
     _check_shape("gy", gy, (B, co, T))
-    R = R_UP + ((fold_k - 1) // 2 if fold_k else 0)
-    E = T + 2 * R
-    cols = max(4 * C * C + 4 * C, co * C + co, 7 * C + 1)
-    ws = torch.empty(22 * B * C * E + _partial_floats(B, E, cols), device=xu.device)
-    wconvT = torch.stack([_tapsT(wconv[j]) for j in range(4)])
-    # the output 1x1 transposed, or the folded k=7 conv as one over the
-    # 1-row cotangent: tap k of row i is w5c[6 - k, i]
-    w5T = w5.flip(0).T.contiguous() if fold_k else w5.T.contiguous()
     gx = torch.empty(xu.shape, device=xu.device)
     gc = torch.empty((B, C, T), device=xu.device)
     gw = [torch.empty_like(t) for t in (wconv, bconv, wfilm, bfilm, w5)]
     gb5 = torch.empty((1 if fold_k else co, 1), device=xu.device)
     bf16 = xu.dtype == torch.bfloat16
-    build.launch("tvc_up_chain_grad", xu, xu, cond, wconv, bconv, wfilm, bfilm, wconvT,
-                 wfilm.T.contiguous(), w5T, gy, gx, gc, *gw, gb5, ws, ws.numel(),
-                 B, C, co, T, xu.shape[2], fold_k, int(bf16), WGRAD_CHUNK)
+    if bf16:
+        _launch_bf16(lambda *ws: build.launch("tvc_up_chain_grad_bf16", xu, xu, cond, wconv,
+                                              bconv, wfilm, bfilm, w5, gy, gx, gc, *gw, gb5,
+                                              *ws, B, C, co, T, xu.shape[2], fold_k),
+                     xu.device, B, up_grad_products(C, co, T, fold_k))
+    else:
+        R = R_UP + ((fold_k - 1) // 2 if fold_k else 0)
+        E = T + 2 * R
+        cols = max(4 * C * C + 4 * C, co * C + co, 7 * C + 1)
+        ws = torch.empty(22 * B * C * E + _partial_floats(B, E, cols), device=xu.device)
+        wconvT = torch.stack([_tapsT(wconv[j]) for j in range(4)])
+        # the output 1x1 transposed, or the folded k=7 conv as one over the
+        # 1-row cotangent: tap k of row i is w5c[6 - k, i]
+        w5T = w5.flip(0).T.contiguous() if fold_k else w5.T.contiguous()
+        build.launch("tvc_up_chain_grad", xu, xu, cond, wconv, bconv, wfilm, bfilm, wconvT,
+                     wfilm.T.contiguous(), w5T, gy, gx, gc, *gw, gb5, ws, ws.numel(),
+                     B, C, co, T, xu.shape[2], fold_k, WGRAD_CHUNK)
     upsample_chain_grad.launches += 1
     upsample_chain_grad.launches_bf16 += bf16
     if fold_k:  # every folded tap's bias and the output bias sum the whole cotangent
