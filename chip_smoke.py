@@ -15,7 +15,10 @@ Phases, each timed; any failure exits non-zero:
    (CUDA events, median of 25 after warm-up) and the bound from bytes and
    FLOPs. The fused U-Net's kernels (C at its five up stages, D, E, F) run
    every stage's shapes with the two-speaker decoder's weights, in fp32 and
-   in bf16; their rows sum the stages of one request. The spectrogram
+   in bf16; their rows sum the stages of one request. E and F run with NaN
+   in every element of their workspace, twice (bit-identical), also at a
+   width of 12 channels, and print their device time per stage and launch
+   group. The spectrogram
    kernel G runs at the serving profile's B=8 (it runs only at B*F >= 2048;
    also timed at B=1) and the noise kernel B at B=1 and B=8, each beside
    its library call and its time before the FFT redesign
@@ -70,7 +73,9 @@ The last two lines are one JSON object of per-kernel numbers and the
 [DIR]`` runs env, build and the profile phase only, of the port in DIR (a
 checkout of another commit, default this one): unpack the parent commit
 into a git-ignored directory and run parent, change, change, parent in one
-call to compare two commits' request latency on one card. Needs CUDA and the rest of the repo;
+call to compare two commits' request latency on one card; ``--train-step
+[DIR]`` the pre-join step, ``--unet-stages [DIR]`` kernels E's and F's time
+per call. Needs CUDA and the rest of the repo;
 imports nothing of JAX or `tinyvc_tpu`.
 """
 
@@ -492,22 +497,39 @@ def phase_unet_kernels(results: dict, rng, dev, bf16: bool = False) -> None:
     isz = 2 if bf16 else 4  # bytes of an activation
     mm_peak = BF16_FLOPS if bf16 else FP32_FLOPS
     names = ("upsample", "downsample", "down_chain", "up_chain")
-    acc = {k + sfx: dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bounds=[]) for k in names}
+    acc = {k + sfx: dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bounds=[], dev=0.0) for k in names}
 
     def randn(*shape):
         return torch.from_numpy((0.5 * rng.standard_normal(shape)).astype(np.float32)).to(dev, dt)
 
-    def check(name, case, kernel, plain, tol, relative, timed, bound, library=None):
+    def check(name, case, kernel, plain, tol, relative, timed, bound, library=None, groups=None):
+        """``groups``: E's and F's kind (`_fwd_launch_groups`); their calls
+        run with NaN in every element torch.empty hands them (the
+        workspace, the outputs), twice, and must give the same bits; timed,
+        their device time by launch group."""
         name += sfx
         with exact_fp32():
-            got, want = kernel().float(), plain().float()
+            if groups:
+                with _nan_empty() as sizes:
+                    got, again = kernel(), kernel()
+                same = torch.equal(got, again)
+                got = got.float()
+            else:
+                got = kernel().float()
+            want = plain().float()
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             peak = float(want.abs().max())
             limit = tol * peak if relative else tol
+            extra = ""
+            if groups:
+                extra = (f"; NaN-filled workspace{f' {sizes[0]} bytes' if sizes else ''}"
+                         f"; two calls bit-identical: {same}")
             print(f"  {name} {case}: max_abs_err {err:.3e} (tolerance {limit:.3e}"
-                  f"{f' = {tol:.0e} x peak {peak:.3f}' if relative else ''})")
+                  f"{f' = {tol:.0e} x peak {peak:.3f}' if relative else ''}){extra}")
             _check(err <= limit, f"{name} {case}: error {err} > {limit}")
+            if groups:
+                _check(same, f"{name} {case}: two calls differ")
             a = acc[name]
             a["err"] = max(a["err"], err)
             if timed:
@@ -520,6 +542,13 @@ def phase_unet_kernels(results: dict, rng, dev, bf16: bool = False) -> None:
                 a["plain"] += plain_ms
                 a["lib"] += lib_ms or 0.0
                 a["bounds"].append(bound)
+                if groups:
+                    group_ms = _layer_device_ms(kernel, _fwd_launch_groups(groups),
+                                                keep=_fwd_kernel)
+                    print(f"    device {sum(group_ms):.4f} ms in "
+                          f"{len(_fwd_launch_groups(groups))} launches: " + ", ".join(
+                              f"{FWD_GROUPS[g]} {m:.4f}" for g, m in enumerate(group_ms)))
+                    a["dev"] += sum(group_ms)
 
     def decimate_lib(x, f):
         if f % 2:
@@ -538,7 +567,7 @@ def phase_unet_kernels(results: dict, rng, dev, bf16: bool = False) -> None:
               lambda: fs.conv3(x, *w.stem), lambda: fs.conv3_plain(x, *w.stem),
               CHAIN_RTOL["down_chain" + sfx], True, timed,
               _bound(isz * (x.numel() + B * cs * L), 2.0 * B * L * cs * 3 * (n_src + 1),
-                     mm_peak))
+                     mm_peak), groups="stem")
         T = L
         for cin, f, wd in zip(reversed(chans[1:]), reversed(facs[1:]), w.down):
             xin = randn(B * cin, T)
@@ -555,7 +584,7 @@ def phase_unet_kernels(results: dict, rng, dev, bf16: bool = False) -> None:
                   lambda: fs.downsample_chain(z, *wd), lambda: fs.downsample_chain_plain(z, *wd),
                   CHAIN_RTOL["down_chain" + sfx], True, timed,
                   _bound(isz * B * T * (cin + co), 2.0 * B * T * (6 * cin * cin + 4 * cin * co),
-                         mm_peak))
+                         mm_peak), groups="down")
         Tx = F_
         for i, (c, f, wu) in enumerate(zip(chans, facs, w.up)):
             xin = randn(B * c, Tx)
@@ -584,7 +613,39 @@ def phase_unet_kernels(results: dict, rng, dev, bf16: bool = False) -> None:
                   CHAIN_RTOL["up_chain" + sfx], True, timed,
                   _bound(isz * B * Tx * 2 * c + osz * B * Tx * co,
                          B * Tx * 32.0 * c * c + (0.0 if fold else out_flops), mm_peak,
-                         fp32_flops=out_flops if fold else 0.0))
+                         fp32_flops=out_flops if fold else 0.0), groups="fold" if fold else "up")
+
+    # a width the decoder does not use: 12 channels (half a block's rows and
+    # half a staged chunk), ragged, random weights from their own generator
+    wr = np.random.default_rng(12)
+
+    def rnd(*shape, dt=torch.float32, scale=0.3):
+        return torch.from_numpy((scale * wr.standard_normal(shape)).astype(np.float32)).to(dev, dt)
+
+    x = rnd(2, 12, 777, dt=dt)
+    ws = (rnd(20, 36), rnd(20, 1))
+    check("down_chain", "C=12 stem B=2 [12 -> 20, 777]", lambda: fs.conv3(x, *ws),
+          lambda: fs.conv3_plain(x, *ws), CHAIN_RTOL["down_chain" + sfx], True, False, None,
+          groups="stem")
+    z = rnd(2, 12, 335, dt=dt)
+    wd = (rnd(20, 12), rnd(20, 1), rnd(12, 36), rnd(12, 1), rnd(12, 36), rnd(12, 1), rnd(20, 36),
+          rnd(20, 1))
+    check("down_chain", "C=12 B=2 [12 -> 20, 333]",
+          lambda: fs.downsample_chain(z, *wd, out_len=333),
+          lambda: fs.downsample_chain_plain(z, *wd, out_len=333), CHAIN_RTOL["down_chain" + sfx],
+          True, False, None, groups="down")
+    for fold in (False, True):
+        co, k5 = (1, 7) if fold else (20, 20)
+        xu, cond = rnd(2, 12, 780, dt=dt), rnd(2, 12, 777, dt=dt)
+        wu = (rnd(4, 12, 36), rnd(4, 12, 1), rnd(48, 12), rnd(48, 1), rnd(k5, 12), rnd(k5, 1))
+        kw = dict(fold_k=7, bout=rnd(1, 1)) if fold else dict(out_dtype=dt)
+        check("up_chain", f"C=12 B=2 [12 -> {co}{' folded' if fold else ''}, 777]",
+              lambda: fs.upsample_chain(xu, cond, *wu, **kw),
+              lambda: fs.upsample_chain_plain(xu, cond, *wu, **kw), CHAIN_RTOL["up_chain" + sfx],
+              True, False, None, groups="fold" if fold else "up")
+    print(f"  kernel E{sfx}: device {acc['down_chain' + sfx]['dev']:.4f} ms a B=1 request "
+          f"(stem + 4 down chains); kernel F{sfx}: device {acc['up_chain' + sfx]['dev']:.4f} ms "
+          "(5 up chains)")
 
     kernels_dir = "tinyvc_tpu_torch/kernels/csrc"
     a = acc["upsample" + sfx]
@@ -605,6 +666,109 @@ def phase_unet_kernels(results: dict, rng, dev, bf16: bool = False) -> None:
             max_abs_err=a["err"], ms=a["ms"], plain_ms=a["plain"],
             bound=_sum_bounds(a["bounds"]), library_ms=a["lib"] if lib else None,
         )
+
+
+def phase_unet_stages(card: str) -> None:
+    """E's and F's time per call at the main path's shapes, with the
+    two-speaker decoder's weights and N(0, 0.25) activations: each call of
+    a B=1 request (F=320) in fp32 and in bf16 (serving's bf16 stores), and
+    each forward call of a pre-join step (B=16 x 2 s, bf16 operands);
+    device ms (the profiler, E's and F's kernels) and event ms. For the
+    bf16 request's calls also the outputs that differ from the plain
+    version's and those past ``CHAIN_RTOL``. Any checkout's port (it uses
+    only the wrappers), so that parent and change compare in one call."""
+    import numpy as np
+    import torch
+
+    from tinyvc_tpu_torch.config import DecoderConfig
+    from tinyvc_tpu_torch.infer.generator import exact_fp32
+    from tinyvc_tpu_torch.kernels import filter_stage as fs
+    from tinyvc_tpu_torch.ops.fused_filternet import fused_weights
+    from tinyvc_tpu_torch.utils.weights import decoder_from_jax, load_npz, pack_filter_net
+
+    dev = torch.device("cuda")
+    cfg = DecoderConfig()
+    dec = decoder_from_jax(load_npz(os.path.join(ROOT, "models", "two_speaker", "decoder_B.npz")),
+                           cfg).to(dev)
+    n_src = cfg.num_harmonics + 2
+    pack = n_src + 1 + (-(n_src + 1)) % 8
+    w, wt = fused_weights(dec.filter_net, pack), pack_filter_net(dec.filter_net, 24)
+    chans, facs = list(cfg.filter_channels), list(cfg.filter_factors)
+    rng = np.random.default_rng(5)
+
+    def device_ms(fn, calls=10):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        kernels, _ = _profile_call(lambda: [fn() for _ in range(calls)])
+        return sum(ms for name, (ms, _) in kernels.items() if _fwd_kernel(name)) / calls
+
+    def randn(dt, *shape):
+        return torch.from_numpy((0.5 * rng.standard_normal(shape)).astype(np.float32)).to(dev, dt)
+
+    def request_calls(dt):
+        B, L = 1, 320 * 480
+        x = randn(dt, B, pack, L)
+        x[:, n_src + 1:] = 0.0
+        calls = [("E stem", lambda: fs.conv3(x, *w.stem), lambda: fs.conv3_plain(x, *w.stem))]
+        T = L
+        for cin, f, wd in zip(reversed(chans[1:]), reversed(facs[1:]), w.down):
+            T //= f
+            z = randn(dt, B, cin, T)
+            calls.append((f"E down {cin} -> {wd[0].shape[0]}, T={T}",
+                          lambda z=z, wd=wd: fs.downsample_chain(z, *wd),
+                          lambda z=z, wd=wd: fs.downsample_chain_plain(z, *wd)))
+        Tx = 320
+        for i, (c, f, wu) in enumerate(zip(chans, facs, w.up)):
+            Tx *= f
+            xu, cond = randn(dt, B, c, Tx), randn(dt, B, c, Tx)
+            kw = (dict(fold_k=wu[4].shape[0], bout=wu[6]) if i == len(chans) - 1
+                  else dict(out_dtype=dt))
+            calls.append((f"F up_{i} C={c}, T={Tx}",
+                          lambda xu=xu, cond=cond, wu=wu, kw=kw: fs.upsample_chain(xu, cond,
+                                                                                   *wu[:6], **kw),
+                          lambda xu=xu, cond=cond, wu=wu, kw=kw: fs.upsample_chain_plain(
+                              xu, cond, *wu[:6], **kw)))
+        return calls
+
+    def step_calls():
+        dt, B = torch.bfloat16, 16
+        x = randn(dt, B, 24, 48000)
+        x[:, 17:] = 0.0
+        calls = [("E stem", lambda: fs.conv3(x, *wt.stem))]
+        for i, T in ((0, 9600), (1, 2400)):
+            z = randn(dt, B, wt.down[i][0].shape[1], T)
+            calls.append((f"E down_{i + 1}, T={T}",
+                          lambda z=z, wd=wt.down[i]: fs.downsample_chain(z, *wd)))
+        for i, T in ((2, 2400), (3, 9600), (4, 48000)):
+            wu = wt.up[i]
+            xu, cond = randn(dt, B, wu[0].shape[1], T), randn(dt, B, wu[0].shape[1], T)
+            kw = dict(fold_k=7, bout=wu[6]) if i == 4 else {}
+            calls.append((f"F up_{i} C={wu[0].shape[1]}, T={T}",
+                          lambda xu=xu, cond=cond, wu=wu, kw=kw: fs.upsample_chain(
+                              xu, cond, *wu[:6], **kw)))
+        return calls
+
+    with exact_fp32():
+        for label, calls in (("request fp32", request_calls(torch.float32)),
+                             ("request bf16", request_calls(torch.bfloat16)),
+                             ("step bf16", step_calls())):
+            total = {"E": [0.0, 0.0], "F": [0.0, 0.0]}
+            for name, fn, *plain in calls:
+                dev_ms, ev_ms = device_ms(fn), _cuda_ms(fn)
+                total[name[0]][0] += dev_ms
+                total[name[0]][1] += ev_ms
+                flips = ""
+                if label == "request bf16":
+                    got, want = fn().float(), plain[0]().float()
+                    diff = (got - want).abs()
+                    tol = CHAIN_RTOL["up_chain_bf16"] * float(want.abs().max())
+                    flips = (f"; outputs off the plain version {int((diff > 0).sum())} of "
+                             f"{diff.numel()}, past CHAIN_RTOL {int((diff > tol).sum())}")
+                print(f"  {label} {name}: device {dev_ms:.4f} ms, event {ev_ms:.4f} ms{flips}")
+            for k, (dev_ms, ev_ms) in total.items():
+                print(f"  {label} kernel {k}: device {dev_ms:.4f} ms, event {ev_ms:.4f} ms "
+                      f"({card})")
 
 
 def _demo_wave(B: int):
@@ -1377,6 +1541,23 @@ def _unet_launch_groups(kind: str, tc: bool):
     bwd += 2 if kind == "up" else 0  # the two FiLM-gradient passes
     folds = 2 if kind == "up" else 1
     return [1] * rec + [2] * bwd + [3, 4] * wg + [4] * folds
+
+
+FWD_GROUPS = ("convs", "output conv")
+
+
+def _fwd_kernel(name: str) -> bool:
+    """A kernel of E or F (the profile groups' test)."""
+    return "up_chain_" in name or "down_chain_" in name
+
+
+def _fwd_launch_groups(kind: str):
+    """The group (an index of FWD_GROUPS) of each launch of one call of F
+    (``kind`` "up", or "fold" with the folded k=7 conv), E on a down chain
+    ("down") or on the stem ("stem"), in launch order (`csrc/
+    filter_stage.cu`, both precisions): the convs (the FiLM rows and the 1x1
+    residual inside them), then the output 1x1 or the fold."""
+    return {"up": [0, 0, 0, 0, 1], "fold": [0, 0, 0, 0, 1], "down": [0, 0, 0], "stem": [0]}[kind]
 
 
 @contextlib.contextmanager
@@ -2235,8 +2416,8 @@ PROFILE_GROUPS = (
     ("kernel B (noise)", ("noise_fft", "noise_synth")),  # the FFT design, the DFT one
     ("kernel C (upsample)", ("upsample_linear_kernel",)),
     ("kernel D (downsample)", ("downsample_linear_kernel",)),
-    ("kernel E (stem, down chains)", ("down_chain_step",)),
-    ("kernel F (up chains)", ("up_chain_step",)),
+    ("kernel E (stem, down chains)", ("down_chain_",)),
+    ("kernel F (up chains)", ("up_chain_",)),
     ("kernel G (spectrogram)", ("spectrogram_fft", "spectrogram_dft")),
     ("kernel H (kNN)", ("knn_topk", "knn_mean")),
     ("kernel J (resample gradients)", ("upsample_grad_kernel", "downsample_grad_kernel")),
@@ -2338,12 +2519,15 @@ def main(argv=None) -> int:
     default: this one), for comparing two commits in one call (parent,
     change, change, parent). ``--train-step [DIR]``: env, build and the
     pre-join step phase only (the fp32 step's checks, the bf16 step's device
-    time and peak memory), of the port in DIR."""
+    time and peak memory), of the port in DIR. ``--unet-stages [DIR]``:
+    env, build and E's and F's time per call (`phase_unet_stages`), of the
+    port in DIR."""
     global ROOT
     args = sys.argv[1:] if argv is None else argv
     profile_only = bool(args) and args[0] == "--profile"
     step_only = bool(args) and args[0] == "--train-step"
-    if (profile_only or step_only) and len(args) > 1:
+    stages_only = bool(args) and args[0] == "--unet-stages"
+    if (profile_only or step_only or stages_only) and len(args) > 1:
         ROOT = os.path.abspath(args[1])
     if not os.path.isdir(os.path.join(ROOT, "tinyvc_tpu_torch")):
         print("chip_smoke.py needs the repository around it (tinyvc_tpu_torch/)", file=sys.stderr)
@@ -2354,14 +2538,16 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke.py runs on a GPU", file=sys.stderr)
         return 1
-    if profile_only or step_only:
-        print(f"{'profile' if profile_only else 'pre-join step'} of {ROOT}")
+    if profile_only or step_only or stages_only:
+        print(f"{args[0][2:]} of {ROOT}")
         card = phase_env()
         phase_build()
         if profile_only:
             phase_profile_only(card)
-        else:
+        elif step_only:
             phase_train_step(card)
+        else:
+            phase_unet_stages(card)
         return 0
 
     t_all = time.perf_counter()

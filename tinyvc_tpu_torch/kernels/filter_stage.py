@@ -35,10 +35,11 @@ and the folded output conv stay fp32. E returns bf16, F fp32 (or bf16 with
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels, or
 raise. Each wrapper counts its calls that launched (``launches``); one call
-is 1 CUDA launch for the stem, 3 for a down chain and 5 for an up chain, and
-for their gradients 4, 15 and 27 in fp32 (CUDA-core tiles), 4, 12 and 19
-with bf16 operands (tensor-core tiles over position-major bf16 copies,
-`csrc/unet_tiles.cuh`).
+is 1 CUDA launch for the stem, 3 for a down chain and 5 for an up chain
+(CUDA-core tiles in both precisions, `conv_tile`; the chains size their
+workspace, `_launch_sized`), and for their gradients 4, 15 and 27 in fp32
+(CUDA-core tiles), 4, 12 and 19 with bf16 operands (tensor-core tiles over
+position-major bf16 copies, `csrc/unet_tiles.cuh`).
 
 The training step's gradients (the JAX package's custom_vjp entries
 ``up_chain_vjp``, ``down_chain_vjp``, ``stem_conv_vjp``):
@@ -255,6 +256,43 @@ def _check_shape(name: str, t: torch.Tensor, shape) -> None:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
+def _launch_sized(launch, device) -> None:
+    """Launch an entry that sizes its own workspace through ``launch(ws,
+    ws_bytes)``: asked first with a null workspace, it writes the bytes it
+    needs to ``ws_bytes`` and launches nothing; then it runs on a byte
+    workspace of that size."""
+    need = ctypes.c_longlong(0)
+    launch(None, ctypes.byref(need))
+    launch(torch.empty(need.value, dtype=torch.uint8, device=device), ctypes.byref(need))
+
+
+# The forward chains' tile (`csrc/filter_stage.cu::conv_rn`), mirrored for
+# the tests: 6 warps a block, each TILE_ROWS // 6 output channels x 32 RN
+# positions, the reduction in chunks of CHUNK_CHANNELS input channels
+# (every tap of a channel in order).
+TILE_WARPS = 6
+TILE_ROWS = 24
+CHUNK_CHANNELS = 8
+H100_SMS = 132
+
+
+def conv_tile(co: int, length: int, B: int, sms: int = H100_SMS) -> Tuple[int, int]:
+    """(rows, positions) of a forward conv's blocks for ``co`` output
+    channels over ``length`` positions of ``B`` batch rows: 24 rows; 128
+    positions (RN = 4 a lane), or 64 where 128 leaves the grid with fewer
+    than two blocks an SM."""
+    blocks = B * -(-length // 128) * -(-co // TILE_ROWS)
+    return TILE_ROWS, 64 if blocks < 2 * sms else 128
+
+
+def conv_chunks(cin: int, taps: int) -> List[List[Tuple[int, int]]]:
+    """The (input channel, tap) pairs of each chunk of a conv's reduction,
+    in the order every output accumulates them: channel by channel, each
+    channel's taps in order."""
+    return [[(i, k) for i in range(i0, min(i0 + CHUNK_CHANNELS, cin)) for k in range(taps)]
+            for i0 in range(0, cin, CHUNK_CHANNELS)]
+
+
 def conv3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The stem (kernel E, stem mode): ``[B, Cin, T]`` -> ``[B, Co, T]``,
     fp32 or bf16 in and out."""
@@ -298,9 +336,9 @@ def downsample_chain(
                         ("w3", (co, 3 * cin)), ("b3", (co, 1))):
         _check_shape(name, ws[name], shape)
     out = torch.empty((B, co, T), device=z.device, dtype=z.dtype)
-    work = torch.empty((2, B, cin, T + 2 * R_DOWN), device=z.device, dtype=torch.float32)
     bf16 = z.dtype == torch.bfloat16
-    build.launch("tvc_down_chain", z, z, *ws.values(), out, work, B, cin, co, T, Tz, int(bf16))
+    _launch_sized(lambda *work: build.launch("tvc_down_chain", z, z, *ws.values(), out, *work,
+                                             B, cin, co, T, Tz, int(bf16)), z.device)
     downsample_chain.launches += 1
     downsample_chain.launches_bf16 += bf16
     return out
@@ -343,13 +381,12 @@ def upsample_chain(
         _check_shape(name, ws[name], shape)
     if fold_k:
         _check_shape("bout", bout, (1, 1))
-    R = R_UP + ((fold_k - 1) // 2 if fold_k else 0)
     out = torch.empty((B, co, T), device=xu.device, dtype=out_dtype)
-    work = torch.empty((2, B, C, T + 2 * R), device=xu.device, dtype=torch.float32)
     bf16 = xu.dtype == torch.bfloat16
-    build.launch("tvc_up_chain", xu, xu, cond, wconv, bconv, wfilm, bfilm, w5, b5,
-                 bout if fold_k else b5, out, work, B, C, co, T, xu.shape[2], fold_k,
-                 int(bf16), int(out_dtype == torch.bfloat16))
+    _launch_sized(lambda *work: build.launch(
+        "tvc_up_chain", xu, xu, cond, wconv, bconv, wfilm, bfilm, w5, b5, bout if fold_k else b5,
+        out, *work, B, C, co, T, xu.shape[2], fold_k, int(bf16),
+        int(out_dtype == torch.bfloat16)), xu.device)
     upsample_chain.launches += 1
     upsample_chain.launches_bf16 += bf16
     return out
@@ -488,13 +525,10 @@ def wgrad_split_chunks(B: int, p: WgradProduct, split: int) -> List[Tuple[int, i
 
 def _launch_bf16(launch, device, B: int, products) -> None:
     """Launch a bf16 entry of K or L through ``launch(ws, ws_bytes,
-    splits)``, with the splits of ``products``. The entry sizes its
-    workspace itself: asked first with a null workspace, it writes the
-    bytes it needs to ``ws_bytes`` and launches nothing."""
+    splits)``, with the splits of ``products``, on the workspace it sizes
+    (`_launch_sized`)."""
     splits = (ctypes.c_int * len(products))(*(wgrad_splits(B, p) for p in products))
-    need = ctypes.c_longlong(0)
-    launch(None, ctypes.byref(need), splits)
-    launch(torch.empty(need.value, dtype=torch.uint8, device=device), ctypes.byref(need), splits)
+    _launch_sized(lambda ws, need: launch(ws, need, splits), device)
 
 
 def _tapsT(w: torch.Tensor, k: int = 3) -> torch.Tensor:
