@@ -85,6 +85,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -310,7 +311,7 @@ def _osc_truth(f0, amps, frame=480, sr=24000, fmin=20.0):
     return out
 
 
-def phase_kernels() -> dict:
+def phase_kernels(card: str) -> dict:
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -445,15 +446,66 @@ def phase_kernels() -> dict:
         library_ms=_cuda_ms(lambda: F.interpolate(x[:, None], scale_factor=factor,
                                                   mode="linear", align_corners=False)),
     )
+    energy_ms = _device_ms(lambda: upsample_linear(x, factor))
+    print(f"  upsample energy B=1 x{factor}: device {energy_ms:.4f} ms, bound "
+          f"{results['upsample']['bound'][0]:.4f} ms")
     phase_unet_kernels(results, rng, dev)
     phase_unet_kernels(results, rng, dev, bf16=True)
-    phase_gh_kernels(results, rng, dev)
+    phase_upsample_cases(results, rng, dev, card)
+    phase_gh_kernels(results, rng, dev, card)
     for r in results.values():
         r["bound_ms"], r["bound_by"] = r.pop("bound")
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {lib} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"library {lib} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              + ("" if "b8" not in r else f"; B=8: kernel {r['b8']['ms']:.4f} ms, library "
+                 f"{r['b8']['library_ms']:.4f} ms"))
     return results
+
+
+def phase_upsample_cases(results: dict, rng, dev, card: str) -> None:
+    """Kernel C against its plain version in fp32 and bf16, the output
+    NaN-filled before each call, where its 16-byte vectors meet the ends of
+    rows: row lengths T*f not a multiple of 8 (rows after the first start
+    off a 16-byte boundary; odd T), T = 1, one row; and a serving B=8
+    request's five U-Net upsamples (B*C rows of each up stage), with their
+    device time, summed, beside their bound."""
+    import numpy as np
+    import torch
+
+    from tinyvc_tpu_torch.config import DecoderConfig
+    from tinyvc_tpu_torch.kernels.resample import upsample_linear, upsample_linear_plain
+
+    cfg = DecoderConfig()
+    serving_b8 = []
+    T = 320
+    for c, f in zip(cfg.filter_channels, cfg.filter_factors):
+        serving_b8.append((8 * c, T, f))
+        T *= f
+    edge = [(3, 37, 3), (5, 13, 2), (3, 37, 5), (4, 1, 5), (1, 1, 2), (1, 333, 5), (2, 7, 64)]
+    for dt, key in ((torch.float32, "upsample"), (torch.bfloat16, "upsample_bf16")):
+        isz = 2 if dt == torch.bfloat16 else 4
+        dev_ms, bounds = 0.0, []
+        for R, T, f in edge + serving_b8:
+            x = torch.from_numpy((0.5 * rng.standard_normal((R, T))).astype(np.float32)).to(dev, dt)
+            with _nan_empty():
+                got = upsample_linear(x, f).float()
+            want = upsample_linear_plain(x, f).float()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())  # NaN where an output was skipped
+            case = f"{key} [{R}, {T}] x{f}"
+            _check(err <= KERNEL_TOL[key], f"{case}: error {err}")
+            results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
+            line = f"  {case}: max_abs_err {err:.3e} (tolerance {KERNEL_TOL[key]:.0e})"
+            if (R, T, f) in serving_b8:
+                ms = _device_ms(lambda: upsample_linear(x, f))
+                bound = _bound(isz * x.numel() * (1 + f), 5.0 * x.numel() * f)
+                dev_ms += ms
+                bounds.append(bound)
+                line += f"; device {ms:.4f} ms, bound {bound[0]:.4f} ms"
+            print(line)
+        print(f"  kernel C {dt}: device {dev_ms:.4f} ms a serving B=8 request (5 calls), bound "
+              f"{_sum_bounds(bounds)[0]:.4f} ms ({card})")
 
 
 def _sum_bounds(bounds):
@@ -515,7 +567,8 @@ def phase_unet_kernels(results: dict, rng, dev, bf16: bool = False) -> None:
                 same = torch.equal(got, again)
                 got = got.float()
             else:
-                got = kernel().float()
+                with _nan_empty():  # an output the kernel skips stays NaN
+                    got = kernel().float()
             want = plain().float()
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
@@ -542,6 +595,8 @@ def phase_unet_kernels(results: dict, rng, dev, bf16: bool = False) -> None:
                 a["plain"] += plain_ms
                 a["lib"] += lib_ms or 0.0
                 a["bounds"].append(bound)
+                if name.startswith("upsample"):
+                    a["dev"] += _device_ms(kernel)
                 if groups:
                     group_ms = _layer_device_ms(kernel, _fwd_launch_groups(groups),
                                                 keep=_fwd_kernel)
@@ -643,6 +698,8 @@ def phase_unet_kernels(results: dict, rng, dev, bf16: bool = False) -> None:
               lambda: fs.upsample_chain(xu, cond, *wu, **kw),
               lambda: fs.upsample_chain_plain(xu, cond, *wu, **kw), CHAIN_RTOL["up_chain" + sfx],
               True, False, None, groups="fold" if fold else "up")
+    print(f"  kernel C{sfx}: device {acc['upsample' + sfx]['dev']:.4f} ms a B=1 request "
+          f"(5 U-Net calls), bound {_sum_bounds(acc['upsample' + sfx]['bounds'])[0]:.4f} ms")
     print(f"  kernel E{sfx}: device {acc['down_chain' + sfx]['dev']:.4f} ms a B=1 request "
           f"(stem + 4 down chains); kernel F{sfx}: device {acc['up_chain' + sfx]['dev']:.4f} ms "
           "(5 up chains)")
@@ -782,11 +839,13 @@ def _demo_wave(B: int):
     return np.stack([np.roll(wave, 480 * b) for b in range(B)])
 
 
-def phase_gh_kernels(results: dict, rng, dev) -> None:
+def phase_gh_kernels(results: dict, rng, dev, card: str) -> None:
     """Kernel G at the serving profile's B=8 (and a ragged B=2, F=37), and
-    kernel H at B=1 (timed) and B=8 against the 2048-row dictionary, cos,
-    at B=1 with IP and L2 and alpha 0.5, and at a ragged B=2, F=37 against
-    300 rows."""
+    kernel H at B=1 and B=8 (both timed, with their device times and those
+    of `ops/retrieval.py::match_features`) against the 2048-row dictionary,
+    cos, at B=1 with IP and L2 and alpha 0.5, against 3000 rows at B=2 and
+    B=8 (slices of two tiles), and at a ragged B=2, F=37 against 300
+    rows."""
     import numpy as np
     import torch
 
@@ -851,12 +910,19 @@ def phase_gh_kernels(results: dict, rng, dev) -> None:
                                                        "index_B.npy"))).to(dev)
         N, C = ref.shape
         errs = []
+        # a 3000-row dictionary (the two-speaker rows and 952 noisy copies)
+        # makes knn_schedule take slices of two tiles, at B=2 with 32-row and
+        # at B=8 with 64-row blocks; B=1 and B=8 against the 2048 rows take
+        # one-tile slices with 32- and 64-row blocks
+        big = torch.cat([ref, ref[:952] + 0.05 * torch.from_numpy(
+            rng.standard_normal((952, C)).astype(np.float32)).to(dev)])
         # the last case is ragged: 37 frames, a 300-row slice of the dictionary
         for B, F_, n, metric, alpha in ((1, 320, N, "cos", 0.0), (8, 320, N, "cos", 0.0),
                                         (1, 320, N, "IP", 0.5), (1, 320, N, "L2", 0.5),
+                                        (2, 300, 3000, "cos", 0.0), (8, 320, 3000, "L2", 0.5),
                                         (2, 37, 300, "cos", 0.5)):
             # content-like frames: dictionary rows plus noise
-            dic = ref[:n]
+            dic = big[:n]
             pick = torch.from_numpy(rng.integers(0, n, (B, F_))).to(dev)
             noise = torch.from_numpy(rng.standard_normal((B, F_, C)).astype(np.float32)).to(dev)
             src = (dic[pick] + 0.05 * noise).contiguous()
@@ -865,7 +931,8 @@ def phase_gh_kernels(results: dict, rng, dev) -> None:
             want, wi = knn.match_features_knn_plain(src, dic, metric=metric, alpha=alpha,
                                                     return_indices=True)
             torch.cuda.synchronize()
-            errs.append(_check_knn(f"knn {metric} alpha={alpha} B={B} F={F_} N={n}", src, dic,
+            errs.append(_check_knn(f"knn {metric} alpha={alpha} B={B} F={F_} N={n} tiles "
+                                   f"{knn.knn_schedule(B * F_, n)}", src, dic,
                                    metric, got, gi, want, wi))
             if B == 1 and metric == "cos" and n == N:
                 main_h = src
@@ -874,22 +941,37 @@ def phase_gh_kernels(results: dict, rng, dev) -> None:
         # the wrapper prepares a dictionary once (kernels/knn.py::
         # prepared_dictionary); the row's times are those of a prepared one
         print(f"  knn: dictionary preparation, once per dictionary, "
-              f"{_cuda_ms(lambda: knn._dictionary(ref, 'cos')):.4f} ms")
+              f"{_cuda_ms(lambda: knn._kernel_dictionary(ref, 'cos')):.4f} ms")
+        src8 = torch.from_numpy(rng.standard_normal((8, 320, C)).astype(np.float32)).to(dev)
+        src8 = (ref[torch.from_numpy(rng.integers(0, N, (8, 320))).to(dev)] + 0.05 * src8)
+        timed = {}
+        for B, x in ((1, src), (8, src8)):
+            R = x.shape[0] * x.shape[1]
+            timed[B] = dict(
+                ms=_cuda_ms(lambda: knn.match_features_knn(x, ref)),
+                library_ms=_cuda_ms(lambda: match_features(x, ref)),
+                device_ms=_device_ms(lambda: knn.match_features_knn(x, ref)),
+                library_device_ms=_device_ms(lambda: match_features(x, ref)),
+                # the [R, C] x [C, N] similarity product; bytes: source and
+                # dictionary in, matched frames out
+                bound=_bound(4 * (2 * R * C + N * C), 2.0 * R * N * C),
+            )
+            t = timed[B]
+            print(f"  knn B={B} F=320 N={N} tiles {knn.knn_schedule(R, N)}: kernel {t['ms']:.4f} "
+                  f"ms, device {t['device_ms']:.4f} ms; ops/retrieval.py::match_features "
+                  f"{t['library_ms']:.4f} ms, device {t['library_device_ms']:.4f} ms; bound "
+                  f"{t['bound'][0]:.4f} ms ({t['bound'][1]}) ({card})")
+            launches, _ = _profile_call(lambda: [knn.match_features_knn(x, ref) for _ in range(20)])
+            print("    device ms a launch: " + ", ".join(
+                f"{(re.search(r'knn_[a-z]+', name) or [name[:40]])[0]} {ms / 20:.4f}"
+                for name, (ms, _) in sorted(launches.items())))
         results["knn"] = dict(
             name="knn", route="cuda", source="tinyvc_tpu_torch/kernels/csrc/knn.cu",
             replaces="tinyvc_tpu/ops/pallas/knn.py:104", max_abs_err=max(errs),
-            ms=_cuda_ms(lambda: knn.match_features_knn(src, ref)),
-            plain_ms=_cuda_ms(lambda: knn.match_features_knn_plain(src, ref)),
-            # the [R, C] x [C, N] similarity product; bytes: source and
-            # dictionary in, matched frames out
-            bound=_bound(4 * (2 * R * C + N * C), 2.0 * R * N * C),
-            library_ms=_cuda_ms(lambda: match_features(src, ref)),
+            ms=timed[1]["ms"], plain_ms=_cuda_ms(lambda: knn.match_features_knn_plain(src, ref)),
+            bound=timed[1]["bound"], library_ms=timed[1]["library_ms"],
+            b8={k: v for k, v in timed[8].items() if k != "bound"},
         )
-        src8 = torch.from_numpy(rng.standard_normal((8, 320, C)).astype(np.float32)).to(dev)
-        src8 = (ref[torch.from_numpy(rng.integers(0, N, (8, 320))).to(dev)] + 0.05 * src8)
-        print(f"  knn B=8: kernel {_cuda_ms(lambda: knn.match_features_knn(src8, ref)):.4f} ms, "
-              f"library {_cuda_ms(lambda: match_features(src8, ref)):.4f} ms, bound "
-              f"{_bound(4 * (2 * 8 * 320 * C + N * C), 2.0 * 8 * 320 * N * C)[0]:.4f} ms")
 
 
 def _check_knn(label: str, src, dic, metric: str, got, gi, want, wi) -> float:
@@ -2419,7 +2501,7 @@ PROFILE_GROUPS = (
     ("kernel E (stem, down chains)", ("down_chain_",)),
     ("kernel F (up chains)", ("up_chain_",)),
     ("kernel G (spectrogram)", ("spectrogram_fft", "spectrogram_dft")),
-    ("kernel H (kNN)", ("knn_topk", "knn_mean")),
+    ("kernel H (kNN)", ("knn_prep", "knn_topk", "knn_mean")),
     ("kernel J (resample gradients)", ("upsample_grad_kernel", "downsample_grad_kernel")),
     ("kernel K (up chain gradients)", ("up_grad_",)),
     ("kernel L (stem, down chain gradients)", ("down_grad_",)),
@@ -2558,7 +2640,7 @@ def main(argv=None) -> int:
     phase_build()
     _done("build", t0)
     t0 = _phase("kernels")
-    kernels = phase_kernels()
+    kernels = phase_kernels(card)
     _done("kernels", t0)
     t0 = _phase("convert")
     launches, ctx, serving = phase_convert(card)

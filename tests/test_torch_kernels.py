@@ -124,7 +124,12 @@ def test_noise_matches_pallas(rng, B, F):
     assert noise.oscillate_noise_hashed.launches == 0
 
 
-@pytest.mark.parametrize("R,T,factor", [(1, 2400, 64), (3, 37, 64), (2, 50, 5)])
+# the energy upsample, ragged U-Net-like rows, and kernel C's edge cases:
+# rows of T*f not a multiple of its 16-byte vector (111, 26, 185, 1665),
+# T = 1, one row
+@pytest.mark.parametrize("R,T,factor", [(1, 2400, 64), (3, 37, 64), (2, 50, 5), (1, 37, 3),
+                                        (5, 13, 2), (3, 37, 5), (2, 1, 4), (1, 1, 2),
+                                        (1, 333, 5)])
 def test_upsample_matches_pallas(rng, R, T, factor):
     x = rng.uniform(0.0, 1.0, (R, T)).astype(np.float32)
     want = np.asarray(pallas_upsample_t(jnp.asarray(x[None]), factor, interpret=True))
@@ -135,6 +140,34 @@ def test_upsample_matches_pallas(rng, R, T, factor):
     # against the tent form)
     np.testing.assert_allclose(got, want, atol=1e-6)
     assert resample.upsample_linear.launches == 0
+
+
+@pytest.mark.parametrize("factor", (2, 3, 5, 64))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_upsample_launch_takes_the_plain_tap_table(monkeypatch, factor, dtype):
+    """Kernel C's wrapper, its launch intercepted: it passes a [factor, 4]
+    fp32 table of the plain version's tent weights (rounded to bf16 for a
+    bf16 x, as the plain version rounds them), a zero fourth column, and
+    the output it returns."""
+    from tinyvc_tpu_torch.dsp.interp import _tent_weights
+
+    calls = []
+    monkeypatch.setattr(resample.build, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(resample.build, "check_input", lambda *a, **kw: None)
+    monkeypatch.setattr(resample.build, "launch", lambda name, t, *args: calls.append((name, args)))
+    # the counters are restored after the test: other tests expect them at 0
+    for counter in ("launches", "launches_bf16"):
+        monkeypatch.setattr(resample.upsample_linear, counter,
+                            getattr(resample.upsample_linear, counter))
+    out = resample.upsample_linear(torch.zeros((3, 7), dtype=dtype), factor)
+    [(name, (_, w, y, R, T, f, bf16))] = calls
+    assert name == "tvc_upsample_linear" and y is out and out.shape == (3, 7 * factor)
+    assert (R, T, f, bf16) == (3, 7, factor, int(dtype == torch.bfloat16))
+    want = torch.from_numpy(_tent_weights(factor)).T
+    if dtype == torch.bfloat16:
+        want = want.to(torch.bfloat16).float()
+    assert w.shape == (factor, 4) and w.dtype == torch.float32 and w.is_contiguous()
+    assert torch.equal(w[:, :3], want) and not w[:, 3].any()
 
 
 def test_wrappers_refuse_other_devices():

@@ -84,6 +84,19 @@ def test_bf16_upsample_matches_pallas(rng, factor):
     np.testing.assert_array_equal(_f32(got), want)
 
 
+@pytest.mark.parametrize("R, T, factor", [(1, 37, 3), (5, 13, 2), (3, 37, 5), (2, 1, 4),
+                                          (1, 1, 2), (1, 333, 5), (4, 7, 64)])
+def test_bf16_upsample_ragged_matches_pallas(rng, R, T, factor):
+    """Kernel C's edge cases in bf16, bit for bit: rows of T*f not a
+    multiple of 8 (its 16-byte vector), so that rows after the first start
+    off a 16-byte boundary, odd T, T = 1, one row."""
+    x, xt = _bf16(rng, (R, T))
+    want = _f32(pallas_upsample_t(_jbf16(x[None]), factor, interpret=True))[0, :, :factor * T]
+    got = resample.upsample_linear(xt, factor)
+    assert got.shape == (R, factor * T) and got.dtype == BF16
+    np.testing.assert_array_equal(_f32(got), want)
+
+
 @pytest.mark.parametrize("factor", (3, 4, 5))
 def test_bf16_downsample_matches_pallas(rng, factor):
     x, xt = _bf16(rng, (3, 997))

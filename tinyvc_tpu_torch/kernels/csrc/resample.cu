@@ -16,13 +16,31 @@
 // The TPU kernels write both as banded matmuls so that they land on the
 // matrix unit and keep time on the lanes; they also pad the batch to 8 rows
 // for the sublanes. On the GPU each is a gather of one or two taps per
-// output, one thread per output, no padding. Bound on the H100: bytes (the
-// input read once, the output written once): 0.6 MB for the energy upsample
-// and 17.7 MB for the largest U-Net resample (D on [24, 153600] / 5), 5 us.
+// output, no padding. Bound on the H100: bytes (the input read once, the
+// output written once): 0.6 MB for the energy upsample, 17.7 MB for the
+// largest U-Net resample (D on [24, 153600] / 5), 5 us; a serving B=8
+// request's five C launches write 104 MB of bf16 and read 25 MB, 39 us.
 //
-// C forms its weights in double and rounds them to float, as the plain
-// version's table is; C and D use explicit _rn operations in the plain
-// version's order, so kernel and plain version agree bit for bit.
+// C's design. Its work a byte is small, so what holds it is instructions
+// and latency per output; the output is stored in whole 16-byte vectors (4
+// fp32 or 8 bf16 outputs) of the flat [rows, T*f] array. For the U-Net's
+// factors 2, 3, 4, 5, when every row holds whole runs of lcm(vector, f)
+// outputs (T a multiple of run/f: every shape of the converter's 64-frame
+// buckets), a thread computes one run: it starts at phase 0, so every
+// phase, tap and input index is fixed at compile time, and its run/f + 2
+// inputs are loaded at once; runs of several vectors (f = 3, 5) are staged
+// in shared memory and stored by the block as consecutive vectors. Any other shape (rows of
+// T*f not a multiple of a run, odd T in bf16, T = 1, one row, other factors
+// such as the energy's 64) takes the vector kernel: a thread writes one
+// vector aligned in the flat array, carrying (row, input sample, phase) from
+// output to output, across a row's end where the vector runs into the next
+// row; only the flat array's last partial vector is stored element by
+// element. Rows and columns come from 32-bit divisions (64-bit past 2^32
+// outputs), once per thread. The tap weights of the f phases come from a
+// table that the wrapper builds once per factor and dtype from the plain
+// version's own (kernels/resample.py::_tap_table): no double arithmetic in
+// the kernel. Every output is the same three products and two sums in the
+// same order on both paths. D keeps one thread per output.
 //
 // bf16 (the serving profile, tinyvc_tpu/config.py::serving_config): input
 // and output are bf16, and C's two tap weights are rounded to bf16, as the
@@ -50,56 +68,190 @@
 // rounded to bf16 once. Bound: bytes, g read once and gx written once.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "bf16.cuh"
 
 namespace {
 
+constexpr int UP_THREADS = 256;
+
+__host__ __device__ constexpr int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
+
+// the outputs of a run: whole 16-byte vectors of V outputs that start at
+// phase 0 of factor F
+__host__ __device__ constexpr int run_len(int V, int F) { return V / gcd(V, F) * F; }
+
+__device__ __forceinline__ float tap(float prev, float cur, float nxt, float4 w) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(prev, w.x), __fmul_rn(cur, w.y)), __fmul_rn(nxt, w.z));
+}
+
+// one 16-byte vector of outputs
 template <typename S>
-__global__ void upsample_linear_kernel(const S* __restrict__ x, S* __restrict__ y,
-                                       long long total, int T, int f) {
-  const long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (n >= total) return;
-  const long long out_len = static_cast<long long>(T) * f;
-  const long long r = n / out_len;
-  const int i = static_cast<int>(n - r * out_len);
-  const int q = i / f;
-  const int j = i - q * f;
-  const double a = (static_cast<double>(j) + 0.5) / f - 0.5;
-  float w_prev = static_cast<float>(a < 0.0 ? -a : 0.0);
-  float w_cur = static_cast<float>(1.0 - (a < 0.0 ? -a : a));
-  float w_next = static_cast<float>(a > 0.0 ? a : 0.0);
+__device__ __forceinline__ void store16(S* y, const float* o) {
   if constexpr (sizeof(S) == 2) {
-    w_prev = round_bf16(w_prev);
-    w_cur = round_bf16(w_cur);
-    w_next = round_bf16(w_next);
+    uint32_t p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(o[2 * e], o[2 * e + 1]);
+      p[e] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(y) = make_uint4(p[0], p[1], p[2], p[3]);
+  } else {
+    *reinterpret_cast<float4*>(y) = make_float4(o[0], o[1], o[2], o[3]);
   }
-  const S* xr = x + r * T;
-  const float prev = to_f32(xr[q > 0 ? q - 1 : 0]);
-  const float cur = to_f32(xr[q]);
-  const float nxt = to_f32(xr[q + 1 < T ? q + 1 : T - 1]);
-  y[n] = from_f32<S>(__fadd_rn(__fadd_rn(__fmul_rn(prev, w_prev), __fmul_rn(cur, w_cur)),
-                               __fmul_rn(nxt, w_next)));
+}
+
+// row r and column i of flat output g of rows of L outputs (32-bit
+// division below 2^32 outputs)
+__device__ __forceinline__ void row_col(long long g, long long total, int L, long long& r,
+                                        int& i) {
+  if (total <= 0xffffffffLL) {
+    const unsigned gu = static_cast<unsigned>(g), rr = gu / static_cast<unsigned>(L);
+    r = rr;
+    i = static_cast<int>(gu - rr * static_cast<unsigned>(L));
+  } else {
+    r = g / L;
+    i = static_cast<int>(g - r * L);
+  }
+}
+
+// F > 0: a thread computes one run of factor F (rows whose length is a
+// multiple of run_len): its inputs loaded at once, every phase and tap
+// index fixed at compile time; a run of several vectors goes through shared
+// memory, so that the block stores consecutive vectors. F == 0: a thread
+// writes one vector of any factor f, carrying (row, input sample, phase)
+// from output to output.
+template <typename S, int F>
+__global__ void __launch_bounds__(UP_THREADS)
+upsample_linear_kernel(const S* __restrict__ x, const float4* __restrict__ wt,
+                       S* __restrict__ y, long long total, int T, int f) {
+  constexpr int V = 16 / sizeof(S);  // outputs of a 16-byte vector
+  if constexpr (F > 0) {
+    constexpr int U = run_len(V, F), NQ = U / F + 2;
+    const long long runs = total / U;
+    const long long b0 = static_cast<long long>(blockIdx.x) * UP_THREADS;  // the block's first run
+    const long long t = b0 + threadIdx.x;
+    float o[U];
+    if (t < runs) {
+      long long r;
+      int i;
+      row_col(t * U, total, T * F, r, i);
+      const int q0 = i / F;
+      const S* xr = x + r * T;
+      float xs[NQ];  // inputs q0 - 1 .. q0 + U / F, clamped to the row
+#pragma unroll
+      for (int d = 0; d < NQ; ++d) xs[d] = to_f32(xr[min(max(q0 - 1 + d, 0), T - 1)]);
+#pragma unroll
+      for (int e = 0; e < U; ++e) o[e] = tap(xs[e / F], xs[e / F + 1], xs[e / F + 2], wt[e % F]);
+    }
+    if constexpr (U == V) {
+      if (t < runs) store16(y + t * U, o);
+    } else {
+      __shared__ __align__(16) S sy[UP_THREADS * U];
+      if (t < runs) {
+#pragma unroll
+        for (int v = 0; v < U / V; ++v) store16(sy + threadIdx.x * U + v * V, o + v * V);
+      }
+      __syncthreads();
+      const int nv = static_cast<int>(runs - b0 < UP_THREADS ? runs - b0 : UP_THREADS) * (U / V);
+      for (int k = threadIdx.x; k < nv; k += UP_THREADS)
+        *reinterpret_cast<uint4*>(y + b0 * U + k * V) = *reinterpret_cast<const uint4*>(sy + k * V);
+    }
+  } else {
+    const long long g0 = (static_cast<long long>(blockIdx.x) * UP_THREADS + threadIdx.x) * V;
+    if (g0 >= total) return;
+    long long r;
+    int i;
+    row_col(g0, total, T * f, r, i);
+    int q = i / f;
+    int j = i - q * f;
+    const S* xr = x + r * T;
+    float prev = to_f32(xr[q > 0 ? q - 1 : 0]);
+    float cur = to_f32(xr[q]);
+    float nxt = to_f32(xr[q + 1 < T ? q + 1 : T - 1]);
+    const int n = total - g0 < V ? static_cast<int>(total - g0) : V;
+    float o[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      o[e] = tap(prev, cur, nxt, wt[j]);
+      if (e + 1 < n && ++j == f) {
+        j = 0;
+        if (++q == T) {  // the next row
+          q = 0;
+          xr += T;
+          prev = cur = to_f32(xr[0]);
+          nxt = to_f32(xr[T > 1 ? 1 : 0]);
+        } else {
+          prev = cur;
+          cur = nxt;
+          nxt = to_f32(xr[q + 1 < T ? q + 1 : T - 1]);
+        }
+      }
+    }
+    if (n == V) {
+      store16(y + g0, o);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        if (e < n) y[g0 + e] = from_f32<S>(o[e]);
+    }
+  }
+}
+
+template <typename S, int F>
+int launch_up(const S* x, const float4* wt, S* y, long long total, int T, int f,
+              cudaStream_t st) {
+  const long long per_block = static_cast<long long>(UP_THREADS) *
+                              (F > 0 ? run_len(16 / sizeof(S), F) : 16 / sizeof(S));
+  const long long blocks = (total + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  upsample_linear_kernel<S, F>
+      <<<static_cast<unsigned>(blocks), UP_THREADS, 0, st>>>(x, wt, y, total, T, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the run kernel of the U-Net's factors 2, 3, 4, 5 when whole runs tile
+// every row, else the vector kernel (the energy's 64 among them: its vectors
+// never cross an input sample)
+template <typename S>
+int dispatch_up(const S* x, const float4* wt, S* y, long long rows, int T, int f,
+                cudaStream_t st) {
+  constexpr int V = 16 / sizeof(S);
+  const long long total = rows * T * static_cast<long long>(f);
+  switch (f) {
+    case 2:
+      if (T % (run_len(V, 2) / 2) == 0) return launch_up<S, 2>(x, wt, y, total, T, f, st);
+      break;
+    case 3:
+      if (T % (run_len(V, 3) / 3) == 0) return launch_up<S, 3>(x, wt, y, total, T, f, st);
+      break;
+    case 4:
+      if (T % (run_len(V, 4) / 4) == 0) return launch_up<S, 4>(x, wt, y, total, T, f, st);
+      break;
+    case 5:
+      if (T % (run_len(V, 5) / 5) == 0) return launch_up<S, 5>(x, wt, y, total, T, f, st);
+      break;
+  }
+  return launch_up<S, 0>(x, wt, y, total, T, f, st);
 }
 
 }  // namespace
 
-// x, y: fp32, or bf16 when bf16 != 0
-extern "C" int tvc_upsample_linear(const void* x, void* y, long long rows, int T, int f,
-                                   int bf16, void* stream) {
-  if (rows <= 0 || T <= 0 || f <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = rows * T * static_cast<long long>(f);
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+// x [rows, T], y [rows, T*f]: fp32, or bf16 when bf16 != 0; w [f, 4] fp32,
+// phase j's (previous, current, next, 0) tap weights, rounded to bf16 for a
+// bf16 x; w and y 16-byte aligned
+extern "C" int tvc_upsample_linear(const void* x, const void* w, void* y, long long rows, int T,
+                                   int f, int bf16, void* stream) {
+  if (rows <= 0 || T <= 0 || f <= 0 || static_cast<long long>(T) * f > 0x7fffffffLL ||
+      ((reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(y)) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* wt = static_cast<const float4*>(w);
   if (bf16)
-    upsample_linear_kernel<<<static_cast<unsigned>(blocks), threads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), total, T, f);
-  else
-    upsample_linear_kernel<<<static_cast<unsigned>(blocks), threads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<float*>(y), total, T, f);
-  return static_cast<int>(cudaGetLastError());
+    return dispatch_up(static_cast<const __nv_bfloat16*>(x), wt, static_cast<__nv_bfloat16*>(y),
+                       rows, T, f, st);
+  return dispatch_up(static_cast<const float*>(x), wt, static_cast<float*>(y), rows, T, f, st);
 }
 
 namespace {
@@ -144,8 +296,8 @@ extern "C" int tvc_downsample_linear(const void* x, void* y, long long rows, int
 
 namespace {
 
-// the (previous, current, next) tent weights of output phase j, as C forms
-// them; rounded to bf16 when the cotangent is bf16
+// the (previous, current, next) tent weights of output phase j, as C's
+// table holds them; rounded to bf16 when the cotangent is bf16
 __device__ __forceinline__ void tent(int j, int f, bool round, float* w) {
   const double a = (static_cast<double>(j) + 0.5) / f - 0.5;
   w[0] = static_cast<float>(a < 0.0 ? -a : 0.0);

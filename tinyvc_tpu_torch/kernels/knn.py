@@ -12,12 +12,15 @@ from `ops/retrieval.py::match_features`; `infer/generator.py` picks one by
 the JAX package's gate. The similarities are fp32 sums (the TPU's default
 is a bf16x3 split, ~1.5e-5 relative).
 
-CPU tensors take the plain version; CUDA tensors launch kernel H (two
-launches: similarities with per-slice top-k, then the merge, mean and
-blend).
+CPU tensors take the plain version; CUDA tensors launch kernel H (three
+launches: the source transposed and normalised, similarities with
+per-slice top-k on the :func:`knn_schedule` tiles, then the merge, mean
+and blend).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -26,8 +29,31 @@ from ..ops.retrieval import top_k_small
 from . import build
 
 METRICS = {"cos": 0, "IP": 1, "L2": 2}
-SPLIT = 128  # dictionary rows per block of the first launch (csrc/knn.cu)
 K_MAX = 8
+# csrc/knn.cu: dictionary rows a tile, the transposed copies' column
+# padding, blocks that fill the H100's 132 SMs twice, candidate lists a row
+TILE, PAD, FILL, MAX_SPLIT = 64, 64, 2 * 132, 32
+
+
+def knn_schedule(R: int, N: int) -> Tuple[int, int, int]:
+    """Kernel H's similarity tiles for ``R`` source rows and ``N``
+    dictionary rows, as `csrc/knn.cu::schedule` chooses them: (source rows a
+    block, dictionary rows a slice, slices). Blocks of 64 rows (4 warps)
+    when they alone give ``FILL`` blocks, else of 32 (2 warps of rows, each
+    tile's channels split between two); slices of one 64-row tile, or of as
+    many as keep ``MAX_SPLIT`` slices. Block
+    ``(i, s)`` ranks rows ``[i*rows, (i+1)*rows)`` against dictionary rows
+    ``[s*slice, min(N, (s+1)*slice))`` and writes their k best to slot
+    ``s`` of the ``[slices, R, k]`` candidate workspace."""
+    nt = -(-N // TILE)
+    per = -(-nt // MAX_SPLIT)
+    nsplit = -(-nt // per)
+    rows = 64 if -(-R // 64) * nsplit >= FILL else 32
+    return rows, per * TILE, nsplit
+
+
+def _padded(n: int) -> int:
+    return -(-n // PAD) * PAD
 
 
 def _dictionary(reference: torch.Tensor, metric: str):
@@ -42,8 +68,20 @@ def _dictionary(reference: torch.Tensor, metric: str):
     return ref_sim.contiguous(), row.contiguous(), ref.to(torch.bfloat16).contiguous()
 
 
+def _kernel_dictionary(reference: torch.Tensor, metric: str):
+    """:func:`_dictionary` in kernel H's layout: the similarity rows
+    transposed, ``[C, N]`` padded with zero columns to a multiple of
+    ``PAD`` (both operands of its product are channel-major), the rank-bias
+    row, the bf16 mean rows."""
+    ref_sim, row, ref_mean = _dictionary(reference, metric)
+    N, C = ref_sim.shape
+    ref_t = ref_sim.new_zeros((C, _padded(N)))
+    ref_t[:, :N] = ref_sim.T
+    return ref_t, row, ref_mean
+
+
 def prepared_dictionary(reference: torch.Tensor, metric: str):
-    """:func:`_dictionary` of ``reference``, kept on the tensor after the
+    """:func:`_kernel_dictionary` of ``reference``, kept on the tensor after the
     first call: a converter matches every request against the same
     dictionary. Prepared again only when the metric, the data pointer or the
     version counter changed (an in-place write; inference tensors keep no
@@ -51,7 +89,7 @@ def prepared_dictionary(reference: torch.Tensor, metric: str):
     key = (metric, reference.data_ptr(), 0 if reference.is_inference() else reference._version)
     cached = getattr(reference, "_knn_cache", None)
     if cached is None or cached[0] != key:
-        cached = (key, _dictionary(reference, metric))
+        cached = (key, _kernel_dictionary(reference, metric))
         reference._knn_cache = cached
     return cached[1]
 
@@ -117,14 +155,16 @@ def match_features_knn(
     build.check_input("reference", reference, 2)
     B, T, C = source.shape
     N = reference.shape[0]
-    ref_sim, row, ref_mean = prepared_dictionary(reference, metric)
-    R, nsplit = B * T, -(-N // SPLIT)
+    ref_t, row, ref_mean = prepared_dictionary(reference, metric)
+    R = B * T
+    nsplit = knn_schedule(R, N)[2]
     dev = source.device
+    x_t = torch.empty((C, _padded(R)), device=dev, dtype=torch.float32)
     cand_v = torch.empty((nsplit, R, k), device=dev, dtype=torch.float32)
     cand_i = torch.empty((nsplit, R, k), device=dev, dtype=torch.int32)
     out = torch.empty((B, T, C), device=dev, dtype=torch.float32)
     idx = torch.empty((B, T, k), device=dev, dtype=torch.int32)
-    build.launch("tvc_knn", source, source, ref_sim, row, ref_mean, cand_v, cand_i, out, idx,
+    build.launch("tvc_knn", source, source, x_t, ref_t, row, ref_mean, cand_v, cand_i, out, idx,
                  R, N, C, k, METRICS[metric], nsplit, float(np.float32(alpha)),
                  float(np.float32(1.0 - alpha)))
     match_features_knn.launches += 1

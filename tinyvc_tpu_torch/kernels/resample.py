@@ -32,6 +32,8 @@ CUDA tensor goes through C or D.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..dsp.interp import _tent_weights, downsample_time_int_t, upsample_time_int_t
@@ -46,6 +48,18 @@ def upsample_linear_plain(x: torch.Tensor, factor: int) -> torch.Tensor:
     return upsample_time_int_t(x, factor)
 
 
+@functools.lru_cache(maxsize=None)
+def _tap_table(factor: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Kernel C's ``[factor, 4]`` fp32 table, phase j's (previous, current,
+    next, 0) tap weights: the plain version's (`dsp/interp.py::
+    _tent_weights`), rounded to bf16 for a bf16 ``x`` as it rounds them.
+    Made once per (factor, dtype, device)."""
+    w = torch.from_numpy(_tent_weights(factor)).T
+    if dtype == torch.bfloat16:
+        w = w.to(torch.bfloat16).float()
+    return torch.cat([w, w.new_zeros((factor, 1))], 1).contiguous().to(device)
+
+
 def upsample_linear(x: torch.Tensor, factor: int) -> torch.Tensor:
     """``[R, T]`` -> ``[R, T*factor]`` linear upsampling (align_corners=False,
     edge clamp). CPU tensors take the plain version; CUDA tensors launch
@@ -58,7 +72,8 @@ def upsample_linear(x: torch.Tensor, factor: int) -> torch.Tensor:
     R, T = x.shape
     out = torch.empty((R, T * factor), device=x.device, dtype=x.dtype)
     bf16 = x.dtype == torch.bfloat16
-    build.launch("tvc_upsample_linear", x, x, out, R, T, factor, int(bf16))
+    build.launch("tvc_upsample_linear", x, x, _tap_table(factor, x.dtype, x.device), out, R, T,
+                 factor, int(bf16))
     upsample_linear.launches += 1
     upsample_linear.launches_bf16 += bf16
     return out
