@@ -5,6 +5,8 @@ PyTorch version; the CUDA kernels themselves are held against these plain
 versions on the card by `chip_smoke.py`."""
 
 import math
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -168,6 +170,110 @@ def test_upsample_launch_takes_the_plain_tap_table(monkeypatch, factor, dtype):
         want = want.to(torch.bfloat16).float()
     assert w.shape == (factor, 4) and w.dtype == torch.float32 and w.is_contiguous()
     assert torch.equal(w[:, :3], want) and not w[:, 3].any()
+
+
+@pytest.mark.parametrize("factor", (2, 3, 4, 5, 64))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_resample_grad_launch_takes_the_plain_tap_table(monkeypatch, factor, dtype):
+    """Kernel J's wrapper, its launch intercepted: in up mode it passes a
+    [2*factor, 4] fp32 table, the band weights of the plain version's tent
+    (rounded to bf16 for a bf16 cotangent, as `upsample_linear_grad_plain`
+    rounds them), then the clamped edges' weights in fp32, never rounded,
+    each row with a zero fourth column; in down mode no table."""
+    from tinyvc_tpu_torch.dsp.interp import _tent_weights
+
+    calls = []
+    monkeypatch.setattr(resample.build, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(resample.build, "check_input", lambda *a, **kw: None)
+    monkeypatch.setattr(resample.build, "launch", lambda name, t, *args: calls.append((name, args)))
+    for counter in ("launches", "launches_bf16"):  # restored after the test
+        monkeypatch.setattr(resample.resample_grad, counter,
+                            getattr(resample.resample_grad, counter))
+    out = resample.resample_grad(torch.zeros((3, 7 * factor), dtype=dtype), 7, factor, True)
+    down = resample.resample_grad(torch.zeros((3, 7), dtype=dtype), 7 * factor, factor, False)
+    [(name, (g, w, gx, R, T, f, up, bf16)), (_, (_, w_down, gx_down, *rest))] = calls
+    assert name == "tvc_resample_grad" and gx is out and out.shape == (3, 7)
+    assert (R, T, f, up, bf16) == (3, 7, factor, 1, int(dtype == torch.bfloat16))
+    assert w_down is None and gx_down is down and rest[:4] == [3, 7 * factor, factor, 0]
+    edge = torch.from_numpy(_tent_weights(factor)).T
+    band = edge.to(torch.bfloat16).float() if dtype == torch.bfloat16 else edge
+    assert w.shape == (2 * factor, 4) and w.dtype == torch.float32 and w.is_contiguous()
+    assert torch.equal(w[:factor, :3], band) and torch.equal(w[factor:, :3], edge)
+    assert not w[:, 3].any()
+
+
+def _resample_cu_const(name):
+    src = open(os.path.join(os.path.dirname(resample.__file__), "csrc", "resample.cu")).read()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _grad_stores(rows, T, f, up, isz):
+    """Kernel J's schedule, as `csrc/resample.cu::dispatch_grad` and its
+    kernels compute it for a 16-byte aligned cotangent: (path, the flat
+    [start, end) of gx that each store covers); for the up-mode run path it
+    also checks that each thread's window of staged vectors holds the
+    samples its outputs read, and that its block loaded them."""
+    nt, V = _resample_cu_const("UP_THREADS"), 16 // isz
+    total = rows * T
+    run = lambda F: V // math.gcd(V, F) * F
+    if up and 2 <= f <= 5 and T % V == 0:
+        HV = -(-f // V)
+        q = np.arange(0, total, V, dtype=np.int64)  # each thread's first output
+        q0 = q // (nt * V) * (nt * V)  # its block's
+        t = (q - q0) // V
+        nq = np.minimum(nt * V, total - q0)
+        v0, nst = q0 // V * f - HV, nq // V * f + 2 * HV
+        assert (t * f + f + 2 * HV <= nst).all()  # its window lies in what the block staged
+        # the cotangent its outputs read: their own samples and their in-row neighbours'
+        i0 = q % T
+        lo = q * f - np.where(i0 > 0, f, 0)
+        hi = (q + V) * f + np.where(i0 + V < T, f, 0)
+        assert ((v0 + t * f) * V <= lo).all() and (hi <= (v0 + t * f + f + 2 * HV) * V).all()
+        # ... and the block loaded it (staged vectors inside the cotangent)
+        assert (lo // V >= np.maximum(v0, 0)).all()
+        assert (-(-hi // V) <= np.minimum(v0 + nst, total // V * f)).all()
+        return "run", np.stack([q, q + V], 1)
+    if not up and 3 <= f <= 5 and T % run(f) == 0:
+        U = run(f)
+        runs = total // U
+        if U == V:  # each thread stores its run
+            s = np.arange(runs, dtype=np.int64) * U
+            return "run", np.stack([s, s + U], 1)
+        spans = []
+        for b0 in range(0, runs, nt):  # the block stores its runs' vectors
+            nv = min(runs - b0, nt) * (U // V)
+            s = b0 * U + np.arange(nv, dtype=np.int64) * V
+            spans.append(np.stack([s, s + V], 1))
+        return "run", np.concatenate(spans)
+    s = np.arange(0, total, V, dtype=np.int64)
+    return "vector", np.stack([s, np.minimum(s + V, total)], 1)
+
+
+# the pre-join step's four calls (B=16), then shapes for the vector path
+# (T not a multiple of the vector or the run, T = 1, one row, f = 64) and
+# run shapes whose last block is partial
+@pytest.mark.parametrize("rows,T,f,up", [(384, 48000, 5, False), (768, 9600, 4, False),
+                                         (768, 2400, 4, True), (384, 9600, 5, True),
+                                         (5, 37, 3, True), (5, 111, 4, False), (3, 1, 3, True),
+                                         (1, 333, 5, True), (2, 13, 64, True), (1, 5, 5, False),
+                                         (7, 64, 2, True), (4, 24, 3, False), (2, 120, 3, False),
+                                         (3, 48, 5, False), (1, 40, 5, True)])
+@pytest.mark.parametrize("isz", (4, 2))
+def test_resample_grad_paths_cover_every_output_once(rows, T, f, up, isz):
+    """Kernel J's run and vector paths write every gx element exactly once
+    (each store of the run path a whole 16-byte vector), and each up-mode
+    run thread finds its samples in what its block staged. The step's four
+    shapes take the run path in both precisions."""
+    path, spans = _grad_stores(rows, T, f, up, isz)
+    order = np.argsort(spans[:, 0])
+    spans = spans[order]
+    assert spans[0, 0] == 0 and spans[-1, 1] == rows * T
+    assert (spans[1:, 0] == spans[:-1, 1]).all()  # no gap, no overlap
+    V = 16 // isz
+    if path == "run":
+        assert ((spans[:, 1] - spans[:, 0]) % V == 0).all() and (spans[:, 0] % V == 0).all()
+    if rows >= 384:
+        assert path == "run"
 
 
 def test_wrappers_refuse_other_devices():

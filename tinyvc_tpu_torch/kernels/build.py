@@ -46,7 +46,7 @@ SIGNATURES = {
     "tvc_spectrogram": [_P] * 4 + [_I] * 4 + [_P],
     "tvc_knn": [_P] * 9 + [_I] * 6 + [_F, _F, _P],
     "tvc_oscillator_amps_grad": [_P] * 5 + [_I] * 4 + [_F, _F, _P],
-    "tvc_resample_grad": [_P, _P, _LL, _I, _I, _I, _I, _P],
+    "tvc_resample_grad": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "tvc_up_chain_grad": [_P] * 19 + [_LL] + [_I] * 7 + [_P],
     "tvc_down_chain_grad": [_P] * 20 + [_LL] + [_I] * 6 + [_P],
     "tvc_conv3_grad": [_P] * 7 + [_LL] + [_I] * 6 + [_P],

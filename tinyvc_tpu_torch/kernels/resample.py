@@ -21,7 +21,8 @@ choice of the TPU, the function is the same, and here every resample of a
 CUDA tensor goes through C or D.
 
 - J, :func:`resample_grad`, replaces `tinyvc_tpu/ops/pallas/resample.py::_up_bwd` and ``_down_bwd``:
-  the transposes of C and D. :class:`UpsampleVJP` and
+  the transposes of C and D; its up mode takes its weights from
+  :func:`_grad_tap_table`. :class:`UpsampleVJP` and
   :class:`DownsampleVJP` (:func:`upsample_vjp`, :func:`downsample_vjp`) are
   the training step's differentiable resamples, forward C or D, backward J,
   as the JAX package's ``upsample_vjp`` and ``downsample_vjp``. A bf16
@@ -58,6 +59,17 @@ def _tap_table(factor: int, dtype: torch.dtype, device: torch.device) -> torch.T
     if dtype == torch.bfloat16:
         w = w.to(torch.bfloat16).float()
     return torch.cat([w, w.new_zeros((factor, 1))], 1).contiguous().to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _grad_tap_table(factor: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Kernel J's ``[2*factor, 4]`` fp32 table for a cotangent of ``dtype``:
+    C's table (the band weights, rounded to bf16 for bf16, as
+    :func:`upsample_linear_grad_plain` rounds them), then C's fp32 table
+    (the clamped edges' weights, never rounded). Made once per (factor,
+    dtype, device)."""
+    return torch.cat([_tap_table(factor, dtype, device),
+                      _tap_table(factor, torch.float32, device)]).contiguous()
 
 
 def upsample_linear(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -159,7 +171,8 @@ def resample_grad(g: torch.Tensor, T: int, factor: int, up: bool) -> torch.Tenso
         raise ValueError(f"g {tuple(g.shape)} is not the cotangent of T={T}, factor {factor}")
     gx = torch.empty((R, T), device=g.device, dtype=g.dtype)
     bf16 = g.dtype == torch.bfloat16
-    build.launch("tvc_resample_grad", g, g, gx, R, T, factor, int(up), int(bf16))
+    table = _grad_tap_table(factor, g.dtype, g.device) if up else None
+    build.launch("tvc_resample_grad", g, g, table, gx, R, T, factor, int(up), int(bf16))
     resample_grad.launches += 1
     resample_grad.launches_bf16 += bf16
     return gx
