@@ -49,8 +49,10 @@ Phases, each timed; any failure exits non-zero:
    (the oscillator's amplitude gradient, the resample gradients, the up and
    down chains' gradients) against their plain versions at the step's
    shapes in fp32 and with bf16 operands, timed; one fp32 step with the
-   two-speaker weights, its kernel path against its plain path (losses and
-   every gradient leaf, ``STEP_*``; every kernel of the step must launch);
+   two-speaker weights, its kernel path against its plain path by gates F
+   (the losses and the U-Net's waveform), B (the backward kernels on the
+   plain forward) and C (every gradient leaf, over five sources; ``STEP_*``,
+   `_step_gates`); every kernel of the step must launch;
    the CLI's run of phase 7 gives the pre-join step's warm time.
 7. post-join: the discriminator and the GAN step after its join. Kernels
    M, N, O (the fused MRD forward, its dy/dx sweep, its dW/db sweep)
@@ -61,8 +63,9 @@ Phases, each timed; any failure exits non-zero:
    and resolution and their launches per call; one fp32 post-join step with the
    fused MRD (the two-speaker encoder and decoder, a discriminator drawn
    from the seed, the log-mel loss), its kernel path against its plain path
-   (six losses, every gradient leaf of both networks, ``STEP_*``; M, N and
-   O must launch) and against the conv-form MRD's step
+   (gates F, B and C over six losses and every gradient leaf of both
+   networks, ``STEP_*``; M, N and O must launch) and against the conv-form
+   MRD's step
    (``POSTJOIN_FUSED_RTOL``); then the CLI across the join (``-d-join``,
    the conv-form MRD) and ``train/loop.py::train_decoder`` with the fused
    MRD in bf16 (M, N and O must launch), each with its warm post-join step
@@ -76,7 +79,7 @@ into a git-ignored directory and run parent, change, change, parent in one
 call to compare two commits' request latency on one card; ``--train-step
 [DIR]`` the pre-join step, ``--unet-stages [DIR]`` kernels E's and F's time
 per call, ``--osc-resample [DIR]`` kernels A's, I's and J's, ``--step-chaos
-[DIR]`` the spread of the fp32 step comparison under roundings. Needs CUDA
+[DIR]`` every fp32 step gate of both steps for every draw. Needs CUDA
 and the rest of the repo; imports nothing of JAX or `tinyvc_tpu`.
 """
 
@@ -724,6 +727,13 @@ def phase_unet_kernels(results: dict, rng, dev, bf16: bool = False) -> None:
               lambda: fs.upsample_chain(xu, cond, *wu, **kw),
               lambda: fs.upsample_chain_plain(xu, cond, *wu, **kw), CHAIN_RTOL["up_chain" + sfx],
               True, False, None, groups="fold" if fold else "up")
+        _check_pre(f"up_chain{sfx} C=12 B=2{' folded' if fold else ''}",
+                   lambda p: fs.upsample_chain(xu, cond, *wu, **kw, pre=p),
+                   lambda p: fs.upsample_chain_plain(xu, cond, *wu, **kw, pre=p),
+                   fs.chain_pre(cond, 777, 7 if fold else 0), CHAIN_RTOL["up_chain" + sfx])
+    _check_pre(f"down_chain{sfx} C=12 B=2", lambda p: fs.downsample_chain(z, *wd, 333, p),
+               lambda p: fs.downsample_chain_plain(z, *wd, 333, p), fs.chain_pre(z, 333),
+               CHAIN_RTOL["down_chain" + sfx])
     print(f"  kernel C{sfx}: device {acc['upsample' + sfx]['dev']:.4f} ms a B=1 request "
           f"(5 U-Net calls), bound {_sum_bounds(acc['upsample' + sfx]['bounds'])[0]:.4f} ms")
     print(f"  kernel E{sfx}: device {acc['down_chain' + sfx]['dev']:.4f} ms a B=1 request "
@@ -749,6 +759,36 @@ def phase_unet_kernels(results: dict, rng, dev, bf16: bool = False) -> None:
             max_abs_err=a["err"], ms=a["ms"], plain_ms=a["plain"],
             bound=_sum_bounds(a["bounds"]), library_ms=a["lib"] if lib else None,
         )
+
+
+def _check_pre(label: str, kernel, plain, pre, tol: float) -> None:
+    """The inner pre-activations that a forward chain writes to ``pre`` for
+    the training step's backward (`filter_stage.chain_pre`): the kernel's,
+    on a NaN-filled buffer, finite on each one's columns ([1, E-1), [4,
+    E-4) or [3, E-3), [13, E-13)) and within ``tol`` of each one's peak of
+    the plain version's."""
+    import torch
+
+    from tinyvc_tpu_torch.infer.generator import exact_fp32
+
+    got, want = pre, torch.empty_like(pre)
+    got.fill_(float("nan"))
+    with exact_fp32():
+        kernel(got)
+        plain(want)
+    torch.cuda.synchronize()
+    E = pre.shape[-1]
+    spans = ((1, E - 1), (3, E - 3)) if pre.shape[0] == 2 else ((1, E - 1), (4, E - 4),
+                                                                (13, E - 13))
+    errs = []
+    for g, w, (lo, hi) in zip(got, want, spans):
+        g, w = g[..., lo:hi], w[..., lo:hi]
+        errs.append(float((g - w).abs().max() / w.abs().max()))
+        _check(bool(torch.isfinite(g).all()), f"{label}: pre-activations not written on "
+               f"[{lo}, {hi})")
+    print(f"  {label} pre-activations: max {max(errs):.2e} of each one's peak (tolerance "
+          f"{tol:.0e}), every column of their ranges written")
+    _check(max(errs) <= tol, f"{label}: pre-activations {max(errs)} > {tol}")
 
 
 def phase_unet_stages(card: str) -> None:
@@ -1377,32 +1417,60 @@ def phase_second_device(enc, dec, index, wave, fp32_out, serving_b8_out) -> None
 #     B=16, F=100); the check against the float64 vjp is the tighter gate.
 #  J: the same one- to 15-term fp32 sums in another order: 1e-6 of the peak;
 #     in bf16 one rounding to bf16 of a sum in another order: one bf16 step.
-#  K, L: the exact vjp has jumps where a leaky ReLU's input is 0, and the
-#     recomputed pre-activations (fp32 sums in another order than cuDNN's)
-#     land on the other side of 0 at a few of the 18M positions of up_4,
-#     moving one gradient element by 0.9x its size (on the H100 a float64
-#     evaluation of the recomputed chain agreed with the kernel's but
-#     downstream of such flips). So the full-width
-#     shapes are held by each output's relative L2 error, fp32 1e-3 (the
-#     CPU tests' per-leaf bound for the step), bf16 2**-5 (roundings to bf16
-#     that land one step apart move the masks they feed), and a ragged
-#     small shape, where no flip has room, by the max error: fp32 1e-5 and
-#     bf16 2**-7 of the peak.
+#  K, L: the exact vjp has jumps where a leaky ReLU's input is 0. Without
+#     the forward's pre-activations, the recomputed ones (fp32 sums in
+#     another order than cuDNN's) land on the other side of 0 at a few of
+#     the 18M positions of up_4, moving one gradient element by 0.9x its
+#     size; with them (`pre`, as the training step runs K and L), kernel
+#     and plain version take the same branches. The full-width shapes are
+#     held by each output's relative L2 error, fp32 1e-3 (the CPU tests'
+#     per-leaf bound for the step), bf16 2**-5 (roundings to bf16 that land
+#     one step apart move the products they feed), and a ragged small shape
+#     by the max error: fp32 1e-5 and bf16 2**-7 of the peak.
 GRAD_TOL = {"oscillator_grad": 2e-3, "resample_grad": 1e-6, "resample_grad_bf16": 2.0**-8}
 CHAIN_GRAD_RTOL = {"fp32": (1e-3, 1e-5), "bf16": (2.0**-5, 2.0**-7)}  # (rel L2, max of peak)
-# The full-width step, kernel path against plain path, under the log-mel
-# loss (the multi-scale STFT loss's gradient moves by percents under a 1e-7
-# change of its input, tests/test_torch_train_unet.py::
-# test_ms_stft_gradient_is_chaotic): the losses within 1e-4 relative; the
-# gradient leaves within the CPU tests' 1e-3 relative norm at the median.
-# Leaf by leaf 1e-3 is below the full-width step's own noise floor: the plain
-# path against itself with the U-Net's source moved by 1e-7 moves the worst
-# leaf by 3.0e-3 (leaky ReLUs flipped by a rounding; the H100, ROADMAP.md
-# §3), so each leaf is held within the larger of 1e-3 and twice that
-# floor, measured in the same run.
+# The full-width fp32 steps, kernel path against plain path, under the
+# log-mel loss (the multi-scale STFT loss's gradient moves by percents under
+# a 1e-7 change of its input, tests/test_torch_train_unet.py::
+# test_ms_stft_gradient_is_chaotic), in three gates (`_step_gates`):
+#  F, the forward: the losses within 1e-4 relative, and the U-Net's output
+#     waveform within STEP_FWD_RTOL of its peak. Kernel E's fp32 roundings
+#     flip leaky ReLUs, but a leaky ReLU is continuous, so a flip moves the
+#     forward by a rounding only: the fp32 chains' own bound, CHAIN_RTOL's
+#     1e-5 of the peak, holds the whole U-Net.
+#  B, the backward kernels on one forward: the kernel path with every
+#     forward chain (E, F; M after the join) as its plain version runs the
+#     plain path's forward bit for bit, so its gradient leaves differ by the
+#     backward kernels' roundings (J, K, L; N, O): 1.35e-6 at the median on
+#     the H100 (PERF.md §6). K and L take each inner leaky ReLU's branch
+#     from the forward's pre-activations (`filter_stage.chain_pre`), so no
+#     recomputed one within a rounding of 0 takes the other branch. The
+#     median within STEP_BWD_MEDIAN 1e-5 and each leaf within STEP_BWD_LEAF
+#     1e-3, with no floor factor, catch a backward fault of ~1e-3 that gate
+#     C cannot see; held on every draw of gate C's.
+#  C, the whole path over draws: a flipped leaky ReLU moves the gradients of
+#     the weights upstream of it by a step (the plain path against itself
+#     with the source moved by 1e-7 moves the worst leaf by 3.0e-3), so the
+#     kernel path's distance to the plain path is a draw on the source's
+#     bits (median 2.8e-4 to 1.22e-3 over 1e-6 changes of the source on the
+#     H100, PERF.md §6). The statistics are taken on the shipped source and on
+#     STEP_DRAWS sources multiplied by (1 + STEP_NUDGE e), e ~ N(0, 1) from
+#     a generator seeded with the draw's number, the same e in both paths,
+#     and their medians over the draws are gated: the median over leaves
+#     within the CPU tests' 1e-3 relative norm, STEP_GRAD_RTOL, and each
+#     leaf within the larger of 1e-3 and STEP_FLOOR_FACTOR times its floor,
+#     measured in the same run: the plain path against itself on the
+#     shipped source moved by STEP_FLOOR_NUDGE (a generator seeded with
+#     SEED).
 STEP_LOSS_RTOL = 1e-4
+STEP_FWD_RTOL = 1e-5  # CHAIN_RTOL["up_chain"], of the waveform's peak
+STEP_BWD_MEDIAN = 1e-5
+STEP_BWD_LEAF = 1e-3
 STEP_GRAD_RTOL = 1e-3
 STEP_FLOOR_FACTOR = 2.0
+STEP_DRAWS = 4  # nudged sources beside the shipped one: a median of five
+STEP_NUDGE = 1e-6
+STEP_FLOOR_NUDGE = 1e-7
 # The fused-MRD post-join step against the conv-form one (same state, fp32):
 # loss_g and loss_d within 2e-4 relative, JAX's own bound for the pair
 # (tests/test_mrd_fused.py:236-241).
@@ -1552,10 +1620,19 @@ def phase_train_kernels(results: dict, rng, dev) -> None:
         # K and L with the two-speaker decoder's packed weights. Each check
         # runs the kernel with NaN in every element torch.empty hands it
         # (the workspace, its copies, the outputs), so an unwritten read
-        # shows, and a second call must give the same bits.
+        # shows, and a second call must give the same bits. Kernel and
+        # plain version take the leaky ReLUs' branches from one `pre`: at
+        # the full-width shapes the plain forward's, as the training step
+        # hands them the forward kernels'; at the ragged ones random signs,
+        # which the recomputed pre-activations' cannot be.
         dec = decoder_from_jax(load_npz(os.path.join(ROOT, "models", "two_speaker",
                                                      "decoder_B.npz"))).to(dev)
         w = pack_filter_net(dec.filter_net, 24)
+        sign_rng = np.random.default_rng(7)  # its own: every later check keeps its inputs
+
+        def signs(*shape):
+            return torch.from_numpy(sign_rng.standard_normal(shape).astype(np.float32)).to(dev)
+
         for bf16 in (False, True):
             dt, sfx = (torch.bfloat16, "_bf16") if bf16 else (torch.float32, "")
             isz = 2 if bf16 else 4
@@ -1610,8 +1687,14 @@ def phase_train_kernels(results: dict, rng, dev) -> None:
                 fold = i == 4
                 co = 1 if fold else wu[4].shape[0]
                 xu, cond, gy = randn(b, C, T, dt=dt), randn(b, C, T, dt=dt), randn(b, co, T, scale=1.0)
-                args = (xu, cond, *wu[:6], gy, 7 if fold else 0, wu[6] if fold else None)
                 full = b == B
+                fk, bout = (7, wu[6]) if fold else (0, None)
+                if full:
+                    pre = fs.chain_pre(cond, T, fk)
+                    fs.upsample_chain_plain(xu, cond, *wu[:6], fk, bout, pre=pre)
+                else:
+                    pre = signs(3, b, C, T + 2 * R_UP_OF[fold])
+                args = (xu, cond, *wu[:6], gy, fk, bout, pre)
                 err = check("up_chain_grad", f"up_{i} B={b} [{C} -> {co}, {T}]",
                             lambda: fs.upsample_chain_grad(*args),
                             lambda: fs.upsample_chain_grad_plain(*args), full)
@@ -1656,14 +1739,19 @@ def phase_train_kernels(results: dict, rng, dev) -> None:
                 co, cin = wd[0].shape
                 z, gy = randn(b, cin, T, dt=dt), randn(b, co, T, scale=1.0)
                 full = b == B
+                if full:
+                    pre = fs.chain_pre(z, T)
+                    fs.downsample_chain_plain(z, *wd, pre=pre)
+                else:
+                    pre = signs(2, b, cin, T + 14)
                 err = check("down_chain_grad", f"down_{i + 1} B={b} [{cin} -> {co}, {T}]",
-                            lambda: fs.downsample_chain_grad(z, *wd, gy),
-                            lambda: fs.downsample_chain_grad_plain(z, *wd, gy), full)
+                            lambda: fs.downsample_chain_grad(z, *wd, gy, pre),
+                            lambda: fs.downsample_chain_grad_plain(z, *wd, gy, pre), full)
                 a = acc["down"]
                 a["err"] = max(a["err"], err)
                 if full:
-                    a["ms"] += _cuda_ms(lambda: fs.downsample_chain_grad(z, *wd, gy))
-                    a["plain"] += _cuda_ms(lambda: fs.downsample_chain_grad_plain(z, *wd, gy),
+                    a["ms"] += _cuda_ms(lambda: fs.downsample_chain_grad(z, *wd, gy, pre))
+                    a["plain"] += _cuda_ms(lambda: fs.downsample_chain_grad_plain(z, *wd, gy, pre),
                                            reps=5)
                     a["bounds"].append(_bound(isz * b * cin * T + 4 * b * T * (co + cin),
                                               b * T * (36.0 * cin * cin + 16.0 * cin * co),
@@ -1672,12 +1760,13 @@ def phase_train_kernels(results: dict, rng, dev) -> None:
                     flops = {1: 12.0 * b * E * cin * cin,
                              2: b * E * (12.0 * cin * cin + 6.0 * cin * co) + 2.0 * b * T * cin * co,
                              3: b * E * 12.0 * cin * cin + b * T * 8.0 * cin * co}
-                    groups(f"down_{i + 1}", "down", lambda: fs.downsample_chain_grad(z, *wd, gy),
-                           flops)
+                    groups(f"down_{i + 1}", "down",
+                           lambda: fs.downsample_chain_grad(z, *wd, gy, pre), flops)
             if bf16:
                 # a width the decoder does not use: C (K) and Cin (L) of 12,
                 # whose bf16 copies carry 4 zero channels; ragged, random
-                # weights from their own generator
+                # weights from their own generator; the branches of the
+                # recomputed pre-activations (no `pre`)
                 wr = np.random.default_rng(12)
 
                 def rnd(*shape, dt=torch.float32, scale=0.3):
@@ -2207,129 +2296,235 @@ def _fp32_step():
     return cfg, enc, state, wave, key, step
 
 
-def phase_step_chaos(card: str, draws: int = 4) -> None:
-    """How far `phase_train_step`'s gradient comparison moves when nothing
-    but roundings change: the median and worst leaf errors (the statistics
-    that `STEP_GRAD_RTOL` and `STEP_FLOOR_FACTOR` bound) of the kernel path
-    against the plain path as the check runs them; of the kernel path with
-    kernel E's forward (stem and down chains) as its plain version; of the
-    backward kernels alone (every forward chain plain); and of the kernel
-    path against the plain path with the source multiplied by (1 + 1e-6 e),
-    e ~ N(0, 1), the same draw in both paths, for ``draws`` draws. Any
-    checkout's port, so that parent and change compare in one call."""
+def _fp32_postjoin_step():
+    """(cfg, encoder, state, wave, key, step) of `phase_postjoin_step`'s
+    comparison: the two-speaker encoder and decoder, a discriminator drawn
+    from the seed, B=16 x 2 s, the log-mel loss, fp32 operands, the fused
+    U-Net and the fused MRD."""
     import torch
 
+    from tinyvc_tpu_torch.config import DecoderConfig, DiscriminatorConfig, TinyVCConfig
+    from tinyvc_tpu_torch.train import decoder_train as dt
+    from tinyvc_tpu_torch.train.loop import load_encoder
+    from tinyvc_tpu_torch.utils import prng
+    from tinyvc_tpu_torch.utils.weights import load_npz, train_state_from_jax
+
+    models = os.path.join(ROOT, "models", "two_speaker")
+    cfg = TinyVCConfig(decoder=DecoderConfig(use_fused_filter_train="on"),
+                       discriminator=DiscriminatorConfig(mrd_conv_impl="fused"))
+    enc = load_encoder(os.path.join(models, "encoder_B.npz"), cfg, SEED, "cuda")
+    state = dt.init_state(cfg, SEED + 1, "cuda")
+    init = train_state_from_jax(load_npz(os.path.join(models, "decoder_B.npz")), cfg.decoder,
+                                cfg.audio, "cuda")
+    state.decoder, state.gen_opt = init.decoder, init.gen_opt
+    wave = torch.from_numpy(_demo_windows()).cuda()
+    key = prng.split(prng.prng_key(SEED + 2))[1]
+    step = dt.make_train_step(cfg, d_join=True, spec_loss_type="mel", dtype_name="float32")
+    return cfg, enc, state, wave, key, step
+
+
+PREJOIN_LOSSES = ("loss_spec", "loss_dsp")
+POSTJOIN_LOSSES = ("loss_spec", "loss_dsp", "loss_adv", "loss_feat", "loss_g", "loss_d")
+
+
+def _prejoin_outputs(out):
+    """(metrics, gradient leaves) of a pre-join ``loss_and_grads``."""
+    return out[1], out[2]
+
+
+def _postjoin_outputs(out):
+    """(metrics with ``loss_g``, the leaves of both networks) of a post-join
+    ``loss_and_grads``."""
+    return out[1] | {"loss_g": out[0]}, ({f"gen {k}": v for k, v in out[2].items()}
+                                        | {f"disc {k}": v for k, v in out[3].items()})
+
+
+def _plain_forward(post_join: bool) -> list:
+    """(module, name, plain version) of every forward chain kernel of the
+    fp32 step: E (stem, down chains) and F (up chains), and M after the
+    join. Set in place of the wrappers, they make the kernel path run the
+    plain path's forward (gate B)."""
     from tinyvc_tpu_torch.kernels import filter_stage as fs
-    from tinyvc_tpu_torch.kernels import resample as rs
+    from tinyvc_tpu_torch.kernels import mrd
+
+    plain = [(fs, "conv3", fs.conv3_plain), (fs, "downsample_chain", fs.downsample_chain_plain),
+             (fs, "upsample_chain", fs.upsample_chain_plain)]
+    if post_join:
+        plain.append((mrd, "mrd_forward", lambda spec, ws, bs, plan: (
+            mrd.mrd_forward_plain(spec, ws, bs, plan), [None] * len(plan.layers))))
+    return plain
+
+
+def _step_runner(step, args, outputs, plain_modules):
+    """``run(plain=False, forward=(), nudges=())`` -> (metrics, gradient
+    leaves, the U-Net's output waveform) of one ``step.loss_and_grads(*args)``:
+    the kernel path, or with ``plain`` the plain path (``plain_modules`` send
+    CUDA tensors to their plain versions); ``forward``'s (module, name,
+    value) set for the call; for each (seed, scale) of ``nudges`` in turn,
+    the U-Net's source multiplied by (1 + scale e), e ~ N(0, 1) from a
+    generator seeded with ``seed`` (the same e in both paths). ``outputs``
+    turns the step's output into (metrics, leaves)."""
+    import torch
+
     from tinyvc_tpu_torch.models.decoder import Decoder
 
-    _, enc, state, wave, key, step = _fp32_step()
-    orig = Decoder.dsp_train
-    saved = {k: getattr(fs, k) for k in ("conv3", "downsample_chain", "upsample_chain")}
-    plain_e = {"conv3": fs.conv3_plain, "downsample_chain": fs.downsample_chain_plain}
-    plain_fwd = dict(plain_e, upsample_chain=fs.upsample_chain_plain)
-
-    def grads(plain=False, forward=None, draw=None):
-        gen = torch.Generator(device="cuda")
+    def run(plain=False, forward=(), nudges=()):
+        orig = Decoder.dsp_train
+        fakes = []
 
         def nudged(self, *a):
             src = orig(self, *a)
-            gen.manual_seed(draw)
-            return src * (1.0 + 1e-6 * torch.randn(src.shape, device=src.device, generator=gen))
+            for seed, scale in nudges:
+                gen = torch.Generator(device=src.device).manual_seed(seed)
+                src = src * (1.0 + scale * torch.randn(src.shape, device=src.device,
+                                                       generator=gen))
+            return src
 
-        if draw is not None:
-            Decoder.dsp_train = nudged
-        for k, v in (forward or {}).items():
-            setattr(fs, k, v)
+        def captured(*a):
+            fake, source = type(step).forward_fake(step, *a)
+            fakes.append(fake.detach())
+            return fake, source
+
+        saved = [(m, n, getattr(m, n)) for m, n, _ in forward]
+        Decoder.dsp_train = nudged
+        for m, n, v in forward:
+            setattr(m, n, v)
+        step.forward_fake = captured
         try:
-            with _PlainDispatch(fs, rs) if plain else contextlib.nullcontext():
-                return step.loss_and_grads(state, enc, wave, key)[2]
+            with _PlainDispatch(*plain_modules) if plain else contextlib.nullcontext():
+                metrics, leaves = outputs(step.loss_and_grads(*args))
         finally:
+            del step.forward_fake
             Decoder.dsp_train = orig
-            for k, v in saved.items():
-                setattr(fs, k, v)
+            for m, n, v in saved:
+                setattr(m, n, v)
+        return metrics, leaves, fakes[0]
 
-    def report(label, got, want):
-        errs = _leaf_errors(got, want)
-        worst = max(errs, key=errs.get)
-        print(f"  {label}: median {statistics.median(errs.values()):.2e}, leaves over "
-              f"{STEP_GRAD_RTOL:.0e} {sum(e > STEP_GRAD_RTOL for e in errs.values())} of "
-              f"{len(errs)}, worst {worst} {errs[worst]:.2e}")
+    return run
 
-    g_plain = grads(plain=True)
-    report("kernel path vs plain path", grads(), g_plain)
-    report("kernel E's forward plain", grads(forward=plain_e), g_plain)
-    report("every forward chain plain (the backward kernels alone)", grads(forward=plain_fwd),
-           g_plain)
-    for d in range(draws):
-        report(f"source x (1 + 1e-6 e), draw {d}", grads(draw=d), grads(plain=True, draw=d))
+
+def _step_gates(run, loss_names, plain_forward, shipped=None, every_draw=False) -> list:
+    """Gates F, B and C (``STEP_*``) of one fp32 step; ``run`` is a
+    `_step_runner`, ``shipped`` its kernel path's output on the shipped
+    source if already run. Gate F (the losses on the shipped source, the
+    U-Net's waveform) and gate B (the kernel path with ``plain_forward``
+    against the plain path) on every draw; gate C's statistics on every
+    draw and gated by their medians over the draws, each leaf's floor
+    measured on the shipped source (with ``every_draw``, the diagnostic,
+    each draw's floor printed too). Prints every statistic and returns the
+    gates that failed."""
+    failures = []
+
+    def gate(ok, msg):
+        if not ok:
+            failures.append(msg)
+            print(f"  FAILED: {msg}")
+
+    def worst(errs):
+        k = max(errs, key=errs.get)
+        return f"{k} {errs[k]:.2e}"
+
+    floors, per_draw = [], []
+    for d in [None, *range(STEP_DRAWS)]:
+        label = "shipped source" if d is None else f"source x (1 + {STEP_NUDGE:.0e} e), draw {d}"
+        nudges = () if d is None else ((d, STEP_NUDGE),)
+        met_k, g_k, fake_k = shipped if d is None and shipped is not None else run(nudges=nudges)
+        met_p, g_p, fake_p = run(plain=True, nudges=nudges)
+        if d is None:
+            for name in loss_names:
+                a, b = float(met_k[name]), float(met_p[name])
+                print(f"  {name}: kernel path {a:.7f}, plain path {b:.7f}, relative "
+                      f"{abs(a - b) / abs(b):.2e} (tolerance {STEP_LOSS_RTOL:.0e})")
+                gate(abs(a - b) <= STEP_LOSS_RTOL * abs(b), f"gate F: {name} differs")
+        # the plain path against itself, this source moved by STEP_FLOOR_NUDGE
+        # more: how far a leaky ReLU flipped by a rounding moves each leaf
+        if d is None or every_draw:
+            floors.append(_leaf_errors(
+                run(plain=True, nudges=(*nudges, (SEED, STEP_FLOOR_NUDGE)))[1], g_p))
+        e_f = float((fake_k - fake_p).abs().max() / fake_p.abs().max())
+        line = f"  {label}: gate F waveform {e_f:.2e} of the peak"
+        gate(e_f <= STEP_FWD_RTOL, f"gate F ({label}): waveform {e_f:.3e} > {STEP_FWD_RTOL}")
+        e_b = _leaf_errors(run(forward=plain_forward, nudges=nudges)[1], g_p)
+        m_b = statistics.median(e_b.values())
+        line += f"; gate B median {m_b:.2e}, worst {worst(e_b)}"
+        gate(m_b <= STEP_BWD_MEDIAN, f"gate B ({label}): median {m_b:.3e} > {STEP_BWD_MEDIAN}")
+        for k, e in e_b.items():
+            gate(e <= STEP_BWD_LEAF, f"gate B ({label}): {k} {e:.3e} > {STEP_BWD_LEAF}")
+        errs = _leaf_errors(g_k, g_p)
+        per_draw.append(errs)
+        if d is None or every_draw:
+            line += (f"; floor median {statistics.median(floors[-1].values()):.2e}, worst "
+                     f"{worst(floors[-1])}")
+        print(line + f"; gate C median {statistics.median(errs.values()):.2e}, worst "
+              f"{worst(errs)}")
+    med = statistics.median(statistics.median(e.values()) for e in per_draw)
+    leaf = {k: statistics.median(e[k] for e in per_draw) for k in per_draw[0]}
+    floor = floors[0]  # the shipped source's
+    keys = sorted(leaf, key=leaf.get, reverse=True)[:6]
+    print(f"  gate C over {len(per_draw)} sources ({len(leaf)} leaves): median of the medians "
+          f"{med:.2e} (tolerance {STEP_GRAD_RTOL:.0e}); worst leaves' medians "
+          + ", ".join(f"{k} {leaf[k]:.2e} (floor {floor[k]:.2e})" for k in keys)
+          + f"; the shipped source's floor median {statistics.median(floor.values()):.2e} "
+          f"(each leaf max({STEP_GRAD_RTOL:.0e}, {STEP_FLOOR_FACTOR:g} x floor))")
+    gate(med <= STEP_GRAD_RTOL, f"gate C: median {med:.3e} > {STEP_GRAD_RTOL}")
+    for k, e in leaf.items():
+        limit = max(STEP_GRAD_RTOL, STEP_FLOOR_FACTOR * floor[k])
+        gate(e <= limit, f"gate C: {k} {e:.3e} > {limit:.3e}")
+    return failures
+
+
+def phase_step_chaos(card: str) -> None:
+    """The diagnostic of the fp32 step gates: `_step_gates` of the pre-join
+    and of the post-join step with gates F and B on every draw too, every
+    statistic of every draw printed, and the gates that failed listed (not
+    raised). Any checkout's port, so that parent and change compare in one
+    call."""
+    from tinyvc_tpu_torch.kernels import filter_stage as fs
+    from tinyvc_tpu_torch.kernels import mrd
+    from tinyvc_tpu_torch.kernels import resample as rs
+
+    for post_join in (False, True):
+        _, enc, state, wave, key, step = (_fp32_postjoin_step if post_join else _fp32_step)()
+        run = _step_runner(step, (state, enc, wave, key),
+                           _postjoin_outputs if post_join else _prejoin_outputs,
+                           (fs, rs, mrd) if post_join else (fs, rs))
+        names = POSTJOIN_LOSSES if post_join else PREJOIN_LOSSES
+        print(f"  {'post-join' if post_join else 'pre-join'} step:")
+        failures = _step_gates(run, names, _plain_forward(post_join), every_draw=True)
+        print(f"  {'post-join' if post_join else 'pre-join'} gates: "
+              + ("all passed" if not failures else f"{len(failures)} failed"))
     print(f"  ({card})")
 
 
 def phase_train_step(card: str) -> dict:
     """One full-width pre-join step (B=16, 2 s, the two-speaker encoder and
     decoder) in fp32, the kernel path against the plain path on the same
-    state, wave and key: the plain path runs every kernel of the U-Net and
-    the resamples as its plain version on the card; the oscillator pair (A,
-    I) runs in both, since its plain versions integrate the phase by the
-    XLA scheme, which differs by design and moves a voiced step's gradients
-    more than the bound (A and I are held to their plain versions above).
-    Returns the fp32 launches of the kernel-path step."""
+    state, wave and key, by gates F, B and C (`_step_gates`): the plain path
+    runs every kernel of the U-Net and the resamples as its plain version on
+    the card; the oscillator pair (A, I) runs in both, since its plain
+    versions integrate the phase by the XLA scheme, which differs by design
+    and moves a voiced step's gradients more than the bound (A and I are
+    held to their plain versions above). Returns the fp32 launches of the
+    kernel-path step."""
     import torch
 
     from tinyvc_tpu_torch.kernels import filter_stage as fs
     from tinyvc_tpu_torch.kernels import resample as rs
-    from tinyvc_tpu_torch.models.decoder import Decoder
     from tinyvc_tpu_torch.train import decoder_train as dt
 
     cfg, enc, state, wave, key, step = _fp32_step()
+    run = _step_runner(step, (state, enc, wave, key), _prejoin_outputs, (fs, rs))
     _reset_train_counts()
     t0 = time.perf_counter()
-    loss_k, met_k, g_k = step.loss_and_grads(state, enc, wave, key)
+    shipped = run()
     torch.cuda.synchronize()
     t_kernel = time.perf_counter() - t0
     launches = {k: n for k, (n, _) in _train_counts().items()}
     print(f"  kernel path: {t_kernel * 1e3:.1f} ms (cold), launches {launches}")
     for name, n in launches.items():
         _check(n > 0, f"{name} was not launched in the fp32 step")
-    t0 = time.perf_counter()
-    with _PlainDispatch(fs, rs):
-        loss_p, met_p, g_p = step.loss_and_grads(state, enc, wave, key)
-    torch.cuda.synchronize()
-    print(f"  plain path: {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    for name in ("loss_spec", "loss_dsp"):
-        a, b = float(met_k[name]), float(met_p[name])
-        print(f"  {name}: kernel path {a:.6f}, plain path {b:.6f}, relative "
-              f"{abs(a - b) / abs(b):.2e} (tolerance {STEP_LOSS_RTOL:.0e})")
-        _check(abs(a - b) <= STEP_LOSS_RTOL * abs(b), f"{name} differs")
-    errs = _leaf_errors(g_k, g_p)
-    # the plain path against itself with the U-Net's source moved by 1e-7
-    # (relative): how far a leaky ReLU flipped by a rounding moves each leaf
-    orig = Decoder.dsp_train
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-
-    def nudged(self, *a):
-        src = orig(self, *a)
-        return src * (1.0 + 1e-7 * torch.randn(src.shape, device=src.device, generator=gen))
-
-    Decoder.dsp_train = nudged
-    try:
-        with _PlainDispatch(fs, rs):
-            _, met_n, g_n = step.loss_and_grads(state, enc, wave, key)
-    finally:
-        Decoder.dsp_train = orig
-    floor = _leaf_errors(g_n, g_p)
-    worst = sorted(errs, key=errs.get, reverse=True)
-    print(f"  gradient leaves ({len(errs)}): worst relative norm error kernel vs plain "
-          + ", ".join(f"{k} {errs[k]:.2e} (plain vs nudged plain {floor[k]:.2e})"
-                      for k in worst[:6])
-          + f"; median {statistics.median(errs.values()):.2e}, nudged median "
-          f"{statistics.median(floor.values()):.2e} (tolerance: median {STEP_GRAD_RTOL:.0e}, "
-          f"each leaf max({STEP_GRAD_RTOL:.0e}, {STEP_FLOOR_FACTOR:g} x nudged))")
-    _check(statistics.median(errs.values()) <= STEP_GRAD_RTOL, "gradients differ at the median")
-    for k, e in errs.items():
-        limit = max(STEP_GRAD_RTOL, STEP_FLOOR_FACTOR * floor[k])
-        _check(e <= limit, f"gradient of {k} differs by {e} > {limit}")
+    failures = _step_gates(run, PREJOIN_LOSSES, _plain_forward(False), shipped)
+    _check(not failures, "fp32 step: " + "; ".join(failures))
     # the fp32 step warm (forward and backward, no update): host time and
     # one profiled call
     times = []
@@ -2391,96 +2586,42 @@ def phase_postjoin_step(card: str) -> dict:
     the same state, wave and key (M, N, O and the U-Net's and resamples'
     kernels as their plain versions on the card; the oscillator pair in both,
     as in `phase_train_step`), every loss and every gradient leaf of both
-    networks; then the fused-MRD step against the conv-form ("lax") step.
-    Returns the fp32 launches of M, N and O in the kernel-path step."""
+    networks, by gates F, B and C (`_step_gates`); then the fused-MRD step
+    against the conv-form ("lax") step. Returns the fp32 launches of M, N
+    and O in the kernel-path step."""
     import dataclasses
 
     import torch
 
-    from tinyvc_tpu_torch.config import DecoderConfig, DiscriminatorConfig, TinyVCConfig
+    from tinyvc_tpu_torch.config import DiscriminatorConfig
     from tinyvc_tpu_torch.kernels import filter_stage as fs
     from tinyvc_tpu_torch.kernels import mrd
     from tinyvc_tpu_torch.kernels import resample as rs
-    from tinyvc_tpu_torch.models.decoder import Decoder
     from tinyvc_tpu_torch.models.discriminator import Discriminator
     from tinyvc_tpu_torch.train import decoder_train as dt
-    from tinyvc_tpu_torch.train.loop import load_encoder
-    from tinyvc_tpu_torch.utils import prng
-    from tinyvc_tpu_torch.utils.weights import load_npz, train_state_from_jax
 
-    models = os.path.join(ROOT, "models", "two_speaker")
-    cfg = TinyVCConfig(decoder=DecoderConfig(use_fused_filter_train="on"),
-                       discriminator=DiscriminatorConfig(mrd_conv_impl="fused"))
-    enc = load_encoder(os.path.join(models, "encoder_B.npz"), cfg, SEED, "cuda")
-    state = dt.init_state(cfg, SEED + 1, "cuda")
-    init = train_state_from_jax(load_npz(os.path.join(models, "decoder_B.npz")), cfg.decoder,
-                                cfg.audio, "cuda")
-    state.decoder, state.gen_opt = init.decoder, init.gen_opt
-    wave = torch.from_numpy(_demo_windows()).cuda()
-    key = prng.split(prng.prng_key(SEED + 2))[1]
-    step = dt.make_train_step(cfg, d_join=True, spec_loss_type="mel", dtype_name="float32")
-
-    def grads(*out):
-        return out[1] | {"loss_g": out[0]}, (
-            {f"gen {k}": v for k, v in out[2].items()}
-            | {f"disc {k}": v for k, v in out[3].items()})
-
+    cfg, enc, state, wave, key, step = _fp32_postjoin_step()
+    run = _step_runner(step, (state, enc, wave, key), _postjoin_outputs, (fs, rs, mrd))
     _reset_mrd_counts()
     t0 = time.perf_counter()
-    met_k, g_k = grads(*step.loss_and_grads(state, enc, wave, key))
+    shipped = run()
     torch.cuda.synchronize()
     t_kernel = time.perf_counter() - t0
     launches = {k: n for k, (n, _) in _mrd_counts().items()}
     print(f"  kernel path: {t_kernel * 1e3:.1f} ms (cold), launches of M, N, O {launches}")
     for name, n in launches.items():
         _check(n > 0, f"{name} was not launched in the fp32 post-join step")
-    t0 = time.perf_counter()
-    with _PlainDispatch(fs, rs, mrd):
-        met_p, g_p = grads(*step.loss_and_grads(state, enc, wave, key))
-    torch.cuda.synchronize()
-    print(f"  plain path: {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    for name in ("loss_spec", "loss_dsp", "loss_adv", "loss_feat", "loss_g", "loss_d"):
-        a, b = float(met_k[name]), float(met_p[name])
-        print(f"  {name}: kernel path {a:.7f}, plain path {b:.7f}, relative "
-              f"{abs(a - b) / abs(b):.2e} (tolerance {STEP_LOSS_RTOL:.0e})")
-        _check(abs(a - b) <= STEP_LOSS_RTOL * abs(b), f"{name} differs")
-    errs = _leaf_errors(g_k, g_p)
-    orig = Decoder.dsp_train
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-
-    def nudged(self, *a):
-        src = orig(self, *a)
-        return src * (1.0 + 1e-7 * torch.randn(src.shape, device=src.device, generator=gen))
-
-    Decoder.dsp_train = nudged
-    try:
-        with _PlainDispatch(fs, rs, mrd):
-            _, g_n = grads(*step.loss_and_grads(state, enc, wave, key))
-    finally:
-        Decoder.dsp_train = orig
-    floor = _leaf_errors(g_n, g_p)
-    worst = sorted(errs, key=errs.get, reverse=True)
-    for label in ("gen", "disc"):
-        e = [v for k, v in errs.items() if k.startswith(label)]
-        print(f"  {label} leaves ({len(e)}): median relative norm error {statistics.median(e):.2e}")
-    print(f"  gradient leaves ({len(errs)}): worst kernel vs plain "
-          + ", ".join(f"{k} {errs[k]:.2e} (nudged plain {floor[k]:.2e})" for k in worst[:6])
-          + f"; median {statistics.median(errs.values()):.2e}, nudged median "
-          f"{statistics.median(floor.values()):.2e} (tolerance: median {STEP_GRAD_RTOL:.0e}, "
-          f"each leaf max({STEP_GRAD_RTOL:.0e}, {STEP_FLOOR_FACTOR:g} x nudged))")
-    _check(statistics.median(errs.values()) <= STEP_GRAD_RTOL, "gradients differ at the median")
-    for k, e in errs.items():
-        limit = max(STEP_GRAD_RTOL, STEP_FLOOR_FACTOR * floor[k])
-        _check(e <= limit, f"gradient of {k} differs by {e} > {limit}")
+    failures = _step_gates(run, POSTJOIN_LOSSES, _plain_forward(True), shipped)
+    _check(not failures, "fp32 post-join step: " + "; ".join(failures))
     # the fused MRD against the conv form, same state (identical parameter trees)
     lax_cfg = dataclasses.replace(cfg, discriminator=DiscriminatorConfig())
     lax_disc = Discriminator(lax_cfg.discriminator).cuda()
     lax_disc.load_state_dict(state.discriminator.state_dict())
     lax = dt.make_train_step(lax_cfg, d_join=True, spec_loss_type="mel", dtype_name="float32")
-    met_l, _ = grads(*lax.loss_and_grads(dataclasses.replace(state, discriminator=lax_disc),
-                                         enc, wave, key))
+    met_l, _ = _postjoin_outputs(lax.loss_and_grads(
+        dataclasses.replace(state, discriminator=lax_disc), enc, wave, key))
     for name in ("loss_g", "loss_d"):
-        a, b = float(met_k[name]), float(met_l[name])
+        a, b = float(shipped[0][name]), float(met_l[name])
         print(f"  {name}: fused MRD {a:.7f}, conv form {b:.7f}, relative "
               f"{abs(a - b) / abs(b):.2e} (tolerance {POSTJOIN_FUSED_RTOL:.0e})")
         _check(abs(a - b) <= POSTJOIN_FUSED_RTOL * abs(b), f"{name}: fused MRD vs conv form")
@@ -2784,9 +2925,9 @@ def main(argv=None) -> int:
     env, build and E's and F's time per call (`phase_unet_stages`), of the
     port in DIR. ``--osc-resample [DIR]``: env, build and A's, I's and J's
     time and output digest per call (`phase_osc_resample`), of the port in
-    DIR. ``--step-chaos [DIR]``: env, build and the spread of the fp32 step
-    comparison's statistics under roundings (`phase_step_chaos`), of the
-    port in DIR."""
+    DIR. ``--step-chaos [DIR]``: env, build and gates F, B and C of the
+    pre-join and post-join fp32 steps with every statistic of every draw
+    (`phase_step_chaos`), of the port in DIR."""
     global ROOT
     args = sys.argv[1:] if argv is None else argv
     modes = {"--profile": phase_profile_only, "--train-step": phase_train_step,

@@ -283,6 +283,115 @@ def test_plain_grads_are_autograd_of_the_plain_forwards_in_fp32(rng):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-7)
 
 
+def _chain_case(rng, kind, bf16):
+    """(forward, plain grad, input pre-activation buffer) of a small up,
+    folded up or down chain on CPU tensors (bf16 operands with ``bf16``)."""
+    dt = torch.bfloat16 if bf16 else torch.float32
+    B, C, T = 2, 8, 300
+    if kind == "down":
+        co = 12
+        z = torch.from_numpy(_r(rng, B, C, T)).to(dt)
+        ws = [_t(w) for w in (_r(rng, co, C, scale=0.3), _r(rng, co, 1, scale=0.1),
+                              _r(rng, C, 3 * C, scale=0.3), _r(rng, C, 1, scale=0.1),
+                              _r(rng, C, 3 * C, scale=0.3), _r(rng, C, 1, scale=0.1),
+                              _r(rng, co, 3 * C, scale=0.3), _r(rng, co, 1, scale=0.1))]
+        gy = _t(_r(rng, B, co, T))
+        return (lambda pre: fs.downsample_chain(z, *ws, pre=pre),
+                lambda pre: fs.downsample_chain_grad_plain(z, *ws, gy, pre),
+                fs.chain_pre(z, T))
+    fold = 7 if kind == "fold" else 0
+    co = 1 if fold else 4
+    xu, cond = (torch.from_numpy(_r(rng, B, C, T)).to(dt) for _ in range(2))
+    ws = [_t(w) for w in _up_weights(rng, C, co, fold)]
+    bout = _t(_r(rng, 1, 1, scale=0.1)) if fold else None
+    gy = _t(_r(rng, B, co, T))
+    return (lambda pre: fs.upsample_chain(xu, cond, *ws, fold, bout, pre=pre),
+            lambda pre: fs.upsample_chain_grad_plain(xu, cond, *ws, gy, fold, bout, pre),
+            fs.chain_pre(cond, T, fold))
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kind", ["up", "fold", "down"])
+def test_chain_grads_take_the_forwards_branches(monkeypatch, rng, kind, bf16):
+    """Given the forward's inner pre-activations (``pre``), the plain
+    versions of K and L take each leaky ReLU's branch from their signs:
+    with the forward's own, the gradients are those of the recomputed
+    chain; with every one positive (negative), those of the chain whose
+    inner leaky ReLUs have the slope 1 (0.1) in the backward and the same
+    values in the forward (each output within 1e-5 of its peak, fp32 sums
+    in another order; bf16 operands 2**-7, a cotangent rounded to bf16 one
+    step apart). The input's leaky ReLU keeps its own branch."""
+    forward, grad, pre = _chain_case(rng, kind, bf16)
+    tol = 2.0**-7 if bf16 else 1e-5
+
+    def close(got, want):
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+    pre.fill_(float("nan"))
+    forward(pre)
+    own = grad(None)
+    close(grad(pre), own)  # the same branches, autograd's sums in another order
+    for sign, slope in ((1.0, 1.0), (-1.0, 0.1)):
+        got = grad(torch.full_like(pre, sign))
+        with monkeypatch.context() as m:
+            m.setattr(fs, "_act", lambda h, *_, s=slope: h * s + (fs._lrelu(h) - h * s).detach())
+            close(got, grad(None))
+        assert any((a - b).abs().max() > 1e-3 for a, b in zip(got, own))
+
+
+@pytest.mark.parametrize("kind", ["up", "fold", "down"])
+def test_chain_forward_writes_its_pre_activations(rng, kind):
+    """The plain forward writes each inner pre-activation on exactly its
+    columns of ``pre`` (the up chain's [1, E-1), [4, E-4), [13, E-13); the
+    down chain's [1, E-1), [3, E-3)) and nothing else."""
+    forward, _, pre = _chain_case(rng, kind, False)
+    pre.fill_(float("nan"))
+    forward(pre)
+    E = pre.shape[-1]
+    spans = [(1, E - 1), (3, E - 3)] if kind == "down" else [(1, E - 1), (4, E - 4),
+                                                             (13, E - 13)]
+    assert len(spans) == pre.shape[0]
+    for p, (lo, hi) in zip(pre, spans):
+        assert torch.isfinite(p[..., lo:hi]).all()
+        assert torch.isnan(p[..., :lo]).all() and torch.isnan(p[..., hi:]).all()
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kind", ["up", "down"])
+def test_chain_modules_hand_the_forwards_pre_activations_on(monkeypatch, rng, kind, bf16):
+    """`UpChain` and `DownChain` give the forward a `chain_pre` buffer and
+    their backward the same buffer, so that K and L take the forward's
+    branches."""
+    seen = {}
+    names = ("upsample_chain", "upsample_chain_grad") if kind == "up" else (
+        "downsample_chain", "downsample_chain_grad")
+    for name in names:
+        orig = getattr(fs, name)
+
+        def spy(*a, _orig=orig, _name=name, **k):
+            seen[_name] = k["pre"] if "pre" in k else a[-1]
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(fs, name, spy)
+    B, C, T = 2, 8, 300
+    if kind == "up":
+        xu = torch.from_numpy(_r(rng, B, C, T)).requires_grad_()
+        cond = torch.from_numpy(_r(rng, B, C, T)).requires_grad_()
+        ws = [torch.from_numpy(w).requires_grad_() for w in _up_weights(rng, C, 4, 0)]
+        y = fs.UpChain.apply(xu, cond, *ws, None, 0, bf16)
+        shape = (3, B, C, T + 2 * fs.R_UP)
+    else:
+        z = torch.from_numpy(_r(rng, B, C, T)).requires_grad_()
+        ws = [torch.from_numpy(_r(rng, *s, scale=0.3)).requires_grad_() for s in (
+            (12, C), (12, 1), (C, 3 * C), (C, 1), (C, 3 * C), (C, 1), (12, 3 * C), (12, 1))]
+        y = fs.DownChain.apply(z, *ws, bf16)
+        shape = (2, B, C, T + 2 * fs.R_DOWN)
+    y.float().sum().backward()
+    fwd, bwd = (seen[n] for n in names)
+    assert fwd is bwd and tuple(fwd.shape) == shape and fwd.dtype == torch.float32
+
+
 def test_chain_functions_cast_and_return_grads_in_input_dtypes(rng):
     """The bf16-operand chains store the down path in bf16 and return each
     input's gradient in that input's dtype, as the JAX package's custom_vjp

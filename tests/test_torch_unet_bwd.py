@@ -9,6 +9,7 @@ and holds them to the plain versions on the card; the parity with JAX is in
 `test_torch_train_kernels.py`."""
 
 import ctypes
+import re
 
 import numpy as np
 import pytest
@@ -169,3 +170,65 @@ def test_chip_smoke_launch_groups_count_each_design():
         groups = chip_smoke._unet_launch_groups(kind, tc)
         assert len(groups) == n and set(groups) <= set(range(len(chip_smoke.UNET_GROUPS)))
         assert groups == sorted(groups) or not tc
+
+
+def _entry_params(name):
+    """The parameter names of the C entry ``name`` in `csrc/`."""
+    for src in build.CSRC.glob("*.cu"):
+        m = re.search(r'extern "C" int ' + name + r"\((.*?)\)\s*\{", src.read_text(), re.S)
+        if m:
+            return [p.split()[-1].lstrip("*") for p in m.group(1).split(",")]
+    raise AssertionError(f"{name} not found")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kind", ["up", "fold", "down"])
+def test_wrappers_pass_pre_where_the_entry_takes_it(monkeypatch, kind, dtype):
+    """The forward chains' wrappers (E, F) and the gradients' (K, L) hand
+    their ``pre`` tensor to the parameter that the C entry names ``pre``,
+    in every call (a size query too); without ``pre`` that parameter is
+    null."""
+    calls = []
+
+    def fake_launch(name, t, *args):
+        calls.append((name, args))
+        params = _entry_params(name)
+        if "ws_bytes" in params and args[params.index("ws")] is None:
+            args[params.index("ws_bytes")]._obj.value = 64
+
+    monkeypatch.setattr(build, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(build, "check_input", lambda *a, **k: None)
+    monkeypatch.setattr(build, "launch", fake_launch)
+    for wrapper in (fs.upsample_chain, fs.downsample_chain, fs.upsample_chain_grad,
+                    fs.downsample_chain_grad):
+        for counter in ("launches", "launches_bf16"):  # other tests read them
+            monkeypatch.setattr(wrapper, counter, 0)
+    B, C, co, T = 2, 8, 4, 50
+    z = lambda *s: torch.zeros(s)  # noqa: E731
+    if kind == "down":
+        ws = [z(co, C), z(co, 1), z(C, 3 * C), z(C, 1), z(C, 3 * C), z(C, 1), z(co, 3 * C),
+              z(co, 1)]
+        x = z(B, C, T).to(dtype)
+        pre = fs.chain_pre(x, T)
+        forward = lambda p: fs.downsample_chain(x, *ws, pre=p)  # noqa: E731
+        grad = lambda p: fs.downsample_chain_grad(x, *ws, z(B, co, T), p)  # noqa: E731
+    else:
+        fold = 7 if kind == "fold" else 0
+        co = 1 if fold else co
+        ws = [z(4, C, 3 * C), z(4, C, 1), z(4 * C, C), z(4 * C, 1), z(fold or co, C),
+              z(fold or co, 1)]
+        x = z(B, C, T).to(dtype)
+        bout = z(1, 1) if fold else None
+        pre = fs.chain_pre(x, T, fold)
+        forward = lambda p: fs.upsample_chain(x, x, *ws, fold, bout, pre=p)  # noqa: E731
+        grad = lambda p: fs.upsample_chain_grad(x, x, *ws, z(B, co, T), fold, bout,  # noqa: E731
+                                                p)
+    for call in (forward, grad):
+        for p in (pre, None):
+            calls.clear()
+            call(p)
+            assert calls
+            for name, args in calls:
+                params = _entry_params(name)
+                assert len(args) == len(params) - 1  # all but the stream
+                assert args[params.index("pre")] is p, name

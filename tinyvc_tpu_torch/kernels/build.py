@@ -41,17 +41,17 @@ SIGNATURES = {
     "tvc_upsample_linear": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "tvc_downsample_linear": [_P, _P, _LL, _I, _I, _I, _P],
     "tvc_conv3": [_P] * 4 + [_I] * 6 + [_P],
-    "tvc_down_chain": [_P] * 12 + [_I] * 6 + [_P],
-    "tvc_up_chain": [_P] * 12 + [_I] * 8 + [_P],
+    "tvc_down_chain": [_P] * 13 + [_I] * 6 + [_P],
+    "tvc_up_chain": [_P] * 13 + [_I] * 8 + [_P],
     "tvc_spectrogram": [_P] * 4 + [_I] * 4 + [_P],
     "tvc_knn": [_P] * 9 + [_I] * 6 + [_F, _F, _P],
     "tvc_oscillator_amps_grad": [_P] * 5 + [_I] * 4 + [_F, _F, _P],
     "tvc_resample_grad": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
-    "tvc_up_chain_grad": [_P] * 19 + [_LL] + [_I] * 7 + [_P],
-    "tvc_down_chain_grad": [_P] * 20 + [_LL] + [_I] * 6 + [_P],
+    "tvc_up_chain_grad": [_P] * 20 + [_LL] + [_I] * 7 + [_P],
+    "tvc_down_chain_grad": [_P] * 21 + [_LL] + [_I] * 6 + [_P],
     "tvc_conv3_grad": [_P] * 7 + [_LL] + [_I] * 6 + [_P],
-    "tvc_up_chain_grad_bf16": [_P] * 19 + [_I] * 6 + [_P],
-    "tvc_down_chain_grad_bf16": [_P] * 20 + [_I] * 5 + [_P],
+    "tvc_up_chain_grad_bf16": [_P] * 20 + [_I] * 6 + [_P],
+    "tvc_down_chain_grad_bf16": [_P] * 21 + [_I] * 5 + [_P],
     "tvc_conv3_grad_bf16": [_P] * 9 + [_I] * 5 + [_P],
     "tvc_mrd_fwd": [_P] * 9 + [_I] * 18 + [_P],
     "tvc_mrd_dx": [_P] * 12 + [_I] * 19 + [_P],

@@ -501,12 +501,15 @@ long long chunks(int B, int E, int chunk) { return static_cast<long long>(B) * (
 // fp32 (co = 1 folded). Out (fp32): gx [B, C, xu_stride], gc [B, C, T],
 // gwconv, gbconv, gwfilm, gbfilm, gw5 ([co, C], or [7, C] folded) and gb5
 // ([co], or folded [1]: the sum of gy, every folded tap's bias gradient and
-// the output bias's). ws: at least 22 B C E + B ceil(E/chunk) max(4C^2+4C,
-// co C+co, 7C+1) floats, E = T + 2R, R = 40 (+3 folded).
+// the output bias's). pre: null, or the forward's pre-activations
+// (tvc_up_chain's pre, [3, B, C, E]), whose signs then choose the inner
+// leaky ReLUs' branches in place of the recomputed ones'. ws: at least
+// 22 B C E + B ceil(E/chunk) max(4C^2+4C, co C+co, 7C+1) floats, E = T + 2R,
+// R = 40 (+3 folded).
 extern "C" int tvc_up_chain_grad(const void* xu, const void* cond, const float* wconv,
                                  const float* bconv, const float* wfilm, const float* bfilm,
                                  const float* wconvT, const float* wfilmT, const float* w5T,
-                                 const float* gy, float* gx, float* gc, float* gwconv,
+                                 const float* gy, const float* pre, float* gx, float* gc, float* gwconv,
                                  float* gbconv, float* gwfilm, float* gbfilm, float* gw5,
                                  float* gb5, float* ws, long long ws_floats, int B, int C, int co,
                                  int T, int xu_stride, int fold_k, int chunk, void* stream) {
@@ -538,6 +541,10 @@ extern "C" int tvc_up_chain_grad(const void* xu, const void* cond, const float* 
   float* gxe = gu1 + n;
   float* gce = gxe + n;
   float* scratch = gce + n;
+  // the pre-activations whose signs the leaky ReLUs' derivatives take
+  const float* m1 = pre ? pre : u1;
+  const float* mr1 = pre ? pre + n : r1;
+  const float* m3 = pre ? pre + 2 * n : u3;
   const long long CE = static_cast<long long>(C) * E;
   const long long CC3 = 3LL * C * C;
   const Src xin = input(xu, C, xu_stride, R, T, 0, bf16);
@@ -600,15 +607,15 @@ extern "C" int tvc_up_chain_grad(const void* xu, const void* cond, const float* 
   TRY(film_grad(buf(gr2, C, E, 40, E - 40), buf(u4, C, E, 40, E - 40), 1, gu4));
   const float* wT = wconvT;
   TRY((run_conv<true, 3>(conv_dlrelu(buf(gu4, C, E, 40, E - 40), C, bf16, wT + 3 * CC3, C, 27,
-                                     buf(u3, C, E, 13, E - 13), nullptr, gu3, E, 13, E - 13),
+                                     buf(m3, C, E, 13, E - 13), nullptr, gu3, E, 13, E - 13),
                          B, st)));
   const Src gr2s = buf(gr2, C, E, 40, E - 40);
   TRY((run_conv<true, 3>(conv_dlrelu(buf(gu3, C, E, 13, E - 13), C, bf16, wT + 2 * CC3, C, 9,
-                                     buf(r1, C, E, 4, E - 4), &gr2s, gr1, E, 4, E - 4),
+                                     buf(mr1, C, E, 4, E - 4), &gr2s, gr1, E, 4, E - 4),
                          B, st)));
   TRY(film_grad(buf(gr1, C, E, 4, E - 4), buf(u2, C, E, 4, E - 4), 0, gu2));
   TRY((run_conv<true, 3>(conv_dlrelu(buf(gu2, C, E, 4, E - 4), C, bf16, wT + CC3, C, 3,
-                                     buf(u1, C, E, 1, E - 1), nullptr, gu1, E, 1, E - 1),
+                                     buf(m1, C, E, 1, E - 1), nullptr, gu1, E, 1, E - 1),
                          B, st)));
   const Src gr1s = buf(gr1, C, E, 4, E - 4);
   TRY((run_conv<true, 3>(conv_dlrelu(buf(gu1, C, E, 1, E - 1), C, bf16, wT, C, 1, xin, &gr1s,
@@ -651,13 +658,15 @@ extern "C" int tvc_up_chain_grad(const void* xu, const void* cond, const float* 
 // [0, T)); the forward's w1, b1, w2, b2 and the transposed w1T, w2T
 // ([cin, 3 cin]), w3T ([cin, 3 co]) with the taps reversed and wresT
 // [cin, co]; gy [B, co, T] fp32. Out (fp32): gz [B, cin, z_stride], gwres
-// [co, cin], gbres, gw1, gb1, gw2, gb2, gw3 [co, 3 cin], gb3. ws: at least
-// 6 B cin E + B ceil(E/chunk) max(3 co cin + co, 3 cin^2 + cin) floats,
-// E = T + 14.
+// [co, cin], gbres, gw1, gb1, gw2, gb2, gw3 [co, 3 cin], gb3. pre: null, or
+// the forward's h1 and h2 (tvc_down_chain's pre, [2, B, cin, E]), whose
+// signs then choose the leaky ReLUs' branches in place of the recomputed
+// ones'. ws: at least 6 B cin E + B ceil(E/chunk) max(3 co cin + co,
+// 3 cin^2 + cin) floats, E = T + 14.
 extern "C" int tvc_down_chain_grad(const void* z, const float* w1, const float* b1,
                                    const float* w2, const float* b2, const float* w1T,
                                    const float* w2T, const float* w3T, const float* wresT,
-                                   const float* gy, float* gz, float* gwres, float* gbres,
+                                   const float* gy, const float* pre, float* gz, float* gwres, float* gbres,
                                    float* gw1, float* gb1, float* gw2, float* gb2, float* gw3,
                                    float* gb3, float* ws, long long ws_floats, int B, int cin,
                                    int co, int T, int z_stride, int chunk, void* stream) {
@@ -681,6 +690,9 @@ extern "C" int tvc_down_chain_grad(const void* z, const float* w1, const float* 
   const Src gyz = input(gy, co, T, R, T, 1, 0);
   const Src u1s = buf(u1, cin, E, 1, E - 1), u2s = buf(u2, cin, E, 3, E - 3);
   const Src gu2s = buf(gu2, cin, E, 3, E - 3), gu1s = buf(gu1, cin, E, 1, E - 1);
+  // the pre-activations whose signs the leaky ReLUs' derivatives take
+  const Src m1 = pre ? buf(pre, cin, E, 1, E - 1) : u1s;
+  const Src m2 = pre ? buf(pre + n, cin, E, 3, E - 3) : u2s;
 
   // ---- recompute ----
   TRY((run_conv<false, 3>(conv(zin, cin, 1, bf16, w1, b1, cin, 1, u1, E, 1, E - 1), B, st)));
@@ -688,9 +700,9 @@ extern "C" int tvc_down_chain_grad(const void* z, const float* w1, const float* 
 
   // ---- backward ----
   TRY((run_conv<false, 3>(
-      conv_dlrelu(gyz, co, bf16, w3T, cin, 4, u2s, nullptr, gu2, E, 3, E - 3), B, st)));
+      conv_dlrelu(gyz, co, bf16, w3T, cin, 4, m2, nullptr, gu2, E, 3, E - 3), B, st)));
   TRY((run_conv<false, 3>(
-      conv_dlrelu(gu2s, cin, bf16, w2T, cin, 2, u1s, nullptr, gu1, E, 1, E - 1), B, st)));
+      conv_dlrelu(gu2s, cin, bf16, w2T, cin, 2, m1, nullptr, gu1, E, 1, E - 1), B, st)));
   TRY((run_conv<false, 1>(conv(gyz, co, 0, bf16, wresT, nullptr, cin, 1, gres, E, 0, E), B,
                           st)));
   const Src gress = buf(gres, cin, E, 0, E);
@@ -947,7 +959,7 @@ void add_fold(Finish& f, float* gx, const float* edges, int rows, int stride, in
 // Kernel K, bf16 operands: xu [B, C, xu_stride] (read over [0, T)) and cond
 // [B, C, T] bf16, any C; the forward weights wconv [4, C, 3C], bconv,
 // wfilm [4C, C], bfilm and w5 ([co, C], or with fold_k = 7 the folded conv
-// [7, C]); gy and the outputs as tvc_up_chain_grad's. splits: the partials
+// [7, C]); gy, pre and the outputs as tvc_up_chain_grad's. splits: the partials
 // of the call's six weight gradients (kernels/filter_stage.py::
 // up_grad_products, in their order: the four convs from the last, the FiLM
 // rows, the output conv), each in [1, its chunks]. ws: 16-byte aligned, of
@@ -955,7 +967,8 @@ void add_fold(Finish& f, float* gx, const float* edges, int rows, int stride, in
 // writes that size to *ws_bytes and launches nothing.
 extern "C" int tvc_up_chain_grad_bf16(const void* xu, const void* cond, const float* wconv,
                                       const float* bconv, const float* wfilm, const float* bfilm,
-                                      const float* w5, const float* gy, float* gx, float* gc,
+                                      const float* w5, const float* gy, const float* pre,
+                                      float* gx, float* gc,
                                       float* gwconv, float* gbconv, float* gwfilm, float* gbfilm,
                                       float* gw5, float* gb5, void* ws, long long* ws_bytes,
                                       const int* splits, int B, int C, int co, int T,
@@ -1097,14 +1110,16 @@ extern "C" int tvc_up_chain_grad_bf16(const void* xu, const void* cond, const fl
   c.cp1_row = 2 * Cp;
   c.bp1 = gbf2p;
   TRY(run_tc_conv<true>(c, B, st));
+  // the leaky ReLUs' branches: the signs of the forward's pre-activations,
+  // or without them of the recomputed ones
   c = tc_conv_of(gu4c, Cp, 4, E - 4, wtp + 3 * C * kp3, 3, 27, C, E, 13, E - 13);
-  c.m = buf(u3, C, E, 13, E - 13);
+  c.m = buf(pre ? pre + 2 * n : u3, C, E, 13, E - 13);
   c.has_m = 1;
   c.cp0 = gu3c;
   c.bp0 = gb3p;
   TRY(run_tc_conv<true>(c, B, st));
   c = tc_conv_of(gu3c, Cp, 13, E - 13, wtp + 2 * C * kp3, 3, 9, C, E, 4, E - 4);
-  c.m = buf(r1, C, E, 4, E - 4);
+  c.m = buf(pre ? pre + n : r1, C, E, 4, E - 4);
   c.has_m = 1;
   c.add = buf(gr2, C, E, 4, E - 4);
   c.has_add = 1;
@@ -1120,7 +1135,7 @@ extern "C" int tvc_up_chain_grad_bf16(const void* xu, const void* cond, const fl
   c.bp1 = gbf1p;
   TRY(run_tc_conv<true>(c, B, st));
   c = tc_conv_of(gu2c, Cp, 4, E - 4, wtp + C * kp3, 3, 3, C, E, 1, E - 1);
-  c.m = buf(u1, C, E, 1, E - 1);
+  c.m = buf(pre ? pre : u1, C, E, 1, E - 1);
   c.has_m = 1;
   c.cp0 = gu1c;
   c.bp0 = gb1p;
@@ -1168,13 +1183,14 @@ extern "C" int tvc_up_chain_grad_bf16(const void* xu, const void* cond, const fl
 
 // Kernel L, down chain, bf16 operands: z [B, cin, z_stride] (read over
 // [0, T)) bf16, any cin; the forward's w1, b1, w2, b2, w3 [co, 3 cin] and
-// wres [co, cin]; gy and the outputs as tvc_down_chain_grad's. splits: the
+// wres [co, cin]; gy, pre and the outputs as tvc_down_chain_grad's. splits: the
 // partials of gw3, gw2, gw1, gwres (kernels/filter_stage.py::
 // down_grad_products), each in [1, its chunks]. ws and ws_bytes as
 // tvc_up_chain_grad_bf16's.
 extern "C" int tvc_down_chain_grad_bf16(const void* z, const float* w1, const float* b1,
                                         const float* w2, const float* b2, const float* w3,
-                                        const float* wres, const float* gy, float* gz,
+                                        const float* wres, const float* gy, const float* pre,
+                                        float* gz,
                                         float* gwres, float* gbres, float* gw1, float* gb1,
                                         float* gw2, float* gb2, float* gw3, float* gb3, void* ws,
                                         long long* ws_bytes, const int* splits, int B, int cin,
@@ -1247,14 +1263,16 @@ extern "C" int tvc_down_chain_grad_bf16(const void* z, const float* w1, const fl
   TRY(run_tc_conv<false>(c, B, st));
 
   // ---- backward ----
+  // the leaky ReLUs' branches: the signs of the forward's pre-activations,
+  // or without them of the recomputed ones
   c = tc_conv_of(gyc, gyc_c, R, R + T, w3Tp, 3, 4, cin, E, 3, E - 3);
-  c.m = buf(u2, cin, E, 3, E - 3);
+  c.m = buf(pre ? pre + n : u2, cin, E, 3, E - 3);
   c.has_m = 1;
   c.cp0 = gu2c;
   c.bp0 = gb2p;
   TRY(run_tc_conv<false>(c, B, st));
   c = tc_conv_of(gu2c, cp, 3, E - 3, w2Tp, 3, 2, cin, E, 1, E - 1);
-  c.m = buf(u1, cin, E, 1, E - 1);
+  c.m = buf(pre ? pre : u1, cin, E, 1, E - 1);
   c.has_m = 1;
   c.cp0 = gu1c;
   c.bp0 = gb1p;

@@ -89,6 +89,36 @@ def _lrelu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.1)
 
 
+class _LReLUAt(torch.autograd.Function):
+    """``lrelu(h)`` whose derivative takes the branch of ``m``'s sign, ``m``
+    the forward's value of ``h``: a recomputed ``h`` within a rounding of 0
+    may lie on the other side of it."""
+
+    @staticmethod
+    def forward(ctx, h, m):
+        ctx.save_for_backward(m)
+        return _lrelu(h)
+
+    @staticmethod
+    def backward(ctx, g):
+        (m,) = ctx.saved_tensors
+        return torch.where(m > 0, g, g * 0.1), None
+
+
+def _act(h: torch.Tensor, pre: Optional[torch.Tensor], record: bool, j: int,
+         lo: int) -> torch.Tensor:
+    """``lrelu(h)`` for the chain's ``j``-th inner pre-activation ``h``
+    (columns from ``lo`` of ``pre[j]``): with ``record`` ``h`` is written
+    there; else, given ``pre``, the derivative takes its branches."""
+    if pre is None:
+        return _lrelu(h)
+    m = pre[j][..., lo:lo + h.shape[-1]]
+    if record:
+        m.copy_(h.detach())
+        return _lrelu(h)
+    return _LReLUAt.apply(h, m)
+
+
 def _round_bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
@@ -175,45 +205,66 @@ def conv3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
 
 
 def _down_chain(z: torch.Tensor, wres, bres, w1, b1, w2, b2, w3, b3, T: int,
-                bf16: bool) -> torch.Tensor:
+                bf16: bool, pre: Optional[torch.Tensor] = None,
+                record: bool = False) -> torch.Tensor:
     x = _edge_pad(z, T, R_DOWN)
     res = _product(torch.matmul(_operand(wres, bf16),
                                 _operand(x[..., R_DOWN:R_DOWN + T], bf16)), bf16) + bres
-    h = x
-    for w, b, d in zip((w1, w2, w3), (b1, b2, b3), DILATIONS_DOWN):
-        h = _conv_valid(_lrelu(h), w, b, d, bf16)
+    h = _conv_valid(_lrelu(x), w1, b1, 1, bf16)  # columns from 1
+    h = _conv_valid(_act(h, pre, record, 0, 1), w2, b2, 2, bf16)  # from 3
+    h = _conv_valid(_act(h, pre, record, 1, 3), w3, b3, 4, bf16)  # from 7
     return h + res
+
+
+def chain_pre(z: torch.Tensor, T: int, fold_k: Optional[int] = None) -> torch.Tensor:
+    """The fp32 buffer of a chain's inner pre-activations, uninitialised on
+    ``z``'s device: ``[2, B, C, T + 14]`` (h1, h2) for a down chain, or with
+    ``fold_k`` ``[3, B, C, T + 2R]`` for an up chain (the first conv's, the
+    first FiLM's and the third conv's). The forward writes them
+    (``pre=``), and the backward takes their leaky-ReLU branches."""
+    B, C = z.shape[:2]
+    if fold_k is None:
+        return torch.empty((2, B, C, T + 2 * R_DOWN), device=z.device)
+    return torch.empty((3, B, C, T + 2 * _up_reach(fold_k)), device=z.device)
+
+
+def _up_reach(fold_k: int) -> int:
+    """An up chain's reach on each side: R_UP, and the folded conv's half."""
+    return R_UP + ((fold_k - 1) // 2 if fold_k else 0)
 
 
 def downsample_chain_plain(
     z: torch.Tensor, wres, bres, w1, b1, w2, b2, w3, b3, out_len: Optional[int] = None,
+    pre: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One Downsample body: ``[B, Cin, >=T]`` -> ``[B, Co, T]`` (in ``z``'s
-    dtype): ``1x1(z) + conv_d4(lrelu(conv_d2(lrelu(conv_d1(lrelu(z))))))``."""
+    dtype): ``1x1(z) + conv_d4(lrelu(conv_d2(lrelu(conv_d1(lrelu(z))))))``;
+    the inner pre-activations written to ``pre`` (`chain_pre`) if given."""
     T = z.shape[-1] if out_len is None else out_len
     return _down_chain(z.float(), wres, bres, w1, b1, w2, b2, w3, b3, T,
-                       z.dtype == torch.bfloat16).to(z.dtype)
+                       z.dtype == torch.bfloat16, pre, True).to(z.dtype)
 
 
 def upsample_chain_plain(
     xu: torch.Tensor, cond: torch.Tensor, wconv, bconv, wfilm, bfilm, w5, b5,
     fold_k: int = 0, bout: Optional[torch.Tensor] = None,
-    out_dtype: torch.dtype = torch.float32,
+    out_dtype: torch.dtype = torch.float32, pre: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One Upsample body: ``xu [B, C, >=T]``, ``cond [B, C, T]`` ->
     ``[B, Co, T]``, or ``[B, 1, T]`` with ``fold_k`` (then ``w5 [k, C]``,
     ``b5 [k, 1]`` are the folded output-conv weights and ``bout [1, 1]`` its
-    bias, and the product is fp32 also under bf16)."""
+    bias, and the product is fp32 also under bf16); the inner
+    pre-activations written to ``pre`` (`chain_pre`) if given."""
     y = _up_chain(xu.float(), cond.float(), wconv, bconv, wfilm, bfilm, w5, b5, fold_k, bout,
-                  xu.dtype == torch.bfloat16)
+                  xu.dtype == torch.bfloat16, pre, True)
     return y if fold_k else y.to(out_dtype)
 
 
 def _up_chain(xu: torch.Tensor, cond: torch.Tensor, wconv, bconv, wfilm, bfilm, w5, b5,
-              fold_k: int, bout: Optional[torch.Tensor], bf16: bool) -> torch.Tensor:
+              fold_k: int, bout: Optional[torch.Tensor], bf16: bool,
+              pre: Optional[torch.Tensor] = None, record: bool = False) -> torch.Tensor:
     B, C, T = cond.shape
-    half = (fold_k - 1) // 2 if fold_k else 0
-    R = R_UP + half
+    R = _up_reach(fold_k)
     x = _edge_pad(xu, T, R)
     films = _product(torch.matmul(_operand(wfilm, bf16), _operand(_edge_pad(cond, T, R), bf16)),
                      bf16) + bfilm
@@ -224,11 +275,11 @@ def _up_chain(xu: torch.Tensor, cond: torch.Tensor, wconv, bconv, wfilm, bfilm, 
                 + films[:, (2 * j + 1) * C:(2 * j + 2) * C, off:off + n] + res[..., :n])
 
     h = _conv_valid(_lrelu(x), wconv[0], bconv[0], 1, bf16)  # columns from 1
-    h = _conv_valid(_lrelu(h), wconv[1], bconv[1], 3, bf16)  # from 4
+    h = _conv_valid(_act(h, pre, record, 0, 1), wconv[1], bconv[1], 3, bf16)  # from 4
     h = film(h, 4, 0, x[..., 4:])
     res = h
-    h = _conv_valid(_lrelu(h), wconv[2], bconv[2], 9, bf16)  # from 13
-    h = _conv_valid(_lrelu(h), wconv[3], bconv[3], 27, bf16)  # from 40
+    h = _conv_valid(_act(h, pre, record, 1, 4), wconv[2], bconv[2], 9, bf16)  # from 13
+    h = _conv_valid(_act(h, pre, record, 2, 13), wconv[3], bconv[3], 27, bf16)  # from 40
     h = film(h, R_UP, 1, res[..., R_UP - 4:])
     if not fold_k:
         # columns [40, 40 + T): exactly [0, T)
@@ -316,14 +367,22 @@ conv3.launches = 0
 conv3.launches_bf16 = 0  # of them, on bf16 inputs
 
 
+def _check_pre(pre: Optional[torch.Tensor], shape) -> None:
+    if pre is not None:
+        build.check_input("pre", pre, 4)
+        _check_shape("pre", pre, shape)
+
+
 def downsample_chain(
     z: torch.Tensor, wres, bres, w1, b1, w2, b2, w3, b3, out_len: Optional[int] = None,
+    pre: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One Downsample body (kernel E): ``[B, Cin, >=T]`` -> ``[B, Co, T]``,
-    fp32 or bf16 in and out."""
+    fp32 or bf16 in and out; the inner pre-activations written to ``pre``
+    (`chain_pre`) if given."""
     ws = dict(wres=wres, bres=bres, w1=w1, b1=b1, w2=w2, b2=b2, w3=w3, b3=b3)
-    if build.on_cpu(z, *ws.values()):
-        return downsample_chain_plain(z, wres, bres, w1, b1, w2, b2, w3, b3, out_len)
+    if build.on_cpu(z, *ws.values(), *(() if pre is None else (pre,))):
+        return downsample_chain_plain(z, wres, bres, w1, b1, w2, b2, w3, b3, out_len, pre)
     build.check_input("z", z, 3, DTYPES)
     _check_weights(**ws)
     B, cin, Tz = z.shape
@@ -335,10 +394,11 @@ def downsample_chain(
                         ("b1", (cin, 1)), ("w2", (cin, 3 * cin)), ("b2", (cin, 1)),
                         ("w3", (co, 3 * cin)), ("b3", (co, 1))):
         _check_shape(name, ws[name], shape)
+    _check_pre(pre, (2, B, cin, T + 2 * R_DOWN))
     out = torch.empty((B, co, T), device=z.device, dtype=z.dtype)
     bf16 = z.dtype == torch.bfloat16
-    _launch_sized(lambda *work: build.launch("tvc_down_chain", z, z, *ws.values(), out, *work,
-                                             B, cin, co, T, Tz, int(bf16)), z.device)
+    _launch_sized(lambda *work: build.launch("tvc_down_chain", z, z, *ws.values(), out, pre,
+                                             *work, B, cin, co, T, Tz, int(bf16)), z.device)
     downsample_chain.launches += 1
     downsample_chain.launches_bf16 += bf16
     return out
@@ -351,11 +411,12 @@ downsample_chain.launches_bf16 = 0  # of them, on bf16 inputs
 def upsample_chain(
     xu: torch.Tensor, cond: torch.Tensor, wconv, bconv, wfilm, bfilm, w5, b5,
     fold_k: int = 0, bout: Optional[torch.Tensor] = None,
-    out_dtype: torch.dtype = torch.float32,
+    out_dtype: torch.dtype = torch.float32, pre: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One Upsample body (kernel F): ``xu [B, C, >=T]``, ``cond [B, C, T]``
     (both fp32 or both bf16) -> ``[B, Co, T]`` in ``out_dtype``, or
-    ``[B, 1, T]`` fp32 with ``fold_k=7``."""
+    ``[B, 1, T]`` fp32 with ``fold_k=7``; the inner pre-activations written
+    to ``pre`` (`chain_pre`) if given."""
     ws = dict(wconv=wconv, bconv=bconv, wfilm=wfilm, bfilm=bfilm, w5=w5, b5=b5)
     if fold_k:
         if bout is None:
@@ -363,9 +424,9 @@ def upsample_chain(
         ws["bout"] = bout
     if out_dtype not in DTYPES or (fold_k and out_dtype != torch.float32):
         raise ValueError(f"out_dtype {out_dtype} is not one this chain stores")
-    if build.on_cpu(xu, cond, *ws.values()):
+    if build.on_cpu(xu, cond, *ws.values(), *(() if pre is None else (pre,))):
         return upsample_chain_plain(xu, cond, wconv, bconv, wfilm, bfilm, w5, b5, fold_k, bout,
-                                    out_dtype)
+                                    out_dtype, pre)
     build.check_input("xu", xu, 3, DTYPES)
     build.check_input("cond", cond, 3, (xu.dtype,))
     _check_weights(**ws)
@@ -381,11 +442,12 @@ def upsample_chain(
         _check_shape(name, ws[name], shape)
     if fold_k:
         _check_shape("bout", bout, (1, 1))
+    _check_pre(pre, (3, B, C, T + 2 * _up_reach(fold_k)))
     out = torch.empty((B, co, T), device=xu.device, dtype=out_dtype)
     bf16 = xu.dtype == torch.bfloat16
     _launch_sized(lambda *work: build.launch(
         "tvc_up_chain", xu, xu, cond, wconv, bconv, wfilm, bfilm, w5, b5, bout if fold_k else b5,
-        out, *work, B, C, co, T, xu.shape[2], fold_k, int(bf16),
+        out, pre, *work, B, C, co, T, xu.shape[2], fold_k, int(bf16),
         int(out_dtype == torch.bfloat16)), xu.device)
     upsample_chain.launches += 1
     upsample_chain.launches_bf16 += bf16
@@ -419,26 +481,31 @@ def conv3_grad_plain(x: torch.Tensor, w, b, gy: torch.Tensor):
 
 
 def downsample_chain_grad_plain(z: torch.Tensor, wres, bres, w1, b1, w2, b2, w3, b3,
-                                gy: torch.Tensor):
+                                gy: torch.Tensor, pre: Optional[torch.Tensor] = None):
     """Plain PyTorch version of L: (gz, gwres, gbres, gw1, gb1, gw2, gb2, gw3,
     gb3), fp32, for the chain's output cotangent ``gy [B, Co, T]``; ``z``
-    may be longer than ``T`` (its tail gets no gradient)."""
+    may be longer than ``T`` (its tail gets no gradient). With ``pre``, the
+    forward's inner pre-activations (`chain_pre`), the leaky ReLUs take
+    their branches."""
     bf16 = z.dtype == torch.bfloat16
     T = gy.shape[-1]
-    return _vjp(lambda *a: _down_chain(*a, T, bf16),
+    return _vjp(lambda *a: _down_chain(*a, T, bf16, pre),
                 (z, wres, bres, w1, b1, w2, b2, w3, b3), gy)
 
 
 def upsample_chain_grad_plain(xu: torch.Tensor, cond: torch.Tensor, wconv, bconv, wfilm, bfilm,
                               w5, b5, gy: torch.Tensor, fold_k: int = 0,
-                              bout: Optional[torch.Tensor] = None):
+                              bout: Optional[torch.Tensor] = None,
+                              pre: Optional[torch.Tensor] = None):
     """Plain PyTorch version of K: (gxu, gcond, gwconv, gbconv, gwfilm,
     gbfilm, gw5, gb5, gbout), fp32, for the chain's output cotangent ``gy``
-    (``gbout`` is zero without ``fold_k``)."""
+    (``gbout`` is zero without ``fold_k``). With ``pre``, the forward's
+    inner pre-activations (`chain_pre`), the leaky ReLUs take their
+    branches."""
     bf16 = xu.dtype == torch.bfloat16
     if not fold_k:
         bout = torch.zeros((1, 1), device=gy.device)
-    return _vjp(lambda x_, c_, *ws: _up_chain(x_, c_, *ws[:6], fold_k, ws[6], bf16),
+    return _vjp(lambda x_, c_, *ws: _up_chain(x_, c_, *ws[:6], fold_k, ws[6], bf16, pre),
                 (xu, cond, wconv, bconv, wfilm, bfilm, w5, b5, bout), gy)
 
 
@@ -577,12 +644,14 @@ conv3_grad.launches_bf16 = 0
 
 
 def downsample_chain_grad(z: torch.Tensor, wres, bres, w1, b1, w2, b2, w3, b3,
-                          gy: torch.Tensor):
+                          gy: torch.Tensor, pre: Optional[torch.Tensor] = None):
     """Gradient of :func:`downsample_chain` (kernel L): (gz, gwres, gbres,
-    gw1, gb1, gw2, gb2, gw3, gb3) fp32 for ``gy [B, Co, T]`` fp32."""
+    gw1, gb1, gw2, gb2, gw3, gb3) fp32 for ``gy [B, Co, T]`` fp32. With
+    ``pre``, the forward's inner pre-activations (`chain_pre`), the leaky
+    ReLUs take their branches; without, those of the recomputed ones."""
     ws_ = dict(wres=wres, bres=bres, w1=w1, b1=b1, w2=w2, b2=b2, w3=w3, b3=b3)
-    if build.on_cpu(z, gy, *ws_.values()):
-        return downsample_chain_grad_plain(z, wres, bres, w1, b1, w2, b2, w3, b3, gy)
+    if build.on_cpu(z, gy, *ws_.values(), *(() if pre is None else (pre,))):
+        return downsample_chain_grad_plain(z, wres, bres, w1, b1, w2, b2, w3, b3, gy, pre)
     build.check_input("z", z, 3, DTYPES)
     build.check_input("gy", gy, 3)
     _check_weights(**ws_)
@@ -594,19 +663,20 @@ def downsample_chain_grad(z: torch.Tensor, wres, bres, w1, b1, w2, b2, w3, b3,
                         ("b1", (cin, 1)), ("w2", (cin, 3 * cin)), ("b2", (cin, 1)),
                         ("w3", (co, 3 * cin)), ("b3", (co, 1))):
         _check_shape(name, ws_[name], shape)
+    _check_pre(pre, (2, B, cin, T + 2 * R_DOWN))
     out = [torch.empty((B, cin, Tz), device=z.device)] + [torch.empty_like(t)
                                                           for t in ws_.values()]
     bf16 = z.dtype == torch.bfloat16
     if bf16:
         _launch_bf16(lambda *ws: build.launch("tvc_down_chain_grad_bf16", z, z, w1, b1, w2, b2,
-                                              w3, wres, gy, *out, *ws, B, cin, co, T, Tz),
+                                              w3, wres, gy, pre, *out, *ws, B, cin, co, T, Tz),
                      z.device, B, down_grad_products(cin, co, T))
     else:
         E = T + 2 * R_DOWN
         cols = max(co * 3 * cin + co, cin * 3 * cin + cin)
         ws = torch.empty(6 * B * cin * E + _partial_floats(B, E, cols), device=z.device)
         build.launch("tvc_down_chain_grad", z, z, w1, b1, w2, b2, _tapsT(w1), _tapsT(w2),
-                     _tapsT(w3), wres.T.contiguous(), gy, *out, ws, ws.numel(),
+                     _tapsT(w3), wres.T.contiguous(), gy, pre, *out, ws, ws.numel(),
                      B, cin, co, T, Tz, WGRAD_CHUNK)
     downsample_chain_grad.launches += 1
     downsample_chain_grad.launches_bf16 += bf16
@@ -619,14 +689,18 @@ downsample_chain_grad.launches_bf16 = 0
 
 def upsample_chain_grad(xu: torch.Tensor, cond: torch.Tensor, wconv, bconv, wfilm, bfilm, w5,
                         b5, gy: torch.Tensor, fold_k: int = 0,
-                        bout: Optional[torch.Tensor] = None):
+                        bout: Optional[torch.Tensor] = None,
+                        pre: Optional[torch.Tensor] = None):
     """Gradient of :func:`upsample_chain` (kernel K): (gxu, gcond, gwconv,
     gbconv, gwfilm, gbfilm, gw5, gb5, gbout) fp32 for ``gy [B, Co, T]``
-    fp32 (``[B, 1, T]`` with ``fold_k=7``; ``gbout`` is zero without it)."""
+    fp32 (``[B, 1, T]`` with ``fold_k=7``; ``gbout`` is zero without it).
+    With ``pre``, the forward's inner pre-activations (`chain_pre`), the
+    leaky ReLUs take their branches; without, those of the recomputed
+    ones."""
     ws_ = dict(wconv=wconv, bconv=bconv, wfilm=wfilm, bfilm=bfilm, w5=w5, b5=b5)
-    if build.on_cpu(xu, cond, gy, *ws_.values()):
+    if build.on_cpu(xu, cond, gy, *ws_.values(), *(() if pre is None else (pre,))):
         return upsample_chain_grad_plain(xu, cond, wconv, bconv, wfilm, bfilm, w5, b5, gy,
-                                         fold_k, bout)
+                                         fold_k, bout, pre)
     build.check_input("xu", xu, 3, DTYPES)
     build.check_input("cond", cond, 3, (xu.dtype,))
     build.check_input("gy", gy, 3)
@@ -642,6 +716,8 @@ def upsample_chain_grad(xu: torch.Tensor, cond: torch.Tensor, wconv, bconv, wfil
                         ("b5", (fold_k or co, 1))):
         _check_shape(name, ws_[name], shape)
     _check_shape("gy", gy, (B, co, T))
+    R = _up_reach(fold_k)
+    _check_pre(pre, (3, B, C, T + 2 * R))
     gx = torch.empty(xu.shape, device=xu.device)
     gc = torch.empty((B, C, T), device=xu.device)
     gw = [torch.empty_like(t) for t in (wconv, bconv, wfilm, bfilm, w5)]
@@ -649,11 +725,10 @@ def upsample_chain_grad(xu: torch.Tensor, cond: torch.Tensor, wconv, bconv, wfil
     bf16 = xu.dtype == torch.bfloat16
     if bf16:
         _launch_bf16(lambda *ws: build.launch("tvc_up_chain_grad_bf16", xu, xu, cond, wconv,
-                                              bconv, wfilm, bfilm, w5, gy, gx, gc, *gw, gb5,
+                                              bconv, wfilm, bfilm, w5, gy, pre, gx, gc, *gw, gb5,
                                               *ws, B, C, co, T, xu.shape[2], fold_k),
                      xu.device, B, up_grad_products(C, co, T, fold_k))
     else:
-        R = R_UP + ((fold_k - 1) // 2 if fold_k else 0)
         E = T + 2 * R
         cols = max(4 * C * C + 4 * C, co * C + co, 7 * C + 1)
         ws = torch.empty(22 * B * C * E + _partial_floats(B, E, cols), device=xu.device)
@@ -662,7 +737,7 @@ def upsample_chain_grad(xu: torch.Tensor, cond: torch.Tensor, wconv, bconv, wfil
         # 1-row cotangent: tap k of row i is w5c[6 - k, i]
         w5T = w5.flip(0).T.contiguous() if fold_k else w5.T.contiguous()
         build.launch("tvc_up_chain_grad", xu, xu, cond, wconv, bconv, wfilm, bfilm, wconvT,
-                     wfilm.T.contiguous(), w5T, gy, gx, gc, *gw, gb5, ws, ws.numel(),
+                     wfilm.T.contiguous(), w5T, gy, pre, gx, gc, *gw, gb5, ws, ws.numel(),
                      B, C, co, T, xu.shape[2], fold_k, WGRAD_CHUNK)
     upsample_chain_grad.launches += 1
     upsample_chain_grad.launches_bf16 += bf16
@@ -701,28 +776,32 @@ class Stem(torch.autograd.Function):
 class DownChain(torch.autograd.Function):
     """The differentiable Downsample body: forward :func:`downsample_chain`
     (kernel E) on ``z`` cast to the operands' dtype, backward
-    :func:`downsample_chain_grad` (kernel L)."""
+    :func:`downsample_chain_grad` (kernel L) on the leaky-ReLU branches of
+    the forward's pre-activations."""
 
     @staticmethod
     def forward(ctx, z, wres, bres, w1, b1, w2, b2, w3, b3, bf16):
         zk = z.detach().to(_dtype(bf16)).contiguous()
         ws = (wres, bres, w1, b1, w2, b2, w3, b3)
-        ctx.save_for_backward(zk, *ws)
+        pre = chain_pre(zk, zk.shape[-1])
+        out = downsample_chain(zk, *(w.detach() for w in ws), pre=pre)
+        ctx.save_for_backward(zk, pre, *ws)
         ctx.z_dtype = z.dtype
-        return downsample_chain(zk, *(w.detach() for w in ws))
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        zk, *ws = ctx.saved_tensors
-        gz, *gws = downsample_chain_grad(zk, *ws, g.float().contiguous())
+        zk, pre, *ws = ctx.saved_tensors
+        gz, *gws = downsample_chain_grad(zk, *ws, g.float().contiguous(), pre)
         return (gz.to(ctx.z_dtype), *gws, None)
 
 
 class UpChain(torch.autograd.Function):
     """The differentiable Upsample body: forward :func:`upsample_chain`
     (kernel F) on ``xu`` and ``cond`` cast to the operands' dtype, fp32 out;
-    backward :func:`upsample_chain_grad` (kernel K). With ``fold_k``, ``w5``
-    and ``b5`` are the folded output conv's and ``bout`` its bias."""
+    backward :func:`upsample_chain_grad` (kernel K) on the leaky-ReLU
+    branches of the forward's pre-activations. With ``fold_k``, ``w5`` and
+    ``b5`` are the folded output conv's and ``bout`` its bias."""
 
     @staticmethod
     def forward(ctx, xu, cond, wconv, bconv, wfilm, bfilm, w5, b5, bout, fold_k, bf16):
@@ -730,17 +809,19 @@ class UpChain(torch.autograd.Function):
         xk = xu.detach().to(dt).contiguous()
         ck = cond.detach().to(dt).contiguous()
         ws = (wconv, bconv, wfilm, bfilm, w5, b5)
-        ctx.save_for_backward(xk, ck, *ws, *(() if bout is None else (bout,)))
+        pre = chain_pre(ck, ck.shape[-1], fold_k)
+        out = upsample_chain(xk, ck, *(w.detach() for w in ws), fold_k=fold_k,
+                             bout=None if bout is None else bout.detach(), pre=pre)
+        ctx.save_for_backward(xk, ck, pre, *ws, *(() if bout is None else (bout,)))
         ctx.dtypes, ctx.fold_k = (xu.dtype, cond.dtype), fold_k
-        return upsample_chain(xk, ck, *(w.detach() for w in ws), fold_k=fold_k,
-                              bout=None if bout is None else bout.detach())
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        xk, ck, *ws = ctx.saved_tensors
+        xk, ck, pre, *ws = ctx.saved_tensors
         bout = ws[6] if ctx.fold_k else None
         gx, gc, *gws, gbout = upsample_chain_grad(xk, ck, *ws[:6], g.float().contiguous(),
-                                                  ctx.fold_k, bout)
+                                                  ctx.fold_k, bout, pre)
         return (gx.to(ctx.dtypes[0]), gc.to(ctx.dtypes[1]), *gws,
                 gbout if ctx.fold_k else None, None, None)
 
