@@ -629,6 +629,9 @@ def phase_unet_kernels(results: dict, rng, dev, bf16: bool = False) -> None:
                 if groups:
                     group_ms = _layer_device_ms(kernel, _fwd_launch_groups(groups),
                                                 keep=_fwd_kernel)
+                    if group_ms is None:
+                        a["dev"] = float("nan")
+                        return
                     print(f"    device {sum(group_ms):.4f} ms in "
                           f"{len(_fwd_launch_groups(groups))} launches: " + ", ".join(
                               f"{FWD_GROUPS[g]} {m:.4f}" for g, m in enumerate(group_ms)))
@@ -894,6 +897,13 @@ def phase_unet_stages(card: str) -> None:
                       f"({card})")
 
 
+# The kernel names of A, I and J, their first designs' and the closed-form
+# A's and I's (`osc_bank`, one `osc_amps_grad`; PERF.md §6), so
+# that `phase_osc_resample` counts the launches of a call of either design.
+OSC_RESAMPLE_KERNELS = ("osc_bank", "osc_frame_sums", "osc_synth", "osc_amps_grad",
+                        "resample_grad_", "upsample_grad_kernel", "downsample_grad_kernel")
+
+
 def phase_osc_resample(card: str) -> None:
     """Kernels A, I and J call by call at the main path's shapes: A at a
     serving B=1 and B=8 request's (F=320) and at the pre-join step's (B=16,
@@ -919,8 +929,11 @@ def phase_osc_resample(card: str) -> None:
         return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:12]
 
     def report(label, fn, lib=None):
+        kernels, _ = _profile_call(lambda: [fn() for _ in range(5)])
+        launched = ", ".join(f"{k[:40]} x{n / 5:g}" for k, (_, n) in sorted(kernels.items())
+                             if any(name in k for name in OSC_RESAMPLE_KERNELS))
         line = (f"  {label}: device {_device_ms(fn):.4f} ms, event {_cuda_ms(fn):.4f} ms, "
-                f"output {digest(fn())}")
+                f"output {digest(fn())}; kernels a call: {launched}")
         if lib is not None:
             line += f"; library device {_device_ms(lib):.4f} ms"
         print(line)
@@ -1450,18 +1463,28 @@ CHAIN_GRAD_RTOL = {"fp32": (1e-3, 1e-5), "bf16": (2.0**-5, 2.0**-7)}  # (rel L2,
 #     C cannot see; held on every draw of gate C's.
 #  C, the whole path over draws: a flipped leaky ReLU moves the gradients of
 #     the weights upstream of it by a step (the plain path against itself
-#     with the source moved by 1e-7 moves the worst leaf by 3.0e-3), so the
-#     kernel path's distance to the plain path is a draw on the source's
+#     with the source moved by 1e-7 moves the worst leaf by up to 4.8e-3), so
+#     the kernel path's distance to the plain path is a draw on the source's
 #     bits (median 2.8e-4 to 1.22e-3 over 1e-6 changes of the source on the
 #     H100, PERF.md §6). The statistics are taken on the shipped source and on
 #     STEP_DRAWS sources multiplied by (1 + STEP_NUDGE e), e ~ N(0, 1) from
 #     a generator seeded with the draw's number, the same e in both paths,
-#     and their medians over the draws are gated: the median over leaves
-#     within the CPU tests' 1e-3 relative norm, STEP_GRAD_RTOL, and each
-#     leaf within the larger of 1e-3 and STEP_FLOOR_FACTOR times its floor,
-#     measured in the same run: the plain path against itself on the
-#     shipped source moved by STEP_FLOOR_NUDGE (a generator seeded with
-#     SEED).
+#     and their medians over the five sources are gated (`_gate_c`): the
+#     median over leaves within the CPU tests' 1e-3 relative norm,
+#     STEP_GRAD_RTOL, and each leaf within the larger of 1e-3 and
+#     STEP_FLOOR_FACTOR times its floor. A leaf's floor is measured on each
+#     of the same five sources, in the same run: the plain path against
+#     itself with that source moved by STEP_FLOOR_NUDGE more (a generator
+#     seeded with SEED). The gate takes the median of the five floors, the
+#     statistic it takes of the distances. A floor of one source is itself a
+#     draw on the source's bits: one rounding flips up_4.c1.bias's leaky
+#     ReLU or not, and its floor on the H100 was 4.80e-3, 4.75e-3, 4.80e-3,
+#     1.76e-4 and 4.79e-3 over the five sources of one tree, 3.50e-4 or
+#     4.83e-3 on two sources of another (PERF.md §6), so a
+#     median of five distances held to one source's floor passed or failed
+#     by that source's bits. The median over leaves has no floor, and is a
+#     draw too: on one tree's sources the plain path against itself had a
+#     median of medians of 1.13e-3 (ROADMAP.md §3).
 STEP_LOSS_RTOL = 1e-4
 STEP_FWD_RTOL = 1e-5  # CHAIN_RTOL["up_chain"], of the waveform's peak
 STEP_BWD_MEDIAN = 1e-5
@@ -1534,32 +1557,47 @@ def phase_train_kernels(results: dict, rng, dev) -> None:
         return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(dev, dt)
 
     with exact_fp32():
-        # I: the oscillator's amplitude gradient at [16, 15, 48000]
+        # I: the oscillator's amplitude gradient at [16, 15, 48000], a ragged
+        # shape, and 21 harmonics
         errs = []
-        for b, nf in ((B, F_), (3, 37)):
+        for b, nf, h1 in ((B, F_, H1), (3, 37, H1), (2, 37, 21)):
             f0 = torch.from_numpy(rng.uniform(80.0, 320.0, (b, nf)).astype(np.float32)).to(dev)
             f0[0, 5:15] = 0.0
-            g = randn(b, H1, nf * 480, scale=1.0)
+            g = randn(b, h1, nf * 480, scale=1.0)
             with _nan_empty():
                 got = osc.oscillator_amps_grad(f0, g)
                 again = osc.oscillator_amps_grad(f0, g)
             want = osc.oscillator_amps_grad_plain(f0, g)
             torch.cuda.synchronize()
-            _check(torch.equal(got, again), f"oscillator_grad B={b}: two calls differ (or NaN)")
+            case = f"B={b} F={nf} H1={h1}"
+            _check(torch.equal(got, again), f"oscillator_grad {case}: two calls differ (or NaN)")
             err = float((got - want).abs().max())
             peak = float(want.abs().max())
             truth = _osc_amps_grad_truth(f0.cpu().numpy(), g.cpu().numpy())
             e_k = float(np.abs(got.cpu().numpy() - truth).max())
             e_p = float(np.abs(want.cpu().numpy() - truth).max())
             tol = GRAD_TOL["oscillator_grad"] * peak
-            print(f"  oscillator_grad B={b} F={nf}: max_abs_err {err:.3e} (tolerance {tol:.3e}); "
+            print(f"  oscillator_grad {case}: max_abs_err {err:.3e} (tolerance {tol:.3e}); "
                   f"vs the float64 vjp kernel {e_k:.3e}, plain {e_p:.3e}")
-            _check(err <= tol, f"oscillator_grad B={b}: error {err} > {tol}")
-            _check(e_k <= 1.5 * e_p, f"oscillator_grad off the float64 vjp: {e_k} vs {e_p}")
+            _check(err <= tol, f"oscillator_grad {case}: error {err} > {tol}")
+            _check(e_k <= 1.5 * e_p, f"oscillator_grad {case} off the float64 vjp: {e_k} vs "
+                   f"{e_p}")
             errs.append(err)
             if b == B:
                 main_i = (f0, g)
         f0, g = main_i
+        # through OscillatorBank, with a cotangent that does not start on a
+        # 16-byte boundary (a view into a larger gradient)
+        amps = torch.rand(B, F_, H1, device=dev, requires_grad=True)
+        y = osc.OscillatorBank.apply(f0, amps, 480, 24000, 20.0)
+        g_off = torch.empty(g.numel() + 1, device=dev)[1:].view_as(g).copy_(g)
+        y.backward(g_off)
+        aligned = osc.oscillator_amps_grad(f0, g)
+        _check(g_off.data_ptr() % 16 != 0 and torch.equal(amps.grad, aligned),
+               "oscillator_grad: OscillatorBank's backward on a cotangent off a 16-byte boundary "
+               "differs from kernel I on an aligned copy")
+        print("  oscillator_grad through OscillatorBank, cotangent off a 16-byte boundary: "
+              "bit-identical to an aligned call")
         # the bytes: g read once, f0 read, the gradient written; ~12 fp32
         # operations per element of g (phase, wrap, sin, gains, 3 products)
         row("oscillator_grad", "oscillator.cu", "tinyvc_tpu/ops/pallas/oscillator.py:311",
@@ -1668,6 +1706,9 @@ def phase_train_kernels(results: dict, rng, dev) -> None:
                 design = "tensor-core design" if bf16 else "CUDA-core design"
                 launch_groups = _unet_launch_groups(kind, bf16)
                 ms = _layer_device_ms(fn, launch_groups, keep=_unet_kernel)
+                if ms is None:
+                    acc["dev_" + kind] = float("nan")
+                    return
                 rate = " ".join(f"{UNET_GROUPS[g]} {flops[g] / (ms[g] * 1e9):.1f}"
                                 for g in sorted(flops) if ms[g] > 0)
                 print(f"    {label} {design}: {len(launch_groups)} launches, device "
@@ -2064,6 +2105,9 @@ def phase_mrd_kernels(results: dict, rng, dev) -> None:
                               ("mrd_dw", lambda: mrd.mrd_dw(xs, dys, plan, xts, dyts))):
                     launch_layers = _mrd_launch_layers(k, nl, bf16)
                     per_layer = _layer_device_ms(fn, launch_layers)
+                    if per_layer is None:
+                        acc[k]["dev"] = float("nan")
+                        continue
                     shown = (f"the gathers of layers 0 and {nl - 1} {per_layer[0]:.4f}, layers "
                              + ", ".join(f"{ms:.4f}" for ms in per_layer[1:nl - 1])
                              + f", the partials' sum {per_layer[nl]:.4f}"
@@ -2143,23 +2187,34 @@ def _mrd_launch_layers(kernel: str, layers: int, bf16: bool):
 
 def _layer_device_ms(fn, launch_layers, calls: int = 5, tries: int = 3, keep=None):
     """Device ms of each layer of one call of ``fn`` (M, N or O; or K's and
-    L's launch groups), from the profiler's kernels in launch order over
-    ``calls`` calls after one more, ``launch_layers`` giving each launch's
-    layer, only the kernels whose name passes ``keep`` if given; fails
-    unless each of those calls launched that many kernels, the same in each.
-    The profiler now and then misses a kernel record: a count that does not
-    fit is measured again, ``tries`` times in all."""
+    L's launch groups, or E's and F's), from the profiler's kernels in
+    launch order over ``calls`` calls after one more, ``launch_layers``
+    giving each launch's layer. The launches are checked on the library's
+    own count (`build.launch_count`, kept on the host, which loses none):
+    each of those calls must launch ``len(launch_layers)`` kernels, or the
+    run fails. The profiler only times, on its records of the kernels whose
+    name passes ``keep`` (all if None): it now and then drops some, so
+    records that do not fit (that many a call, the same names call by call)
+    are measured again, ``tries`` times in all; then the layers' times print
+    as not measured, with the counts, and this returns None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from tinyvc_tpu_torch.kernels import build
 
     n = len(launch_layers)
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
+        counts = []
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls + 1):
+                before = build.launch_count()
                 fn()
+                counts.append(build.launch_count() - before)
             torch.cuda.synchronize()
+        _check(counts == [n] * (calls + 1),
+               f"the library counted {counts} launches in {calls + 1} calls, not {n} each")
         evts = sorted((e for e in prof.events()
                        if e.device_type == torch.autograd.DeviceType.CUDA
                        and (keep is None or keep(e.name))),
@@ -2167,9 +2222,11 @@ def _layer_device_ms(fn, launch_layers, calls: int = 5, tries: int = 3, keep=Non
         names = [e.name for e in evts]
         if len(evts) == calls * n and all(names[i] == names[i % n] for i in range(len(names))):
             break
-    _check(len(evts) == calls * n and all(names[i] == names[i % n] for i in range(len(names))),
-           f"the last {calls} calls did not launch the same {n} kernels ({len(evts)} kernels): "
-           + ", ".join(sorted({m[:40] for m in names})))
+    else:
+        print(f"    device ms not measured: the profiler kept {len(evts)} kernel records of the "
+              f"last {calls} calls in each of {tries} tries, not {calls * n} of the same {n}; the "
+              f"library counted {n} launches a call")
+        return None
     ms = [0.0] * (max(launch_layers) + 1)
     for i, e in enumerate(evts):
         ms[launch_layers[i % n]] += e.time_range.elapsed_us() / 1e3 / calls
@@ -2403,15 +2460,36 @@ def _step_runner(step, args, outputs, plain_modules):
     return run
 
 
-def _step_gates(run, loss_names, plain_forward, shipped=None, every_draw=False) -> list:
+def _gate_c(per_draw: list, floors: list):
+    """Gate C's decision on plain dicts of floats. ``per_draw[i]`` holds
+    each leaf's distance, kernel path against plain path, on source ``i``;
+    ``floors[i]`` each leaf's floor on the same source. Returns (the median
+    over the sources of each source's median leaf, {leaf: (its median
+    distance over the sources, its limit)}, the failures). A leaf's limit is
+    max(STEP_GRAD_RTOL, STEP_FLOOR_FACTOR x its median floor over the same
+    sources): both sides of the comparison are medians over one set of
+    sources, so their order does not matter."""
+    med = statistics.median(statistics.median(e.values()) for e in per_draw)
+    failures = [] if med <= STEP_GRAD_RTOL else [f"gate C: median {med:.3e} > {STEP_GRAD_RTOL}"]
+    leaves = {}
+    for k in per_draw[0]:
+        m = statistics.median(e[k] for e in per_draw)
+        limit = max(STEP_GRAD_RTOL, STEP_FLOOR_FACTOR * statistics.median(f[k] for f in floors))
+        leaves[k] = (m, limit)
+        if m > limit:
+            failures.append(f"gate C: {k} {m:.3e} > {limit:.3e}")
+    return med, leaves, failures
+
+
+def _step_gates(run, loss_names, plain_forward, shipped=None) -> list:
     """Gates F, B and C (``STEP_*``) of one fp32 step; ``run`` is a
     `_step_runner`, ``shipped`` its kernel path's output on the shipped
     source if already run. Gate F (the losses on the shipped source, the
     U-Net's waveform) and gate B (the kernel path with ``plain_forward``
-    against the plain path) on every draw; gate C's statistics on every
-    draw and gated by their medians over the draws, each leaf's floor
-    measured on the shipped source (with ``every_draw``, the diagnostic,
-    each draw's floor printed too). Prints every statistic and returns the
+    against the plain path) on every source; gate C's distances and floors
+    on every source, decided by `_gate_c`. Prints every statistic, the
+    distances, floors and limit of gate C's six worst leaves and of every
+    leaf that the shipped source's floor alone would fail, and returns the
     gates that failed."""
     failures = []
 
@@ -2438,9 +2516,8 @@ def _step_gates(run, loss_names, plain_forward, shipped=None, every_draw=False) 
                 gate(abs(a - b) <= STEP_LOSS_RTOL * abs(b), f"gate F: {name} differs")
         # the plain path against itself, this source moved by STEP_FLOOR_NUDGE
         # more: how far a leaky ReLU flipped by a rounding moves each leaf
-        if d is None or every_draw:
-            floors.append(_leaf_errors(
-                run(plain=True, nudges=(*nudges, (SEED, STEP_FLOOR_NUDGE)))[1], g_p))
+        floors.append(_leaf_errors(
+            run(plain=True, nudges=(*nudges, (SEED, STEP_FLOOR_NUDGE)))[1], g_p))
         e_f = float((fake_k - fake_p).abs().max() / fake_p.abs().max())
         line = f"  {label}: gate F waveform {e_f:.2e} of the peak"
         gate(e_f <= STEP_FWD_RTOL, f"gate F ({label}): waveform {e_f:.3e} > {STEP_FWD_RTOL}")
@@ -2452,32 +2529,41 @@ def _step_gates(run, loss_names, plain_forward, shipped=None, every_draw=False) 
             gate(e <= STEP_BWD_LEAF, f"gate B ({label}): {k} {e:.3e} > {STEP_BWD_LEAF}")
         errs = _leaf_errors(g_k, g_p)
         per_draw.append(errs)
-        if d is None or every_draw:
-            line += (f"; floor median {statistics.median(floors[-1].values()):.2e}, worst "
-                     f"{worst(floors[-1])}")
-        print(line + f"; gate C median {statistics.median(errs.values()):.2e}, worst "
-              f"{worst(errs)}")
-    med = statistics.median(statistics.median(e.values()) for e in per_draw)
-    leaf = {k: statistics.median(e[k] for e in per_draw) for k in per_draw[0]}
-    floor = floors[0]  # the shipped source's
-    keys = sorted(leaf, key=leaf.get, reverse=True)[:6]
-    print(f"  gate C over {len(per_draw)} sources ({len(leaf)} leaves): median of the medians "
-          f"{med:.2e} (tolerance {STEP_GRAD_RTOL:.0e}); worst leaves' medians "
-          + ", ".join(f"{k} {leaf[k]:.2e} (floor {floor[k]:.2e})" for k in keys)
-          + f"; the shipped source's floor median {statistics.median(floor.values()):.2e} "
-          f"(each leaf max({STEP_GRAD_RTOL:.0e}, {STEP_FLOOR_FACTOR:g} x floor))")
-    gate(med <= STEP_GRAD_RTOL, f"gate C: median {med:.3e} > {STEP_GRAD_RTOL}")
-    for k, e in leaf.items():
-        limit = max(STEP_GRAD_RTOL, STEP_FLOOR_FACTOR * floor[k])
-        gate(e <= limit, f"gate C: {k} {e:.3e} > {limit:.3e}")
+        print(line + f"; floor median {statistics.median(floors[-1].values()):.2e}, worst "
+              f"{worst(floors[-1])}; gate C median {statistics.median(errs.values()):.2e}, "
+              f"worst {worst(errs)}")
+    med, leaves, failed_c = _gate_c(per_draw, floors)
+    print(f"  gate C over {len(per_draw)} sources ({len(leaves)} leaves): median of the medians "
+          f"{med:.2e} (tolerance {STEP_GRAD_RTOL:.0e}); each leaf's median within max("
+          f"{STEP_GRAD_RTOL:.0e}, {STEP_FLOOR_FACTOR:g} x its median floor)")
+
+    def show(k):
+        m, limit = leaves[k]
+        print(f"    {k}: median {m:.2e}, limit {limit:.2e}; distances "
+              + ", ".join(f"{e[k]:.2e}" for e in per_draw) + "; floors "
+              + ", ".join(f"{f[k]:.2e}" for f in floors))
+
+    keys = sorted(leaves, key=lambda k: leaves[k][0], reverse=True)[:6]
+    print("  gate C's six worst leaves (sources: shipped, then draws 0-"
+          f"{STEP_DRAWS - 1}):")
+    for k in keys:
+        show(k)
+    hidden = [k for k, (m, limit) in leaves.items()
+              if m <= limit and m > max(STEP_GRAD_RTOL, STEP_FLOOR_FACTOR * floors[0][k])]
+    print(f"  gate C leaves that pass but would fail the shipped source's floor alone: "
+          f"{len(hidden)}")
+    for k in hidden:
+        show(k)
+    for msg in failed_c:
+        gate(False, msg)
     return failures
 
 
 def phase_step_chaos(card: str) -> None:
     """The diagnostic of the fp32 step gates: `_step_gates` of the pre-join
-    and of the post-join step with gates F and B on every draw too, every
-    statistic of every draw printed, and the gates that failed listed (not
-    raised). Any checkout's port, so that parent and change compare in one
+    and of the post-join step, every statistic of every source printed (as
+    the train and post-join phases print them), and the gates that failed
+    listed, not raised. Any checkout's port, so that parent and change compare in one
     call."""
     from tinyvc_tpu_torch.kernels import filter_stage as fs
     from tinyvc_tpu_torch.kernels import mrd
@@ -2490,7 +2576,7 @@ def phase_step_chaos(card: str) -> None:
                            (fs, rs, mrd) if post_join else (fs, rs))
         names = POSTJOIN_LOSSES if post_join else PREJOIN_LOSSES
         print(f"  {'post-join' if post_join else 'pre-join'} step:")
-        failures = _step_gates(run, names, _plain_forward(post_join), every_draw=True)
+        failures = _step_gates(run, names, _plain_forward(post_join))
         print(f"  {'post-join' if post_join else 'pre-join'} gates: "
               + ("all passed" if not failures else f"{len(failures)} failed"))
     print(f"  ({card})")

@@ -71,6 +71,58 @@ def test_oscillator_matches_pallas_and_truth(rng, B, F):
     assert oscillator.oscillator_bank.launches == 0
 
 
+def _phase_truth(f0, frame=480, sr=24000):
+    """float64 phase of every sample (cycles, not wrapped), [B, L]: the
+    running sum of the interpolated f0 / sr, as `_osc_truth` takes it."""
+    F = f0.shape[1]
+    src = np.clip((np.arange(F * frame) + 0.5) / frame - 0.5, 0, F - 1)
+    j = np.floor(src).astype(int)
+    fr = src - j
+    f = f0.astype(np.float64)
+    return np.cumsum((f[:, j] * (1 - fr) + f[:, np.minimum(j + 1, F - 1)] * fr) / sr, axis=1)
+
+
+# kernel A's and I's shapes in `chip_smoke.py`: a request, serving B=8, a
+# ragged batch, and 60 s
+@pytest.mark.parametrize("B,F", [(1, 320), (8, 320), (3, 37), (1, 3000)])
+def test_closed_form_phase_matches_truth(rng, B, F):
+    """The kernels' phase (`oscillator.closed_form_phase`: the quadratic
+    half-frame prefix in float64, Q0.64 frame offsets) within 1e-5 cycles of
+    the float64 running sum, at any length."""
+    f0 = rng.uniform(80.0, 400.0, (B, F)).astype(np.float32)
+    f0[0, 5:15] = 0.0
+    got = oscillator.closed_form_phase(f0)
+    assert got.shape == (B, F * 480) and np.abs(got).max() <= 0.5
+    d = got - _phase_truth(f0)
+    err = float(np.abs(d - np.rint(d)).max())
+    print(f"closed-form phase B={B} F={F}: {err:.2e} cycles from the float64 truth")
+    assert err <= 1e-5
+
+
+@pytest.mark.parametrize("B,F", [(2, 50), (1, 37)])
+def test_closed_form_bank_matches_pallas_and_truth(rng, B, F):
+    """Kernel A's arithmetic through the sine and the Chebyshev recurrence
+    (`oscillator.oscillator_bank_closed_form`) against JAX's Pallas kernel
+    in interpret mode within `test_oscillator_matches_pallas_and_truth`'s
+    2e-2, and within 1e-4 of the float64 truth (`chip_smoke.OSC_TRUTH_ATOL`,
+    the card's bound for kernel A)."""
+    H1 = 15
+    f0 = (np.abs(rng.standard_normal((B, F))) * 200 + 40).astype(np.float32)
+    f0[0, :10] = 0.0
+    amps = (np.abs(rng.standard_normal((B, F, H1))) + 0.2).clip(max=3.0).astype(np.float32)
+    got = oscillator.oscillator_bank_closed_form(torch.from_numpy(f0),
+                                                 torch.from_numpy(amps)).numpy()
+    pallas = np.asarray(j_oscillator_bank(
+        jnp.asarray(f0), jnp.asarray(amps), 480, 24000, 20.0,
+        interpret=True, transpose_out=False,
+    ))
+    truth = _osc_truth(f0, amps)
+    err_pallas, err_truth = np.abs(got - pallas).max(), np.abs(got - truth).max()
+    print(f"closed-form bank B={B} F={F}: vs Pallas {err_pallas:.2e}, vs truth {err_truth:.2e}")
+    assert got.shape == pallas.shape == (B, H1, F * 480)
+    assert err_pallas < 2e-2 and err_truth <= 1e-4
+
+
 def _jax_hash_angles(B, F, bins, seed, rows_total):
     """The Pallas noise kernel's phase arithmetic (`noise.py:141-151`),
     evaluated with JAX ops on the kernel's own index layout."""

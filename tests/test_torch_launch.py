@@ -97,6 +97,24 @@ def test_every_wrapper_launches_through_the_helper():
     assert called == set(build.SIGNATURES)
 
 
+def test_every_kernel_launch_is_counted():
+    """Every `<<<grid, block, smem, stream>>>` in `csrc/` passes its stream
+    through `tvc::counted` (`csrc/launch_count.cuh`), so the library's host
+    count (`build.launch_count`), on which `chip_smoke.py` checks each
+    call's launches, misses none; every source that launches includes the
+    header."""
+    launches = 0
+    for path in sorted(build.CSRC.glob("*.cu")):
+        text = path.read_text()
+        configs = re.findall(r"<<<(.*?)>>>", text, re.S)
+        for cfg in configs:
+            assert re.search(r",\s*tvc::counted\((.|\n)*\)\s*$", cfg), (path.name, cfg)
+        if configs:
+            assert '#include "launch_count.cuh"' in text, path.name
+        launches += len(configs)
+    assert launches > 0
+
+
 def test_check_input_refuses_other_dtypes():
     build.check_input("x", _FakeTensor(), 2)
     build.check_input("x", _FakeTensor(dtype=torch.bfloat16), 2, (torch.float32, torch.bfloat16))

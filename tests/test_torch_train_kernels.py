@@ -61,14 +61,15 @@ def _osc_amps_grad_truth(f0, g, frame=480, sr=24000, fmin=20.0):
     return out
 
 
-def test_oscillator_amps_grad_matches_jax(rng):
+@pytest.mark.parametrize("H1", [15, 21])
+def test_oscillator_amps_grad_matches_jax(rng, H1):
     """Kernel I's plain version against the JAX package's exact vjp of the
     same oscillator (the XLA chain `_xla_fallback`, the phase scheme the
     plain version ports), and against the Pallas backward kernel it
     replaces, whose phase is integrated by another scheme (ROADMAP.md §3:
     in interpret mode it departs further from the float64 vjp than the
-    port does)."""
-    B, F, H1 = 2, 20, 15
+    port does). 21 harmonics: past the 16 of kernel I's first round."""
+    B, F = 2, 20
     f0 = (150.0 + 20.0 * rng.standard_normal((B, F))).astype(np.float32)
     f0[1, 3:6] = 0.0  # an unvoiced run
     g = _r(rng, B, H1, F * 480, scale=1.0)

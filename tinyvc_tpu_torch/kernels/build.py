@@ -7,7 +7,9 @@ shared library with a plain C interface,
 PyTorch's headers, so the build takes seconds; the library is loaded with
 ``ctypes`` and every pointer and the stream are passed as ``c_void_p``.
 Every wrapper launches through :func:`launch`, which runs the call under
-the tensor's device and on that device's current stream.
+the tensor's device and on that device's current stream. The library counts
+its kernel launches on the host (`csrc/launch_count.cuh`);
+:func:`launch_count` reads the count.
 """
 
 from __future__ import annotations
@@ -144,8 +146,17 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.tvc_launch_count.argtypes = []
+        lib.tvc_launch_count.restype = ctypes.c_longlong
         _lib = lib
     return _lib
+
+
+def launch_count() -> int:
+    """Kernels the library has launched in this process: every launch of
+    every C entry point adds one on the host, so the count loses none
+    (a profiler's kernel records may be dropped)."""
+    return library().tvc_launch_count()
 
 
 def check_input(name: str, t: torch.Tensor, ndim: int,

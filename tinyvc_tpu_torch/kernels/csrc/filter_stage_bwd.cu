@@ -67,6 +67,7 @@
 #include <cuda_runtime.h>
 
 #include "unet_tiles.cuh"
+#include "launch_count.cuh"
 
 namespace {
 
@@ -380,11 +381,11 @@ int run_conv(const Conv& c, int B, cudaStream_t st) {
   const int ni = c.co <= 32 ? 2 : 4;
   const dim3 grid((c.hi - c.lo + TCOL - 1) / TCOL, (c.co + 16 * ni - 1) / (16 * ni), B);
   if constexpr (UP) {
-    if (ni == 2) up_grad_conv<K, 2><<<grid, THREADS, 0, st>>>(c);
-    else up_grad_conv<K, 4><<<grid, THREADS, 0, st>>>(c);
+    if (ni == 2) up_grad_conv<K, 2><<<grid, THREADS, 0, tvc::counted(st)>>>(c);
+    else up_grad_conv<K, 4><<<grid, THREADS, 0, tvc::counted(st)>>>(c);
   } else {
-    if (ni == 2) down_grad_conv<K, 2><<<grid, THREADS, 0, st>>>(c);
-    else down_grad_conv<K, 4><<<grid, THREADS, 0, st>>>(c);
+    if (ni == 2) down_grad_conv<K, 2><<<grid, THREADS, 0, tvc::counted(st)>>>(c);
+    else down_grad_conv<K, 4><<<grid, THREADS, 0, tvc::counted(st)>>>(c);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -400,16 +401,18 @@ int run_wgrad(WGrad w, int B, float* gw, float* gb, float* scratch, cudaStream_t
   w.partial = scratch;
   w.bpartial = gb ? scratch + static_cast<long long>(nchunks) * w.co * ncols : nullptr;
   const dim3 grid(nchunks, (w.co + 15) / 16, (w.cin + 15) / 16);
-  if constexpr (UP) up_grad_wgrad<K><<<grid, THREADS, 0, st>>>(w);
-  else down_grad_wgrad<K><<<grid, THREADS, 0, st>>>(w);
+  if constexpr (UP) up_grad_wgrad<K><<<grid, THREADS, 0, tvc::counted(st)>>>(w);
+  else down_grad_wgrad<K><<<grid, THREADS, 0, tvc::counted(st)>>>(w);
   int rc = static_cast<int>(cudaGetLastError());
   if (rc) return rc;
   const long long total = static_cast<long long>(w.co) * ncols + (gb ? w.co : 0);
   const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
-  if constexpr (UP) up_grad_reduce<<<blocks, 256, 0, st>>>(w.partial, w.bpartial, nchunks, w.co,
-                                                             ncols, gw, gb);
-  else down_grad_reduce<<<blocks, 256, 0, st>>>(w.partial, w.bpartial, nchunks, w.co, ncols, gw,
-                                                 gb);
+  if constexpr (UP)
+    up_grad_reduce<<<blocks, 256, 0, tvc::counted(st)>>>(w.partial, w.bpartial, nchunks, w.co,
+                                                         ncols, gw, gb);
+  else
+    down_grad_reduce<<<blocks, 256, 0, tvc::counted(st)>>>(w.partial, w.bpartial, nchunks, w.co,
+                                                           ncols, gw, gb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,8 +421,10 @@ int run_fold(const float* ext, int B, int rows, int E, int vlo, int vhi, int R, 
              float* out, cudaStream_t st) {
   const long long total = static_cast<long long>(B) * rows * Tout;
   const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
-  if constexpr (UP) up_grad_fold<<<blocks, 256, 0, st>>>(ext, E, vlo, vhi, R, T, Tout, out, total);
-  else down_grad_fold<<<blocks, 256, 0, st>>>(ext, E, vlo, vhi, R, T, Tout, out, total);
+  if constexpr (UP)
+    up_grad_fold<<<blocks, 256, 0, tvc::counted(st)>>>(ext, E, vlo, vhi, R, T, Tout, out, total);
+  else
+    down_grad_fold<<<blocks, 256, 0, tvc::counted(st)>>>(ext, E, vlo, vhi, R, T, Tout, out, total);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -601,7 +606,8 @@ extern "C" int tvc_up_chain_grad(const void* xu, const void* cond, const float* 
     f.lo = 4;
     f.hi = E - 4;
     const long long total = static_cast<long long>(B) * C * (E - 8);
-    up_grad_film<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(f, total);
+    up_grad_film<<<static_cast<unsigned>((total + 255) / 256), 256, 0, tvc::counted(st)>>>(f,
+                                                                                          total);
     return static_cast<int>(cudaGetLastError());
   };
   TRY(film_grad(buf(gr2, C, E, 40, E - 40), buf(u4, C, E, 40, E - 40), 1, gu4));
@@ -779,7 +785,7 @@ int launch_tc(Kern kern, dim3 grid, int smem, const Arg& arg, cudaStream_t st) {
   if (smem > kMaxSmem || grid.x == 0 || grid.y > 65535 || grid.z > 65535) return kInvalid;
   if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess)
     return kInvalid;
-  kern<<<grid, TC_THREADS, smem, st>>>(arg);
+  kern<<<grid, TC_THREADS, smem, tvc::counted(st)>>>(arg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -878,8 +884,8 @@ int run_prep(Prep p, int B, cudaStream_t st) {
     blocks += cdiv(p.pack[j].co * p.pack[j].kp, TC_THREADS);
   }
   p.first[p.ncopy + p.npack] = blocks;
-  if constexpr (UP) up_grad_tc_prep<<<blocks, TC_THREADS, smem, st>>>(p);
-  else down_grad_tc_prep<<<blocks, TC_THREADS, smem, st>>>(p);
+  if constexpr (UP) up_grad_tc_prep<<<blocks, TC_THREADS, smem, tvc::counted(st)>>>(p);
+  else down_grad_tc_prep<<<blocks, TC_THREADS, smem, tvc::counted(st)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -895,8 +901,8 @@ int run_finish(Finish f, cudaStream_t st) {
     blocks += cdiv(f.fold[j].rows, TC_THREADS);
   }
   f.first[f.nsum + f.nfold] = blocks;
-  if constexpr (UP) up_grad_tc_finish<<<blocks, TC_THREADS, 0, st>>>(f);
-  else down_grad_tc_finish<<<blocks, TC_THREADS, 0, st>>>(f);
+  if constexpr (UP) up_grad_tc_finish<<<blocks, TC_THREADS, 0, tvc::counted(st)>>>(f);
+  else down_grad_tc_finish<<<blocks, TC_THREADS, 0, tvc::counted(st)>>>(f);
   return static_cast<int>(cudaGetLastError());
 }
 

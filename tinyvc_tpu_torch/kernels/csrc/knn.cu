@@ -62,6 +62,7 @@
 
 #include "bf16.cuh"
 #include "mma.cuh"
+#include "launch_count.cuh"
 
 namespace {
 
@@ -430,23 +431,24 @@ int launch_knn(const float* x, float* xT, const float* refT, const float* rowb,
                int R, int N, int C, int k, int metric, const Schedule& sc, float alpha,
                float one_minus_alpha, cudaStream_t st) {
   const int Rp = padded(R), Np = padded(N);
-  knn_prep<<<dim3(Rp / 32, (C + 127) / 128), 256, 0, st>>>(x, xT, R, Rp, C, metric);
+  knn_prep<<<dim3(Rp / 32, (C + 127) / 128), 256, 0, tvc::counted(st)>>>(x, xT, R, Rp, C, metric);
   int rc = static_cast<int>(cudaGetLastError());
   if (rc) return rc;
   const dim3 grid((R + sc.rows - 1) / sc.rows, sc.nsplit);
   if (sc.rows == 64)
-    knn_topk<4, 1, KL><<<grid, 128, 0, st>>>(xT, refT, rowb, cand_v, cand_i, R, Rp, N, Np, C, k,
-                                             metric, sc.slice);
+    knn_topk<4, 1, KL><<<grid, 128, 0, tvc::counted(st)>>>(xT, refT, rowb, cand_v, cand_i, R, Rp,
+                                                           N, Np, C, k, metric, sc.slice);
   else
-    knn_topk<2, 2, KL><<<grid, 128, 0, st>>>(xT, refT, rowb, cand_v, cand_i, R, Rp, N, Np, C, k,
-                                             metric, sc.slice);
+    knn_topk<2, 2, KL><<<grid, 128, 0, tvc::counted(st)>>>(xT, refT, rowb, cand_v, cand_i, R, Rp,
+                                                           N, Np, C, k, metric, sc.slice);
   rc = static_cast<int>(cudaGetLastError());
   if (rc) return rc;
   const int vec = C % 8 == 0 &&
                   ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out) |
                     reinterpret_cast<uintptr_t>(refm)) & 15) == 0;
-  knn_mean<KL><<<(R + 7) / 8, 256, 0, st>>>(x, refm, cand_v, cand_i, out, idx_out, R, C, k,
-                                           sc.nsplit, alpha, one_minus_alpha, vec);
+  knn_mean<KL><<<(R + 7) / 8, 256, 0, tvc::counted(st)>>>(x, refm, cand_v, cand_i, out, idx_out, R,
+                                                         C, k, sc.nsplit, alpha, one_minus_alpha,
+                                                         vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -44,6 +44,7 @@
 //   sums dy per channel for db; three launches a layer.
 
 #include "mrd_tiles.cuh"
+#include "launch_count.cuh"
 
 namespace {
 
@@ -631,7 +632,7 @@ int launch_dw_mma(const void* xt, const void* dyt, float* ws, const Layer& ly, i
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(cdiv(ly.cin, DwTile<MT>::BM) * cdiv(ly.cout, DW_BN) * ly.kh, splits);
-  mrd_dw_mma_kernel<MT><<<grid, DW_THREADS, smem, st>>>(
+  mrd_dw_mma_kernel<MT><<<grid, DW_THREADS, smem, tvc::counted(st)>>>(
       static_cast<const __nv_bfloat16*>(xt), static_cast<const __nv_bfloat16*>(dyt), ws, ly,
       make_walk(ly, DW_BK), splits);
   return static_cast<int>(cudaGetLastError());
@@ -653,9 +654,10 @@ extern "C" int tvc_mrd_dw(const float* x, const float* dy, float* ws, long long 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(chunks), cdiv(cin, TCH) * cdiv(cout, TCH), kh);
   const long long len = static_cast<long long>(s_out) * (g_out + 4) * Wp;
-  mrd_dw_partial_kernel<<<grid, THREADS, 0, st>>>(x, dy, ws, ly, wch);
-  mrd_db_kernel<<<cout, THREADS, 0, st>>>(dy, db, B, cout, len);
-  mrd_dw_sum_kernel<<<cdiv(n, 256), 256, 0, st>>>(ws, dw, n, static_cast<int>(chunks));
+  mrd_dw_partial_kernel<<<grid, THREADS, 0, tvc::counted(st)>>>(x, dy, ws, ly, wch);
+  mrd_db_kernel<<<cout, THREADS, 0, tvc::counted(st)>>>(dy, db, B, cout, len);
+  mrd_dw_sum_kernel<<<cdiv(n, 256), 256, 0, tvc::counted(st)>>>(ws, dw, n,
+                                                                 static_cast<int>(chunks));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -724,7 +726,7 @@ extern "C" int tvc_mrd_dw_bf16(void* const* ptrs, const int* dims, int layers, f
     long long blocks = 0;
     for (int j = 0; j < gat.jobs; ++j)
       blocks += static_cast<long long>(gat.job[j].pieces) * gat.job[j].groups;
-    mrd_dw_gather_kernel<<<static_cast<unsigned>(blocks), GW_THREADS, 0, st>>>(gat);
+    mrd_dw_gather_kernel<<<static_cast<unsigned>(blocks), GW_THREADS, 0, tvc::counted(st)>>>(gat);
     const int rc = static_cast<int>(cudaGetLastError());
     if (rc) return rc;
   }
@@ -737,6 +739,7 @@ extern "C" int tvc_mrd_dw_bf16(void* const* ptrs, const int* dims, int layers, f
                        : launch_dw_mma<2>(p[1], p[3], ws + sum.woff[li], ly, sum.parts[li], st);
     if (rc) return rc;
   }
-  mrd_dw_reduce_kernel<<<static_cast<unsigned>(blocks), RED_THREADS, 0, st>>>(ws, sum);
+  mrd_dw_reduce_kernel<<<static_cast<unsigned>(blocks), RED_THREADS, 0, tvc::counted(st)>>>(ws,
+                                                                                            sum);
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,6 +39,7 @@
 // dy0 element once per tap that lands on it (3-4), through L2.
 
 #include "mrd_tiles.cuh"
+#include "launch_count.cuh"
 
 namespace {
 
@@ -288,7 +289,7 @@ int launch_mma(const void* dyt, const void* wp, const void* cot_below, void* dy_
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(cdiv(ly.g_in * ly.Wp, MMA_BN), cdiv(ly.cin, MmaTile<MT, true>::BM),
                   ly.B * ly.s_in);
-  mrd_dx_mma_kernel<MT><<<grid, MMA_THREADS, smem, st>>>(
+  mrd_dx_mma_kernel<MT><<<grid, MMA_THREADS, smem, tvc::counted(st)>>>(
       static_cast<const __nv_bfloat16*>(dyt), static_cast<const __nv_bfloat16*>(wp),
       static_cast<const __nv_bfloat16*>(cot_below), static_cast<__nv_bfloat16*>(dy_below),
       static_cast<__nv_bfloat16*>(dyt_below), ly, next);
@@ -336,8 +337,8 @@ extern "C" int tvc_mrd_dx(const void* cot, const float* above, void* dy, void* d
   if (bf16) {
     auto* d = static_cast<__nv_bfloat16*>(dy);
     if (cot) {
-      mrd_dy_kernel<<<dy_grid, dy_block, 0, st>>>(static_cast<const __nv_bfloat16*>(cot), above,
-                                                  d, t, ly, own);
+      mrd_dy_kernel<<<dy_grid, dy_block, 0, tvc::counted(st)>>>(
+          static_cast<const __nv_bfloat16*>(cot), above, d, t, ly, own);
       const int rc = static_cast<int>(cudaGetLastError());
       if (rc) return rc;
     }
@@ -348,21 +349,21 @@ extern "C" int tvc_mrd_dx(const void* cot, const float* above, void* dy, void* d
       }
     }
     if (dx_bf16)
-      mrd_dx_narrow_kernel<<<narrow_grid, NW_THREADS, narrow_smem, st>>>(
+      mrd_dx_narrow_kernel<<<narrow_grid, NW_THREADS, narrow_smem, tvc::counted(st)>>>(
           static_cast<const __nv_bfloat16*>(d), w, static_cast<__nv_bfloat16*>(dx), ly, 1);
     else
-      mrd_dx_narrow_kernel<<<narrow_grid, NW_THREADS, narrow_smem, st>>>(
+      mrd_dx_narrow_kernel<<<narrow_grid, NW_THREADS, narrow_smem, tvc::counted(st)>>>(
           static_cast<const __nv_bfloat16*>(d), w, static_cast<float*>(dx), ly, 1);
   } else {
     auto* d = static_cast<float*>(dy);
-    mrd_dy_kernel<<<dy_grid, dy_block, 0, st>>>(static_cast<const float*>(cot), above, d, t, ly,
-                                                own);
+    mrd_dy_kernel<<<dy_grid, dy_block, 0, tvc::counted(st)>>>(static_cast<const float*>(cot),
+                                                              above, d, t, ly, own);
     if (cin == 1)
-      mrd_dx_narrow_kernel<<<narrow_grid, NW_THREADS, narrow_smem, st>>>(
+      mrd_dx_narrow_kernel<<<narrow_grid, NW_THREADS, narrow_smem, tvc::counted(st)>>>(
           static_cast<const float*>(d), w, static_cast<float*>(dx), ly, 0);
     else
-      mrd_dx_kernel<<<dim3(cdiv(g_in * Wp, TP), cdiv(cin, TCH), B * s_in), THREADS, 0, st>>>(
-          d, w, static_cast<float*>(dx), ly);
+      mrd_dx_kernel<<<dim3(cdiv(g_in * Wp, TP), cdiv(cin, TCH), B * s_in), THREADS, 0,
+                      tvc::counted(st)>>>(d, w, static_cast<float*>(dx), ly);
   }
   return static_cast<int>(cudaGetLastError());
 }

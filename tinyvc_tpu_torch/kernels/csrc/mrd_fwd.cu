@@ -39,6 +39,7 @@
 // blocks an SM leave the last wave of a layer part empty).
 
 #include "mrd_tiles.cuh"
+#include "launch_count.cuh"
 
 namespace {
 
@@ -311,7 +312,7 @@ int launch_mma(const void* xt, const void* wp, const float* bias, void* out, voi
   constexpr int smem = MmaTile<MT, false>::SMEM;
   if (!allow_smem(mrd_fwd_mma_kernel<MT>, smem)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(cdiv(ly.L(), MMA_BN), cdiv(ly.cout, MmaTile<MT, false>::BM), ly.B * ly.s_out);
-  mrd_fwd_mma_kernel<MT><<<grid, MMA_THREADS, smem, st>>>(
+  mrd_fwd_mma_kernel<MT><<<grid, MMA_THREADS, smem, tvc::counted(st)>>>(
       static_cast<const __nv_bfloat16*>(xt), static_cast<const __nv_bfloat16*>(wp), bias,
       static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(outt), ly, next);
   return static_cast<int>(cudaGetLastError());
@@ -346,12 +347,12 @@ extern "C" int tvc_mrd_fwd(const void* x, const void* xt, const float* w, const 
     if (kh > C1_MAXKH || smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(cdiv(ly.L(), C1_THREADS), B * s_out);
     if (bf16)
-      mrd_fwd_c1_kernel<<<grid, C1_THREADS, smem, st>>>(
+      mrd_fwd_c1_kernel<<<grid, C1_THREADS, smem, tvc::counted(st)>>>(
           static_cast<const __nv_bfloat16*>(x), w, bias, static_cast<__nv_bfloat16*>(out), ot, ly,
           1, next);
     else
-      mrd_fwd_c1_kernel<<<grid, C1_THREADS, smem, st>>>(static_cast<const float*>(x), w, bias,
-                                                        static_cast<float*>(out), ot, ly, 0, next);
+      mrd_fwd_c1_kernel<<<grid, C1_THREADS, smem, tvc::counted(st)>>>(
+          static_cast<const float*>(x), w, bias, static_cast<float*>(out), ot, ly, 0, next);
     return static_cast<int>(cudaGetLastError());
   }
   if (cout == 1) {
@@ -359,12 +360,12 @@ extern "C" int tvc_mrd_fwd(const void* x, const void* xt, const float* w, const 
     if (wnext || smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(cdiv(ly.L(), Narrow<1, NW_WARPS>::POS), B * s_out);
     if (bf16)
-      mrd_fwd_narrow_kernel<<<grid, NW_THREADS, smem, st>>>(
+      mrd_fwd_narrow_kernel<<<grid, NW_THREADS, smem, tvc::counted(st)>>>(
           static_cast<const __nv_bfloat16*>(x), w, bias, static_cast<__nv_bfloat16*>(out), ly,
           1);
     else
-      mrd_fwd_narrow_kernel<<<grid, NW_THREADS, smem, st>>>(static_cast<const float*>(x), w,
-                                                            bias, static_cast<float*>(out), ly, 0);
+      mrd_fwd_narrow_kernel<<<grid, NW_THREADS, smem, tvc::counted(st)>>>(
+          static_cast<const float*>(x), w, bias, static_cast<float*>(out), ly, 0);
     return static_cast<int>(cudaGetLastError());
   }
   if (mma) {
@@ -376,7 +377,7 @@ extern "C" int tvc_mrd_fwd(const void* x, const void* xt, const float* w, const 
   }
   if (wnext) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(cdiv(ly.L(), TP), cdiv(cout, TCH), B * s_out);
-  mrd_fwd_kernel<<<grid, THREADS, 0, st>>>(static_cast<const float*>(x), w, bias,
+  mrd_fwd_kernel<<<grid, THREADS, 0, tvc::counted(st)>>>(static_cast<const float*>(x), w, bias,
                                            static_cast<float*>(out), ly);
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,6 +34,7 @@
 #include <stdint.h>
 
 #include "fft.cuh"
+#include "launch_count.cuh"
 
 namespace {
 
@@ -153,7 +154,7 @@ extern "C" int tvc_noise(const float* mag, const float* angle, const float* cos_
       noise_fft, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((F + HOPS - 1) / HOPS, B);
-  noise_fft<<<grid, FRAMES * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  noise_fft<<<grid, FRAMES * 32, smem, tvc::counted(static_cast<cudaStream_t>(stream))>>>(
       mag, angle, cos_tab, sin_tab, win, out, F, hop, rows_total, seed, p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -51,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -269,9 +271,9 @@ extern "C" int tvc_oscillator(const float* f0, const float* amps, float* fs_mod,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = (frame + 31) / 32 * 32;
   const dim3 grid(F, B);
-  osc_frame_sums<<<grid, threads, 0, s>>>(f0, fs_mod, F, frame, sample_rate);
-  osc_synth<<<grid, threads, 0, s>>>(f0, amps, fs_mod, out, F, H1, frame, sample_rate,
-                                     min_frequency);
+  osc_frame_sums<<<grid, threads, 0, tvc::counted(s)>>>(f0, fs_mod, F, frame, sample_rate);
+  osc_synth<<<grid, threads, 0, tvc::counted(s)>>>(f0, amps, fs_mod, out, F, H1, frame,
+                                                    sample_rate, min_frequency);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -287,11 +289,11 @@ extern "C" int tvc_oscillator_amps_grad(const float* f0, const float* g, float* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = (frame + 31) / 32 * 32;
   const dim3 grid(F, B);
-  osc_frame_sums<<<grid, threads, 0, s>>>(f0, fs_mod, F, frame, sample_rate);
-  osc_amps_grad_parts<<<grid, threads, 0, s>>>(f0, fs_mod, g, parts, F, H1, frame, sample_rate,
-                                               min_frequency);
+  osc_frame_sums<<<grid, threads, 0, tvc::counted(s)>>>(f0, fs_mod, F, frame, sample_rate);
+  osc_amps_grad_parts<<<grid, threads, 0, tvc::counted(s)>>>(f0, fs_mod, g, parts, F, H1, frame,
+                                                              sample_rate, min_frequency);
   const long long n = static_cast<long long>(B) * F * H1;
-  osc_amps_grad_combine<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(parts, damps, B, F,
-                                                                              H1);
+  osc_amps_grad_combine<<<static_cast<unsigned>((n + 255) / 256), 256, 0, tvc::counted(s)>>>(
+      parts, damps, B, F, H1);
   return static_cast<int>(cudaGetLastError());
 }

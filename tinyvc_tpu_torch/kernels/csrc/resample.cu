@@ -92,6 +92,7 @@
 #include <stdint.h>
 
 #include "bf16.cuh"
+#include "launch_count.cuh"
 
 namespace {
 
@@ -256,7 +257,7 @@ int launch_up(const S* x, const float4* wt, S* y, long long total, int T, int f,
   const long long blocks = (total + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   upsample_linear_kernel<S, F>
-      <<<static_cast<unsigned>(blocks), UP_THREADS, 0, st>>>(x, wt, y, total, T, f);
+      <<<static_cast<unsigned>(blocks), UP_THREADS, 0, tvc::counted(st)>>>(x, wt, y, total, T, f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -335,10 +336,10 @@ extern "C" int tvc_downsample_linear(const void* x, void* y, long long rows, int
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    downsample_linear_kernel<<<static_cast<unsigned>(blocks), threads, 0, st>>>(
+    downsample_linear_kernel<<<static_cast<unsigned>(blocks), threads, 0, tvc::counted(st)>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), total, T, f);
   else
-    downsample_linear_kernel<<<static_cast<unsigned>(blocks), threads, 0, st>>>(
+    downsample_linear_kernel<<<static_cast<unsigned>(blocks), threads, 0, tvc::counted(st)>>>(
         static_cast<const float*>(x), static_cast<float*>(y), total, T, f);
   return static_cast<int>(cudaGetLastError());
 }
@@ -536,9 +537,9 @@ int launch_grad(const S* g, const float4* wt, S* gx, long long total, int T, int
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned nb = static_cast<unsigned>(blocks);
   if (up)
-    resample_grad_up<S, F><<<nb, UP_THREADS, 0, st>>>(g, wt, gx, total, T, f);
+    resample_grad_up<S, F><<<nb, UP_THREADS, 0, tvc::counted(st)>>>(g, wt, gx, total, T, f);
   else if constexpr (F == 0 || F >= 3)
-    resample_grad_down<S, F><<<nb, UP_THREADS, 0, st>>>(g, gx, total, T, f);
+    resample_grad_down<S, F><<<nb, UP_THREADS, 0, tvc::counted(st)>>>(g, gx, total, T, f);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,6 +28,7 @@
 #include <cuda_runtime.h>
 
 #include "fft.cuh"
+#include "launch_count.cuh"
 
 namespace {
 
@@ -97,7 +98,7 @@ extern "C" int tvc_spectrogram(const float* x, const float* table, const float* 
       spectrogram_fft, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned grid = static_cast<unsigned>((R + FRAMES - 1) / FRAMES);
-  spectrogram_fft<<<grid, FRAMES * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  spectrogram_fft<<<grid, FRAMES * 32, smem, tvc::counted(static_cast<cudaStream_t>(stream))>>>(
       x, table, win, out, B, L, hop, p);
   return static_cast<int>(cudaGetLastError());
 }
