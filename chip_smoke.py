@@ -104,15 +104,16 @@ PITCH_SHIFT = 11.99  # the demo's own setting (demo/two_speaker/README.md)
 #  A: the plain version (the JAX package's XLA scheme) interpolates f0 with
 #     fp32 coordinates over the whole utterance, and its phase drifts from
 #     the float64 truth as time goes on: up to ~9e-3 at harmonic 15 and
-#     amplitude 3 after 320 frames. The kernel interpolates within each
-#     frame and stays ~1e-3 from the truth. 1e-2 bounds their difference at
-#     one row of 320 frames and at B=3, F=37 (OSC_PLAIN_CASES); at the
+#     amplitude 3 after 320 frames. The kernel's phase is a closed form in
+#     double with exact Q0.64 frame offsets (`csrc/oscillator.cu`), ~1e-5
+#     from the truth at any length. 1e-2 bounds kernel against plain version
+#     at one row of 320 frames and at B=3, F=37 (OSC_PLAIN_CASES); at the
 #     serving profile's B=8 and at 3000 frames the plain version's own
 #     distance to the truth passes 1e-2 (1.45e-2 and 1.21e-1 on the CPU,
 #     for this script's draws), so those are held by the float64 truth
-#     alone. The check against the float64 truth (under 2e-2 and no more
-#     than 1.5x the plain version's error) is the tighter gate, at every
-#     shape.
+#     alone. The float64 truth is the tighter gate, at every shape:
+#     OSC_TRUTH_ATOL, an fp32 sine rounded once and 15 steps of an fp32
+#     recurrence at amplitude 3 (the host model of the kernel showed 9e-6).
 #  B: same hashed phases bit for bit; an fp32 mixed-radix inverse FFT
 #     against cuFFT's irfft (1e-5, the JAX package's own kernel-vs-istft
 #     bound).
@@ -139,6 +140,7 @@ PITCH_SHIFT = 11.99  # the demo's own setting (demo/two_speaker/README.md)
 KERNEL_TOL = {"oscillator": 1e-2, "noise": 1e-5, "upsample": 1e-6, "downsample": 1e-6,
               "upsample_bf16": 0.0, "downsample_bf16": 0.0, "knn": 1e-6}
 OSC_PLAIN_CASES = ((1, 320), (3, 37))
+OSC_TRUTH_ATOL = 1e-4
 CHAIN_RTOL = {"down_chain": 1e-5, "up_chain": 1e-5, "down_chain_bf16": 2.0**-8,
               "up_chain_bf16": 2.0**-8, "spectrogram": 5e-6}
 KNN_TIE = 1e-5
@@ -293,9 +295,31 @@ def phase_build() -> None:
     build.library()
     print(f"built {path.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {build.build_seconds if build.build_seconds is not None else 'cached'})")
-    for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    entry = stack = ""
+    for line in build.build_log.splitlines():  # one line a kernel: spills, registers
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            entry = _kernel_name(found.group(1))
+        elif "spill" in line:
+            stack = line.strip()
+        elif "registers" in line:
+            print(f"  ptxas: {entry}: {stack}; {line.split(':', 1)[-1].strip()}")
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name and integer template arguments from its mangled
+    name: `_ZN..._10_osc_cu_..12osc_bankILi4EEEv...` -> `osc_bank<4>`."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while pos < len(mangled) and mangled[pos].isdigit():
+        n = re.match(r"\d+", mangled[pos:]).group(0)
+        pos += len(n)
+        name = mangled[pos:pos + int(n)]
+        pos += int(n)
+    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[pos:])
+    if args:
+        name += "<" + ", ".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
+    return name
 
 
 def _osc_truth(f0, amps, frame=480, sr=24000, fmin=20.0):
@@ -327,6 +351,7 @@ def phase_kernels(card: str) -> dict:
     import torch.nn.functional as F
 
     from tinyvc_tpu_torch.dsp.stft import hann_window
+    from tinyvc_tpu_torch.kernels import build
     from tinyvc_tpu_torch.kernels.noise import oscillate_noise_hashed, oscillate_noise_plain
     from tinyvc_tpu_torch.kernels.oscillator import oscillator_bank, oscillator_bank_plain
     from tinyvc_tpu_torch.kernels.resample import upsample_linear, upsample_linear_plain
@@ -354,19 +379,22 @@ def phase_kernels(card: str) -> dict:
         amps = (np.abs(gen.standard_normal((B, F_, H1))) + 0.1).clip(max=3.0).astype(np.float32)
         tf0, tamps = torch.from_numpy(f0).to(dev), torch.from_numpy(amps).to(dev)
         with _nan_empty():
+            before = build.launch_count()
             got = oscillator_bank(tf0, tamps)
+            launched = build.launch_count() - before
             again = oscillator_bank(tf0, tamps)
         want = oscillator_bank_plain(tf0, tamps)
         torch.cuda.synchronize()
+        _check(launched == 1, f"oscillator B={B} F={F_}: {launched} launches, not 1")
         _check(torch.equal(got, again), f"oscillator B={B} F={F_}: two calls differ (or NaN)")
         err = float((got - want).abs().max())
         truth = _osc_truth(f0, amps)
         e_kernel = float(np.abs(got.cpu().numpy() - truth).max())
         e_plain = float(np.abs(want.cpu().numpy() - truth).max())
-        print(f"  oscillator B={B} F={F_}: vs float64 truth kernel {e_kernel:.3e}, "
-              f"plain {e_plain:.3e}")
-        _check(e_kernel < 2e-2 and e_kernel <= 1.5 * e_plain,
-               f"oscillator off the float64 truth: {e_kernel} vs plain {e_plain}")
+        print(f"  oscillator B={B} F={F_}: vs float64 truth kernel {e_kernel:.3e} (tolerance "
+              f"{OSC_TRUTH_ATOL:.0e}), plain {e_plain:.3e}; {launched} launch a call")
+        _check(e_kernel <= OSC_TRUTH_ATOL,
+               f"oscillator B={B} F={F_} off the float64 truth: {e_kernel} > {OSC_TRUTH_ATOL}")
         if (B, F_) in OSC_PLAIN_CASES:
             report("oscillator", f"B={B} F={F_}", err, KERNEL_TOL["oscillator"])
             errs.append(err)
@@ -897,9 +925,9 @@ def phase_unet_stages(card: str) -> None:
                       f"({card})")
 
 
-# The kernel names of A, I and J, their first designs' and the closed-form
-# A's and I's (`osc_bank`, one `osc_amps_grad`; PERF.md §6), so
-# that `phase_osc_resample` counts the launches of a call of either design.
+# The kernel names of A, I and J, this design's and the first ones' (A's
+# `osc_frame_sums` and `osc_synth`), so that `phase_osc_resample` counts the
+# launches of a call of either commit's port.
 OSC_RESAMPLE_KERNELS = ("osc_bank", "osc_frame_sums", "osc_synth", "osc_amps_grad",
                         "resample_grad_", "upsample_grad_kernel", "downsample_grad_kernel")
 
@@ -1427,7 +1455,8 @@ def phase_second_device(enc, dec, index, wave, fp32_out, serving_b8_out) -> None
 #     and kernel I by kernel A's (closer to the float64 truth, as for A): the
 #     phases drift apart over the frames and each frame's 480-term sum
 #     carries it: 2e-3 of the output's peak (the H100 showed 6.5e-4 at
-#     B=16, F=100); the check against the float64 vjp is the tighter gate.
+#     B=16, F=100). The float64 vjp is the tighter gate: OSC_GRAD_TRUTH_RTOL
+#     of its peak (the host model of the kernel showed ~1e-6).
 #  J: the same one- to 15-term fp32 sums in another order: 1e-6 of the peak;
 #     in bf16 one rounding to bf16 of a sum in another order: one bf16 step.
 #  K, L: the exact vjp has jumps where a leaky ReLU's input is 0. Without
@@ -1440,6 +1469,8 @@ def phase_second_device(enc, dec, index, wave, fp32_out, serving_b8_out) -> None
 #     per-leaf bound for the step), bf16 2**-5 (roundings to bf16 that land
 #     one step apart move the products they feed), and a ragged small shape
 #     by the max error: fp32 1e-5 and bf16 2**-7 of the peak.
+OSC_GRAD_TRUTH_RTOL = 1e-3
+OSC_GRAD_LAUNCHES = 2  # kernel I: the half-frames' sums, then their shift-add
 GRAD_TOL = {"oscillator_grad": 2e-3, "resample_grad": 1e-6, "resample_grad_bf16": 2.0**-8}
 CHAIN_GRAD_RTOL = {"fp32": (1e-3, 1e-5), "bf16": (2.0**-5, 2.0**-7)}  # (rel L2, max of peak)
 # The full-width fp32 steps, kernel path against plain path, under the
@@ -1469,22 +1500,30 @@ CHAIN_GRAD_RTOL = {"fp32": (1e-3, 1e-5), "bf16": (2.0**-5, 2.0**-7)}  # (rel L2,
 #     H100, PERF.md §6). The statistics are taken on the shipped source and on
 #     STEP_DRAWS sources multiplied by (1 + STEP_NUDGE e), e ~ N(0, 1) from
 #     a generator seeded with the draw's number, the same e in both paths,
-#     and their medians over the five sources are gated (`_gate_c`): the
-#     median over leaves within the CPU tests' 1e-3 relative norm,
-#     STEP_GRAD_RTOL, and each leaf within the larger of 1e-3 and
-#     STEP_FLOOR_FACTOR times its floor. A leaf's floor is measured on each
-#     of the same five sources, in the same run: the plain path against
-#     itself with that source moved by STEP_FLOOR_NUDGE more (a generator
-#     seeded with SEED). The gate takes the median of the five floors, the
-#     statistic it takes of the distances. A floor of one source is itself a
-#     draw on the source's bits: one rounding flips up_4.c1.bias's leaky
-#     ReLU or not, and its floor on the H100 was 4.80e-3, 4.75e-3, 4.80e-3,
-#     1.76e-4 and 4.79e-3 over the five sources of one tree, 3.50e-4 or
-#     4.83e-3 on two sources of another (PERF.md §6), so a
-#     median of five distances held to one source's floor passed or failed
-#     by that source's bits. The median over leaves has no floor, and is a
-#     draw too: on one tree's sources the plain path against itself had a
-#     median of medians of 1.13e-3 (ROADMAP.md §3).
+#     and their medians over the five sources are gated (`_gate_c`) against
+#     the same statistics of floors. A source's floor is the plain path
+#     against itself with that source moved by STEP_FLOOR_NUDGE more (a
+#     generator seeded with SEED): how far a leaky ReLU flipped by one
+#     rounding moves each leaf there. Floors are measured on each of the five
+#     sources, in the same run, and every limit is max(STEP_GRAD_RTOL, the
+#     CPU tests' 1e-3 relative norm, STEP_FLOOR_FACTOR x the floors' statistic
+#     over the same five sources):
+#       each leaf's median distance, against its median floor;
+#       the median over the sources of each source's median leaf (the median
+#       of medians, `med`), against the floors' median of medians, `fmed`.
+#     Both sides of each comparison are one statistic over one set of
+#     sources, so that a draw on the source's bits moves both. Either taken
+#     alone is a draw: one rounding flips up_4.c1.bias's leaky ReLU or not,
+#     and its floor on the H100 was 4.80e-3, 4.75e-3, 4.80e-3, 1.76e-4 and
+#     4.79e-3 over the five sources of one tree (ROADMAP.md §3), so a median
+#     of five distances held to one source's floor passed or failed by that
+#     source's bits; and the median of medians moves with which leaky ReLUs
+#     flip on the five sources: on the sources of a tree whose kernel A
+#     computes a more exact phase, the kernel path's source medians were
+#     3.66e-3, 5.17e-4, 3.48e-3, 1.10e-3 and 2.94e-4 (med 1.10e-3) and the
+#     plain path against itself had 3.65e-3, 5.00e-4, 3.61e-3, 1.13e-3 and
+#     5.24e-4 (fmed 1.13e-3), so the plain path would fail a fixed 1e-3
+#     against itself there, while on the first A's sources fmed was 5.5e-4.
 STEP_LOSS_RTOL = 1e-4
 STEP_FWD_RTOL = 1e-5  # CHAIN_RTOL["up_chain"], of the waveform's peak
 STEP_BWD_MEDIAN = 1e-5
@@ -1536,6 +1575,7 @@ def phase_train_kernels(results: dict, rng, dev) -> None:
     import torch.nn.functional as F
 
     from tinyvc_tpu_torch.infer.generator import exact_fp32
+    from tinyvc_tpu_torch.kernels import build
     from tinyvc_tpu_torch.kernels import filter_stage as fs
     from tinyvc_tpu_torch.kernels import oscillator as osc
     from tinyvc_tpu_torch.kernels import resample as rs
@@ -1558,18 +1598,22 @@ def phase_train_kernels(results: dict, rng, dev) -> None:
 
     with exact_fp32():
         # I: the oscillator's amplitude gradient at [16, 15, 48000], a ragged
-        # shape, and 21 harmonics
+        # shape, and 21 harmonics (its rounds of 8 harmonics past the second)
         errs = []
         for b, nf, h1 in ((B, F_, H1), (3, 37, H1), (2, 37, 21)):
             f0 = torch.from_numpy(rng.uniform(80.0, 320.0, (b, nf)).astype(np.float32)).to(dev)
             f0[0, 5:15] = 0.0
             g = randn(b, h1, nf * 480, scale=1.0)
             with _nan_empty():
+                before = build.launch_count()
                 got = osc.oscillator_amps_grad(f0, g)
+                launched = build.launch_count() - before
                 again = osc.oscillator_amps_grad(f0, g)
             want = osc.oscillator_amps_grad_plain(f0, g)
             torch.cuda.synchronize()
             case = f"B={b} F={nf} H1={h1}"
+            _check(launched == OSC_GRAD_LAUNCHES,
+                   f"oscillator_grad {case}: {launched} launches, not {OSC_GRAD_LAUNCHES}")
             _check(torch.equal(got, again), f"oscillator_grad {case}: two calls differ (or NaN)")
             err = float((got - want).abs().max())
             peak = float(want.abs().max())
@@ -1577,26 +1621,34 @@ def phase_train_kernels(results: dict, rng, dev) -> None:
             e_k = float(np.abs(got.cpu().numpy() - truth).max())
             e_p = float(np.abs(want.cpu().numpy() - truth).max())
             tol = GRAD_TOL["oscillator_grad"] * peak
+            tol_truth = OSC_GRAD_TRUTH_RTOL * float(np.abs(truth).max())
             print(f"  oscillator_grad {case}: max_abs_err {err:.3e} (tolerance {tol:.3e}); "
-                  f"vs the float64 vjp kernel {e_k:.3e}, plain {e_p:.3e}")
+                  f"vs the float64 vjp kernel {e_k:.3e} (tolerance {tol_truth:.3e}), plain "
+                  f"{e_p:.3e}; {launched} launches a call")
             _check(err <= tol, f"oscillator_grad {case}: error {err} > {tol}")
-            _check(e_k <= 1.5 * e_p, f"oscillator_grad {case} off the float64 vjp: {e_k} vs "
-                   f"{e_p}")
+            _check(e_k <= tol_truth, f"oscillator_grad {case} off the float64 vjp: {e_k} > "
+                   f"{tol_truth}")
             errs.append(err)
             if b == B:
                 main_i = (f0, g)
         f0, g = main_i
-        # through OscillatorBank, with a cotangent that does not start on a
-        # 16-byte boundary (a view into a larger gradient)
-        amps = torch.rand(B, F_, H1, device=dev, requires_grad=True)
-        y = osc.OscillatorBank.apply(f0, amps, 480, 24000, 20.0)
+        # through OscillatorBank, whose backward hands kernel I a copy of a
+        # cotangent that does not start on a 16-byte boundary (a view into a
+        # larger gradient); NaN-filled, twice
         g_off = torch.empty(g.numel() + 1, device=dev)[1:].view_as(g).copy_(g)
-        y.backward(g_off)
+        grads = []
+        for _ in range(2):
+            amps = torch.rand(B, F_, H1, device=dev, requires_grad=True)
+            y = osc.OscillatorBank.apply(f0, amps, 480, 24000, 20.0)
+            with _nan_empty():
+                y.backward(g_off)
+            grads.append(amps.grad)
         aligned = osc.oscillator_amps_grad(f0, g)
-        _check(g_off.data_ptr() % 16 != 0 and torch.equal(amps.grad, aligned),
+        _check(g_off.data_ptr() % 16 != 0 and torch.equal(grads[0], aligned)
+               and torch.equal(grads[1], aligned),
                "oscillator_grad: OscillatorBank's backward on a cotangent off a 16-byte boundary "
-               "differs from kernel I on an aligned copy")
-        print("  oscillator_grad through OscillatorBank, cotangent off a 16-byte boundary: "
+               "differs from kernel I on an aligned copy (or between two calls)")
+        print("  oscillator_grad through OscillatorBank, cotangent off a 16-byte boundary, twice: "
               "bit-identical to an aligned call")
         # the bytes: g read once, f0 read, the gradient written; ~12 fp32
         # operations per element of g (phase, wrap, sin, gains, 3 products)
@@ -2464,13 +2516,18 @@ def _gate_c(per_draw: list, floors: list):
     """Gate C's decision on plain dicts of floats. ``per_draw[i]`` holds
     each leaf's distance, kernel path against plain path, on source ``i``;
     ``floors[i]`` each leaf's floor on the same source. Returns (the median
-    over the sources of each source's median leaf, {leaf: (its median
+    over the sources of each source's median leaf, the same statistic of the
+    floors, the limit of the first, {leaf: (its median
     distance over the sources, its limit)}, the failures). A leaf's limit is
     max(STEP_GRAD_RTOL, STEP_FLOOR_FACTOR x its median floor over the same
-    sources): both sides of the comparison are medians over one set of
-    sources, so their order does not matter."""
+    sources), the median of medians' max(STEP_GRAD_RTOL, STEP_FLOOR_FACTOR x
+    the floors' median of medians): both sides of each comparison are the
+    same statistic over one set of sources, so their order does not
+    matter."""
     med = statistics.median(statistics.median(e.values()) for e in per_draw)
-    failures = [] if med <= STEP_GRAD_RTOL else [f"gate C: median {med:.3e} > {STEP_GRAD_RTOL}"]
+    fmed = statistics.median(statistics.median(f.values()) for f in floors)
+    med_limit = max(STEP_GRAD_RTOL, STEP_FLOOR_FACTOR * fmed)
+    failures = [] if med <= med_limit else [f"gate C: median {med:.3e} > {med_limit:.3e}"]
     leaves = {}
     for k in per_draw[0]:
         m = statistics.median(e[k] for e in per_draw)
@@ -2478,7 +2535,7 @@ def _gate_c(per_draw: list, floors: list):
         leaves[k] = (m, limit)
         if m > limit:
             failures.append(f"gate C: {k} {m:.3e} > {limit:.3e}")
-    return med, leaves, failures
+    return med, fmed, med_limit, leaves, failures
 
 
 def _step_gates(run, loss_names, plain_forward, shipped=None) -> list:
@@ -2532,9 +2589,10 @@ def _step_gates(run, loss_names, plain_forward, shipped=None) -> list:
         print(line + f"; floor median {statistics.median(floors[-1].values()):.2e}, worst "
               f"{worst(floors[-1])}; gate C median {statistics.median(errs.values()):.2e}, "
               f"worst {worst(errs)}")
-    med, leaves, failed_c = _gate_c(per_draw, floors)
+    med, fmed, med_limit, leaves, failed_c = _gate_c(per_draw, floors)
     print(f"  gate C over {len(per_draw)} sources ({len(leaves)} leaves): median of the medians "
-          f"{med:.2e} (tolerance {STEP_GRAD_RTOL:.0e}); each leaf's median within max("
+          f"{med:.2e}, limit {med_limit:.2e} = max({STEP_GRAD_RTOL:.0e}, {STEP_FLOOR_FACTOR:g} x "
+          f"the floors' median of the medians {fmed:.2e}); each leaf's median within max("
           f"{STEP_GRAD_RTOL:.0e}, {STEP_FLOOR_FACTOR:g} x its median floor)")
 
     def show(k):
@@ -2899,7 +2957,7 @@ PROFILE_GROUPS = (
     ("kernel N (MRD dy, dx)", ("mrd_dy_", "mrd_dx_")),
     ("kernel O (MRD dW, db)", ("mrd_dw_", "mrd_db_kernel")),
     ("kernel I (oscillator gradient)", ("osc_amps_grad",)),
-    ("kernel A (oscillator)", ("osc_frame_sums", "osc_synth")),
+    ("kernel A (oscillator)", ("osc_bank",)),
     ("kernel B (noise)", ("noise_fft", "noise_synth")),  # the FFT design, the DFT one
     ("kernel C (upsample)", ("upsample_linear_kernel",)),
     ("kernel D (downsample)", ("downsample_linear_kernel",)),

@@ -124,3 +124,20 @@ def test_check_input_refuses_other_dtypes():
         build.check_input("x", _FakeTensor("cpu"), 2)
     with pytest.raises(ValueError, match="contiguous"):
         build.check_input("x", _FakeTensor(contiguous=False), 2)
+
+
+@pytest.mark.parametrize("mangled, name", [
+    ("_ZN43_GLOBAL__N__079cb419_10_osc_new_cu_8a931da620osc_amps_grad_halvesILi4EEEvPKfS2_Pfiiidf",
+     "osc_amps_grad_halves<4>"),
+    ("_ZN43_GLOBAL__N__079cb419_10_osc_new_cu_8a931da621osc_amps_grad_combineEPKfPfiii",
+     "osc_amps_grad_combine"),
+    ("_ZN3tvc5mrd_fILi64ELi128EEEvv", "mrd_f<64, 128>"),
+    ("_Z10foo_kernelPf", "foo_kernel"),
+])
+def test_build_phase_names_each_kernels_ptxas_line(mangled, name):
+    """`chip_smoke.py`'s build phase prints each kernel's spills and
+    registers under its name and integer template arguments, read from the
+    mangled name that `-Xptxas -v` reports."""
+    import chip_smoke
+
+    assert chip_smoke._kernel_name(mangled) == name

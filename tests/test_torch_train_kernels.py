@@ -5,6 +5,8 @@ and `tests/test_resample.py` run them. On CPU tensors each wrapper takes its
 plain version; `chip_smoke.py` holds the CUDA kernels to these plain
 versions on the card. Each comparison prints its measured error."""
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -59,6 +61,79 @@ def _osc_amps_grad_truth(f0, g, frame=480, sr=24000, fmin=20.0):
         np.add.at(out[b], j, m[b] * (1 - fr)[:, None])
         np.add.at(out[b], j1, m[b] * fr[:, None])
     return out
+
+
+@pytest.mark.parametrize("H1", [15, 21])
+def test_oscillator_amps_grad_closed_form_matches_truth_and_jax(rng, H1):
+    """Kernel I's arithmetic in its own order (`oscillator_amps_grad_closed_form`:
+    kernel A's closed-form phase, its lanes' fused multiply-adds, its warps'
+    reduce-scatter order, the shift-add) within 1e-5 of the float64 vjp's
+    peak; within PEAK_RTOL of the JAX package's exact vjp of the same
+    oscillator (`_xla_fallback`), and nearer the float64 vjp than the Pallas
+    backward kernel it replaces in interpret mode. 21 harmonics: rounds of 8
+    past the second."""
+    B, F = 2, 20
+    f0 = (150.0 + 20.0 * rng.standard_normal((B, F))).astype(np.float32)
+    f0[1, 3:6] = 0.0  # an unvoiced run
+    g = _r(rng, B, H1, F * 480, scale=1.0)
+    got = oscillator.oscillator_amps_grad_closed_form(_t(f0), _t(g)).numpy()
+    truth = _osc_amps_grad_truth(f0, g)
+    amps = np.ones((B, F, H1), np.float32)
+    _, vjp = jax.vjp(lambda a: _xla_fallback(jnp.asarray(f0), a, 480, 24000, 20.0),
+                     jnp.asarray(amps))
+    (want_xla,) = vjp(jnp.asarray(np.transpose(g, (0, 2, 1))))
+    want_pallas = jax.jit(lambda f, gg: _pallas_backward_amps(f, gg, 480, 24000, 20.0, 24, True))(
+        f0, g)
+    err_truth = _rel_peak(got, truth)
+    err_xla = _rel_peak(got, want_xla)
+    err_pallas_truth = _rel_peak(want_pallas, truth)
+    print(f"I closed form: from the float64 vjp {err_truth:.2e}, vs XLA vjp {err_xla:.2e}; "
+          f"Pallas from the float64 vjp {err_pallas_truth:.2e}")
+    assert got.shape == (B, F, H1) and got.dtype == np.float32
+    assert err_truth <= 1e-5
+    assert err_xla <= PEAK_RTOL
+    assert err_truth <= err_pallas_truth
+
+
+def test_oscillator_amps_grad_closed_form_layout_is_the_kernels():
+    """The mirror's lane order and the wrapper's harmonic limit are kernel
+    I's (`csrc/oscillator.cu`): rounds of 8 harmonics, whose 16 sums a lane
+    reduce-scatter across lane bits 8, 4, 2, 1 and then 16, up to four
+    rounds; one unit a lane, in 64 x ceil(units / 32) threads a frame."""
+    src = (build.CSRC / "oscillator.cu").read_text()
+    assert re.search(r"constexpr int kRound = 8;", src)
+    rounds = int(re.search(r"constexpr int kMaxH1 = (\d+) \* kRound", src).group(1))
+    assert oscillator.MAX_GRAD_HARMONICS == rounds * 8
+    assert re.findall(r"reduce_scatter_step<(\d+)>\(acc, lane\)", src) == ["8", "4", "2", "1"]
+    assert "acc[0] += __shfl_xor_sync(kFull, acc[0], 16);" in src
+    assert "64 * (((frame - frame / 2 + vec - 1) / vec + 31) / 32)" in src
+    x = torch.arange(32, dtype=torch.float32) * 2.0 ** -20 + 1.0  # sums that round
+    want = x.view(2, 2, 2, 2, 2)
+    for dim in (1, 1, 1, 1, 0):  # bits 8, 4, 2, 1, then 16
+        want = want.select(dim, 0) + want.select(dim, 1)
+    assert torch.equal(oscillator._lane_tree_sum(x), want)
+
+
+def test_oscillator_amps_grad_takes_16_byte_aligned_g(monkeypatch):
+    """Kernel I reads g in 16-byte loads: its wrapper raises for a g that
+    does not start on a 16-byte boundary, and `OscillatorBank`'s backward
+    hands it an aligned copy of such a cotangent."""
+    launched = []
+    monkeypatch.setattr(oscillator.oscillator_amps_grad, "launches", 0)
+    monkeypatch.setattr(build, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(build, "check_input", lambda *a, **k: None)
+    monkeypatch.setattr(build, "launch", lambda kernel, t, *args: launched.append(args[1]))
+    f0 = torch.full((1, 4), 100.0)
+    g = torch.arange(15 * 4 * 480 + 1, dtype=torch.float32)[1:].view(1, 15, 4 * 480)
+    assert g.data_ptr() % 16 != 0 and g.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte"):
+        oscillator.oscillator_amps_grad(f0, g)
+    with pytest.raises(ValueError, match="at most 32"):
+        oscillator.oscillator_amps_grad(f0, torch.zeros(1, 33, 4 * 480))
+    ctx = type("Ctx", (), {"saved_tensors": (f0,), "args": (480, 24000, 20.0)})()
+    oscillator.OscillatorBank.backward(ctx, g)
+    assert len(launched) == 1 and launched[0].data_ptr() % 16 == 0
+    assert torch.equal(launched[0], g)
 
 
 @pytest.mark.parametrize("H1", [15, 21])

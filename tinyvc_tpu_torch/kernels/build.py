@@ -38,7 +38,7 @@ NVCC_FLAGS = [
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # name -> argtypes; every function returns its cudaGetLastError() as an int
 SIGNATURES = {
-    "tvc_oscillator": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    "tvc_oscillator": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "tvc_noise": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "tvc_upsample_linear": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "tvc_downsample_linear": [_P, _P, _LL, _I, _I, _I, _P],
@@ -47,7 +47,7 @@ SIGNATURES = {
     "tvc_up_chain": [_P] * 13 + [_I] * 8 + [_P],
     "tvc_spectrogram": [_P] * 4 + [_I] * 4 + [_P],
     "tvc_knn": [_P] * 9 + [_I] * 6 + [_F, _F, _P],
-    "tvc_oscillator_amps_grad": [_P] * 5 + [_I] * 4 + [_F, _F, _P],
+    "tvc_oscillator_amps_grad": [_P] * 4 + [_I] * 4 + [_F, _F, _P],
     "tvc_resample_grad": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "tvc_up_chain_grad": [_P] * 20 + [_LL] + [_I] * 7 + [_P],
     "tvc_down_chain_grad": [_P] * 21 + [_LL] + [_I] * 6 + [_P],

@@ -15,14 +15,13 @@ forward A and backward I; f0 gets no gradient, as with the JAX package's
 ``grad_f0=False`` (f0 comes from the frozen encoder). Bound and design are
 in the CUDA source's header.
 
-:func:`closed_form_phase` and :func:`oscillator_bank_closed_form` hold, for
-the CPU tests, the arithmetic of the closed-form design of A and I (the
-phase's quadratic prefix over each half-frame in float64, each frame's
-offset the sum of the earlier frames' wrapped totals as Q0.64 integers, one
-sine and cosine a sample and the harmonics by the Chebyshev recurrence in
-fp32). One-launch kernels on it were built and timed on the H100 but are
-not in `csrc/` yet: they wait for the fp32 step checks (ROADMAP.md §3), and
-`csrc/oscillator.cu` keeps its first design. The main path calls neither.
+:func:`closed_form_phase`, :func:`oscillator_bank_closed_form` and
+:func:`oscillator_amps_grad_closed_form` mirror the kernels' arithmetic for
+the CPU tests (the main path does not call them): the phase's quadratic
+prefix over each half-frame in float64, each frame's offset the sum of the
+earlier frames' wrapped totals as Q0.64 integers, the harmonics from one
+sine and cosine a sample by the Chebyshev recurrence in fp32, and I's sums
+in the kernel's order.
 """
 
 from __future__ import annotations
@@ -35,10 +34,16 @@ from ..dsp.synth import oscillate_harmonics
 from . import build
 
 
+# Harmonics kernel I takes (`csrc/oscillator.cu::kMaxH1`: four rounds of 8).
+MAX_GRAD_HARMONICS = 32
+_LANES = 32
+
+
 def closed_form_phase(f0: np.ndarray, frame_size: int = 480,
                       sample_rate: int = 24000) -> np.ndarray:
     """The phase of every sample, ``[B, F*frame_size]`` float64 cycles in
-    [-0.5, 0.5], by the closed-form design: the running sum of f0 / sr
+    [-0.5, 0.5], as kernels A and I compute it (`csrc/oscillator.cu::
+    FramePhase`, `frame_q`, `base_harmonic`): the running sum of f0 / sr
     linearly interpolated (align_corners=False, edges clamped), taken mod 1.
     Inside a half-frame f0 is linear, so the sum over the half through
     sample i is ``n (cur + s ((j0 + i + 1) / (2 frame) - 0.5))`` with
@@ -73,7 +78,7 @@ def closed_form_phase(f0: np.ndarray, frame_size: int = 480,
 def _frame_interp(x: torch.Tensor, frame_size: int) -> torch.Tensor:
     """``[B, F, C]`` -> ``[B, F*frame_size, C]`` fp32: each frame's samples
     interpolated between it and its (edge-clamped) neighbours by their
-    coordinate inside the frame, as kernel A does (the plain version's
+    coordinate inside the frame, as the kernels do (the plain version's
     coordinates over the whole utterance round in fp32)."""
     B, F, C = x.shape
     idx = torch.arange(F)
@@ -84,28 +89,103 @@ def _frame_interp(x: torch.Tensor, frame_size: int) -> torch.Tensor:
     return y.reshape(B, F * frame_size, C).float()
 
 
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fp32 ``fmaf(a, b, c)``: the product of two fp32 values is exact in float64."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _base_harmonic(f0: torch.Tensor, frame_size: int, sample_rate: int):
+    """Each sample's sine and twice its cosine, fp32, as the kernels'
+    `base_harmonic` takes them: the phase of :func:`closed_form_phase`
+    rounded to fp32 once (as twice the centred phase)."""
+    turn = torch.from_numpy(2.0 * closed_form_phase(f0.numpy(), frame_size, sample_rate)).float()
+    x = torch.pi * turn.double()
+    return torch.sin(x).float(), 2.0 * torch.cos(x).float()
+
+
 def oscillator_bank_closed_form(
     f0: torch.Tensor, amps: torch.Tensor, frame_size: int = 480,
     sample_rate: int = 24000, min_frequency: float = 20.0,
 ) -> torch.Tensor:
-    """The oscillator bank by the closed-form design, ``[B, H1, L]`` fp32:
-    the phase of :func:`closed_form_phase` rounded to fp32 once (as twice
-    the centred phase), its sine and twice its cosine, the harmonics by
-    ``sin((h+1)x) = 2 cos x sin(hx) - sin((h-1)x)`` in fp32 (one fused
-    multiply-add a step), times the voiced flag and the amplitude, each
-    interpolated by its coordinate inside the frame."""
+    """Kernel A's output by its own arithmetic, ``[B, H1, L]`` fp32: the
+    phase of :func:`closed_form_phase` rounded to fp32 once (as twice the
+    centred phase), its sine and twice its cosine, the harmonics by
+    ``sin((h+1)x) = 2 cos x sin(hx) - sin((h-1)x)`` in fp32, times the
+    interpolated voiced flag and amplitude."""
     H1 = amps.shape[-1]
-    turn = torch.from_numpy(2.0 * closed_form_phase(f0.numpy(), frame_size, sample_rate)).float()
-    x = torch.pi * turn.double()
-    sn, c2 = torch.sin(x).float(), 2.0 * torch.cos(x).float()
+    sn, c2 = _base_harmonic(f0, frame_size, sample_rate)
     uv = _frame_interp((f0 > min_frequency).double()[..., None], frame_size)[..., 0]
     amp = _frame_interp(amps.double(), frame_size)
     out, cur, prev = [], sn, torch.zeros_like(sn)
     for h in range(H1):
         out.append(cur * uv * amp[..., h])
-        # a fused multiply-add: the fp32 product is exact in float64
-        cur, prev = (c2.double() * cur.double() - prev.double()).float(), cur
+        cur, prev = _fma(c2, cur, -prev), cur
     return torch.stack(out, 1)
+
+
+def _lane_tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """``[..., 32]`` lane values -> ``[...]``, summed as kernel I's warp
+    does: pairs across lane bit 8, then 4, 2, 1 (its reduce-scatter), then 16."""
+    x = x.reshape(*x.shape[:-1], 2, 2, 2, 2, 2)  # lane bits 16, 8, 4, 2, 1
+    for dim in (-4, -3, -2, -1, -1):  # bit 8 first; each sum drops its dim
+        x = x.select(dim, 0) + x.select(dim, 1)
+    return x
+
+
+def oscillator_amps_grad_closed_form(
+    f0: torch.Tensor, g: torch.Tensor, frame_size: int = 480,
+    sample_rate: int = 24000, min_frequency: float = 20.0,
+) -> torch.Tensor:
+    """Kernel I's output by its own arithmetic and order, ``[B, F, H1]``
+    fp32: the harmonics of :func:`oscillator_bank_closed_form`; a lane's
+    sums over its samples (4 a lane when the frame is a multiple of 8, else
+    1) by fused multiply-adds; the lanes of a warp summed as its
+    reduce-scatter sums them, the half-frame's warps in order; then the
+    frame's sums for the previous, current and next frame's weight,
+    shift-added as its second launch does."""
+    B, F = f0.shape
+    H1 = g.shape[1]
+    vec = 4 if frame_size % 8 == 0 else 1
+    sc, c2 = _base_harmonic(f0, frame_size, sample_rate)
+    sp = torch.zeros_like(sc)
+    uv = _frame_interp((f0 > min_frequency).double()[..., None], frame_size)[..., 0]
+    a = ((torch.arange(frame_size, dtype=torch.float32) + 0.5) / frame_size - 0.5).repeat(F)
+    i0 = frame_size // 2
+    first = (torch.arange(frame_size) < i0).repeat(F)
+    w1 = uv * torch.where(first, -a, 1.0 - a)  # the previous frame's weight, then the current
+    w2 = uv * torch.where(first, 1.0 + a, a)  # the current frame's, then the next
+    units = -(-(frame_size - i0) // vec)  # the larger half's: a lane each
+    warps = -(-units // _LANES)  # warps a half-frame
+
+    def half_sums(m, w, lo, hi):
+        """[B, F] sum of m * w over the half's samples [lo, hi), the kernel's order."""
+        pad = warps * _LANES * vec - (hi - lo)
+        prod_m = torch.nn.functional.pad(m.view(B, F, frame_size)[..., lo:hi], (0, pad))
+        prod_w = torch.nn.functional.pad(w.view(B, F, frame_size)[..., lo:hi], (0, pad))
+        prod_m = prod_m.view(B, F, warps * _LANES, vec)
+        prod_w = prod_w.view(B, F, warps * _LANES, vec)
+        acc = prod_m.new_zeros(B, F, warps * _LANES)
+        for v in range(vec):
+            acc = _fma(prod_m[..., v], prod_w[..., v], acc)
+        lanes = _lane_tree_sum(acc.view(B, F, warps, _LANES))
+        total = lanes[..., 0]
+        for k in range(1, warps):
+            total = total + lanes[..., k]
+        return total
+
+    parts = torch.empty(B, F, 3, H1)
+    for h in range(H1):
+        m = g[:, h].float() * sc
+        parts[:, :, 0, h] = half_sums(m, w1, 0, i0)
+        parts[:, :, 1, h] = half_sums(m, w2, 0, i0) + half_sums(m, w1, i0, frame_size)
+        parts[:, :, 2, h] = half_sums(m, w2, i0, frame_size)
+        sc, sp = _fma(c2, sc, -sp), sc
+    damps = parts[:, :, 1].clone()
+    damps[:, :-1] += parts[:, 1:, 0]
+    damps[:, 0] += parts[:, 0, 0]
+    damps[:, 1:] += parts[:, :-1, 2]
+    damps[:, -1] += parts[:, -1, 2]
+    return damps
 
 
 def oscillator_bank_plain(
@@ -135,8 +215,7 @@ def oscillator_bank(
     if amps.shape[:2] != (B, F):
         raise ValueError(f"amps {tuple(amps.shape)} does not match f0 {tuple(f0.shape)}")
     out = torch.empty((B, H1, F * frame_size), device=f0.device, dtype=torch.float32)
-    frame_sums = torch.empty((B, F), device=f0.device, dtype=torch.float32)
-    build.launch("tvc_oscillator", f0, f0, amps, frame_sums, out,
+    build.launch("tvc_oscillator", f0, f0, amps, out,
                  B, F, H1, frame_size, float(sample_rate), float(min_frequency))
     oscillator_bank.launches += 1
     return out
@@ -166,7 +245,8 @@ def oscillator_amps_grad(
 ) -> torch.Tensor:
     """f0 ``[B, F]``, cotangent ``[B, H1, F*frame_size]`` -> the gradient of
     the amplitudes ``[B, F, H1]``. CPU tensors take the plain version; CUDA
-    tensors launch kernel I."""
+    tensors launch kernel I, which reads ``g`` in 16-byte loads: a ``g``
+    that does not start on a 16-byte boundary raises."""
     if build.on_cpu(f0, g):
         return oscillator_amps_grad_plain(f0, g, frame_size, sample_rate, min_frequency)
     build.check_input("f0", f0, 2)
@@ -175,10 +255,13 @@ def oscillator_amps_grad(
     H1 = g.shape[1]
     if g.shape != (B, H1, F * frame_size):
         raise ValueError(f"g {tuple(g.shape)} does not match f0 {tuple(f0.shape)}")
-    frame_sums = torch.empty((B, F), device=f0.device, dtype=torch.float32)
+    if H1 > MAX_GRAD_HARMONICS:
+        raise ValueError(f"g has {H1} harmonics; kernel I takes at most {MAX_GRAD_HARMONICS}")
+    if g.data_ptr() % 16:
+        raise ValueError("g: kernel I needs a tensor that starts on a 16-byte boundary")
     parts = torch.empty((B, F, 3, H1), device=f0.device, dtype=torch.float32)
     damps = torch.empty((B, F, H1), device=f0.device, dtype=torch.float32)
-    build.launch("tvc_oscillator_amps_grad", f0, f0, g, frame_sums, parts, damps,
+    build.launch("tvc_oscillator_amps_grad", f0, f0, g, parts, damps,
                  B, F, H1, frame_size, float(sample_rate), float(min_frequency))
     oscillator_amps_grad.launches += 1
     return damps
@@ -203,5 +286,8 @@ class OscillatorBank(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (f0,) = ctx.saved_tensors
-        damps = oscillator_amps_grad(f0, g.float().contiguous(), *ctx.args)
+        g = g.float().contiguous()
+        if g.data_ptr() % 16:  # a view into a larger gradient: kernel I's 16-byte loads
+            g = g.clone()
+        damps = oscillator_amps_grad(f0, g, *ctx.args)
         return None, damps, None, None, None
