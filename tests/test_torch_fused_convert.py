@@ -22,7 +22,8 @@ from tinyvc_tpu_torch.infer.generator import convert_fn, decode_infer, exact_fp3
 from tinyvc_tpu_torch.kernels import filter_stage
 from tinyvc_tpu_torch.ops.fused_filternet import filternet_fused_apply
 from tinyvc_tpu_torch.utils.audio_io import load_audio
-from tinyvc_tpu_torch.utils.weights import decoder_from_jax, encoder_from_jax, load_index, load_npz
+from tinyvc_tpu_torch.utils.model_store import load_index
+from tinyvc_tpu_torch.utils.weights import decoder_from_jax, encoder_from_jax, load_npz
 from torch_parity import jax_stages, random_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -81,7 +82,7 @@ def test_convert_fused_small_widths(rng):
 def test_convert_fused_two_speaker_matches_jax(rng):
     cfg = jcfg.TinyVCConfig(decoder=jcfg.DecoderConfig(use_fused_filter="on"))
     wave, _ = pad_to_bucket(load_audio(os.path.join(ROOT, "demo", "two_speaker",
-                                                    "source_A.wav"))[None, :24000])
+                                                    "source_A.wav"))[0][:, :24000])
     F = wave.shape[1] // 480
     angle = rng.uniform(-np.pi, np.pi, (1, F, 961)).astype(np.float32)
     index = load_index(os.path.join(MODELS, "index_B.npy"))

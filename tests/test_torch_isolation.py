@@ -35,15 +35,21 @@ BLOCKER = textwrap.dedent("""
         importlib.import_module(name)
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked
+    print(" ".join(names))
     print(len(names))
 """)
+STREAMING_MODULES = {"tinyvc_tpu_torch.dsp.resample", "tinyvc_tpu_torch.utils.torch_compat",
+                     "tinyvc_tpu_torch.utils.model_store", "tinyvc_tpu_torch.infer.stream",
+                     "tinyvc_tpu_torch.cli.infer_streaming"}
 
 
 def test_port_imports_nothing_of_jax():
     proc = subprocess.run([sys.executable, "-c", BLOCKER.format(root=ROOT)],
                           capture_output=True, text=True, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 20  # every module was imported
+    names, count = proc.stdout.strip().splitlines()[-2:]
+    assert int(count) >= 52  # every module was imported
+    assert STREAMING_MODULES <= set(names.split())
 
 
 def test_default_device_is_cuda_and_raises_without_it():
@@ -55,8 +61,26 @@ def test_default_device_is_cuda_and_raises_without_it():
         VoiceConverter({}, {})
 
 
-def _cli(args, cwd):
-    return subprocess.run([sys.executable, "-m", "tinyvc_tpu_torch.cli.infer", *args],
+def test_streaming_default_device_is_cuda_and_raises_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    from tinyvc_tpu_torch.infer.stream import StreamConverter
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StreamConverter({}, {}, np.zeros((4, 768), np.float32))
+    out = tmp_path / "out.wav"
+    proc = _cli(["-encp", os.path.join(MODELS, "encoder_B.npz"),
+                 "-decp", os.path.join(MODELS, "decoder_B.npz"),
+                 "-idx", os.path.join(MODELS, "index_B.npy"),
+                 "--wav-in", os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"),
+                 "--wav-out", str(out)], tmp_path, module="infer_streaming")
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert not out.exists()
+
+
+def _cli(args, cwd, module="infer"):
+    return subprocess.run([sys.executable, "-m", f"tinyvc_tpu_torch.cli.{module}", *args],
                           capture_output=True, text=True, cwd=cwd, timeout=300,
                           env={**os.environ, "PYTHONPATH": ROOT})
 
@@ -70,7 +94,7 @@ def test_cli_needs_cuda_unless_cpu_is_asked_for(tmp_path):
 
     inputs, outputs = tmp_path / "in", tmp_path / "out"
     inputs.mkdir()
-    wave = load_audio(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"))[:24000]
+    wave = load_audio(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"))[0][0, :24000]
     save_wav(str(inputs / "utt.wav"), wave)
     args = ["-i", str(inputs), "-o", str(outputs),
             "-encp", os.path.join(MODELS, "encoder_B.npz"),
@@ -84,8 +108,10 @@ def test_cli_needs_cuda_unless_cpu_is_asked_for(tmp_path):
     counters = (oscillator.oscillator_bank, noise.oscillate_noise_hashed, resample.upsample_linear)
     before = [c.launches for c in counters]
     cli.main(args + ["--device", "cpu"])
-    out = load_audio(str(outputs / "utt.wav"))
-    assert out.shape == wave.shape and np.isfinite(out).all() and np.abs(out).max() > 0.01
+    out, sr = load_audio(str(outputs / "utt.wav"))
+    out = out[0]
+    assert sr == 24000 and out.shape == wave.shape
+    assert np.isfinite(out).all() and np.abs(out).max() > 0.01
     assert [c.launches for c in counters] == before == [0, 0, 0]
 
 

@@ -354,7 +354,7 @@ def test_serving_deviation_on_the_demo_is_below_jax_own():
     here (0.0906; the port's is 0.0537): the JAX package's 0.03 ceiling
     (`tests/test_mixed_precision.py`) holds for its random weights on
     noise, not for these weights on speech."""
-    wave = load_audio(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"))[None]
+    wave = load_audio(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"))[0]
     F = wave.shape[1] // 480
     angle = np.random.default_rng(0).uniform(-math.pi, math.pi, (1, F, 961)).astype(np.float32)
     index = np.load(os.path.join(MODELS, "index_B.npy")).astype(np.float32)
@@ -417,7 +417,7 @@ def test_bf16_fused_unet_is_chaotic():
     U-Net is from it (1.1e-2; both vary a little with the CPU's thread
     count): the source is rounded to bf16 on entry, so the function is
     defined only to that spread."""
-    wave = load_audio(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"))[24000:48000]
+    wave = load_audio(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"))[0][0, 24000:48000]
     index = np.load(os.path.join(MODELS, "index_B.npy")).astype(np.float32)
     enc_p, dec_p = (load_npz(os.path.join(MODELS, f"{n}_B.npz")) for n in ("encoder", "decoder"))
     cfg = pcfg.serving_config()

@@ -44,7 +44,7 @@ def _two_threads():
 def cache(tmp_path_factory):
     """Five chunks cut from the demo utterance at staggered offsets."""
     d = tmp_path_factory.mktemp("cache")
-    wave = load_audio(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"))
+    wave = load_audio(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"))[0][0]
     for i in range(5):
         save_wav(str(d / f"{i}.wav"), wave[7000 * i: 7000 * i + CHUNK])
         np.save(d / f"{i}.f0.npy", np.full(CHUNK // 480, 150.0, np.float32))

@@ -19,7 +19,8 @@ from tinyvc_tpu_torch.dsp.mel import log_mel_l1
 from tinyvc_tpu_torch.dsp.padding import pad_to_bucket
 from tinyvc_tpu_torch.infer.generator import VoiceConverter, convert_fn, exact_fp32
 from tinyvc_tpu_torch.utils.audio_io import load_audio
-from tinyvc_tpu_torch.utils.weights import decoder_from_jax, encoder_from_jax, load_index, load_npz
+from tinyvc_tpu_torch.utils.model_store import load_index
+from tinyvc_tpu_torch.utils.weights import decoder_from_jax, encoder_from_jax, load_npz
 from torch_parity import jax_stages
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -37,7 +38,7 @@ def weights():
 def test_real_weights_match_jax_stage_by_stage(weights, rng):
     enc_p, dec_p, index = weights
     cfg = TinyVCConfig(decoder=DecoderConfig(use_fused_filter="off"))
-    wave, _ = pad_to_bucket(load_audio(os.path.join(DEMO, "source_A.wav"))[None, :24000])
+    wave, _ = pad_to_bucket(load_audio(os.path.join(DEMO, "source_A.wav"))[0][:, :24000])
     F = wave.shape[1] // 480
     angle = rng.uniform(-np.pi, np.pi, (1, F, 961)).astype(np.float32)
     E, D = Encoder(cfg.encoder), Decoder(cfg.decoder, cfg.audio)
@@ -73,11 +74,11 @@ def test_real_weights_match_jax_stage_by_stage(weights, rng):
 
 def test_full_utterance_log_mel_against_demo(weights):
     enc_p, dec_p, index = weights
-    source = load_audio(os.path.join(DEMO, "source_A.wav"))
+    source = load_audio(os.path.join(DEMO, "source_A.wav"))[0][0]
     vc = VoiceConverter(enc_p, dec_p, device="cpu")
     out = vc.convert(source, index, chip_smoke.PITCH_SHIFT, seed=chip_smoke.SEED)
     assert out.shape == source.shape and np.isfinite(out).all()
-    ref = torch.from_numpy(load_audio(os.path.join(DEMO, "converted_A_to_B.wav")))
+    ref = torch.from_numpy(load_audio(os.path.join(DEMO, "converted_A_to_B.wav"))[0][0])
     mel_conv = log_mel_l1(torch.from_numpy(out), ref)
     mel_src = log_mel_l1(torch.from_numpy(out), torch.from_numpy(source))
     # measured on the CPU: 0.2426 against the JAX rendition (the TPU's fused

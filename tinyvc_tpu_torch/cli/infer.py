@@ -5,10 +5,15 @@
         -encp models/two_speaker/encoder_B.npz -decp models/two_speaker/decoder_B.npz \\
         -idx models/two_speaker/index_B.npy -p 11.99
 
-Weights are params-only ``.npz`` exports, the index a ``.npy`` ``[N, C]``;
-with ``-idx NONE`` the dictionary is encoded from the ``-t`` target wav.
-Inputs are 24 kHz ``.wav`` files. ``--device cuda`` (the default) fails when
-CUDA is absent; ``--device cpu`` runs the kernels' plain versions.
+Inputs are the ``.wav``, ``.ogg`` and ``.mp3`` files of ``-i`` (the last two
+through ffmpeg), at any rate and channel count: channels are averaged, and
+the target and every input not at 24 kHz are resampled on the converter's
+device (`dsp/resample.py`). Weights are params-only ``.npz`` exports or the
+reference's ``.pt`` state dicts; the index a ``.npy`` ``[N, C]`` or the
+reference's ``index.pt``; with ``-idx NONE`` the dictionary is encoded from
+the ``-t`` target. ``--device cuda`` (the default) fails when CUDA is
+absent; ``--device cpu`` runs the kernels' plain versions. Chunked
+conversion (``-c N``, N > 0) is not ported yet and is refused.
 """
 
 from __future__ import annotations
@@ -16,6 +21,25 @@ from __future__ import annotations
 import argparse
 import glob
 import os
+
+CHUNKED_REFUSED = ("-c/--chunk-frames: chunked conversion is not ported yet (ROADMAP §1 "
+                   "item 4, chunked long-form); pass -c 0 for whole-utterance conversion")
+
+
+def load_mono(path: str, sample_rate: int, device):
+    """A file's channels averaged, resampled to ``sample_rate`` on
+    ``device`` when its rate differs -> ``[L]`` float32 numpy."""
+    import torch
+
+    from ..dsp.resample import resample
+    from ..utils.audio_io import load_audio
+
+    wave, sr = load_audio(path)
+    wave = wave.mean(axis=0)
+    if sr != sample_rate:
+        x = torch.from_numpy(wave[None]).to(device)
+        wave = resample(x, sr, sample_rate)[0].cpu().numpy()
+    return wave
 
 
 def main(argv=None):
@@ -27,31 +51,39 @@ def main(argv=None):
     p.add_argument("-idx", "--index", default="NONE")
     p.add_argument("-t", "--target", default="target.wav")
     p.add_argument("-p", "--pitch-shift", default=0.0, type=float)
+    p.add_argument("-c", "--chunk-frames", default=0, type=int,
+                   help="0 = whole-utterance (the only mode ported so far)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = p.parse_args(argv)
+    if args.chunk_frames > 0:
+        p.error(CHUNKED_REFUSED)
 
     import torch
 
+    from ..config import TinyVCConfig
     from ..infer.generator import VoiceConverter
-    from ..utils.audio_io import load_audio, save_wav
-    from ..utils.weights import load_index, load_npz
+    from ..utils.audio_io import save_wav
+    from ..utils.model_store import load_decoder_params, load_encoder_params, load_index
 
-    vc = VoiceConverter(
-        load_npz(args.encoder_path), load_npz(args.decoder_path), device=args.device
-    )
+    cfg = TinyVCConfig()
+    sr = cfg.audio.sample_rate
+    vc = VoiceConverter(load_encoder_params(args.encoder_path, cfg),
+                        load_decoder_params(args.decoder_path, cfg), cfg, device=args.device)
     if args.index == "NONE":
-        target = vc.build_dictionary(load_audio(args.target))
+        target = vc.build_dictionary(load_mono(args.target, sr, vc.device))
     else:
         # moved to the device once, not with every file
         target = torch.from_numpy(load_index(args.index)).to(vc.device)
 
     os.makedirs(args.outputs, exist_ok=True)
-    paths = sorted(glob.glob(os.path.join(args.inputs, "*.wav")))
+    paths = []
+    for fmt in ("wav", "ogg", "mp3"):
+        paths += sorted(glob.glob(os.path.join(args.inputs, f"*.{fmt}")))
     for path in paths:
         print(f"Converting {path} ...")
-        out = vc.convert(load_audio(path), target, args.pitch_shift)
+        out = vc.convert(load_mono(path, sr, vc.device), target, args.pitch_shift)
         name = os.path.splitext(os.path.basename(path))[0]
-        save_wav(os.path.join(args.outputs, f"{name}.wav"), out)
+        save_wav(os.path.join(args.outputs, f"{name}.wav"), out, sr)
     print(f"done: {len(paths)} files -> {args.outputs}")
 
 

@@ -2,10 +2,11 @@
 
 Counterpart of `tinyvc_tpu/config.py`: the same dataclasses with the same
 defaults, copied rather than imported so that this package never reads the
-JAX package. Only the fields the whole-utterance conversion path reads are
-kept; most TPU lowering switches (``use_pallas``, ``conv_impl``, ...) have
-no counterpart here, because this package picks its kernels from the device
-of the tensors it is given.
+JAX package. Only the fields the conversion paths (whole-utterance and
+streaming) and the decoder's training read are kept; most TPU lowering
+switches (``use_pallas``, ``conv_impl``, ...) have no counterpart here,
+because this package picks its kernels from the device of the tensors it is
+given.
 
 ``compute_dtype`` ("float32" | "bfloat16") keeps the JAX package's meaning;
 :func:`serving_config` runs the decoder in bf16 and keeps the encoder, and
@@ -118,6 +119,27 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class StreamConfig:
+    """Streaming SOLA conversion (`tinyvc_tpu/config.py:175-193`): each block
+    of ``block_size`` samples re-converts a window of :attr:`input_size`."""
+
+    block_size: int = 1920
+    extra_size: int = 3840
+    sola_search_size: int = 1920
+    crossfade_size: int = 1920
+    last_delay_size: int = 3840
+    use_phase_vocoder: bool = False
+
+    @property
+    def input_size(self) -> int:
+        return max(
+            self.block_size + self.crossfade_size + self.sola_search_size
+            + 2 * self.last_delay_size,
+            self.block_size + self.extra_size,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class MelConfig:
     """The log-mel loss's spectrogram (``-spec-type mel``)."""
 
@@ -151,6 +173,7 @@ class TinyVCConfig:
     retrieval: RetrievalConfig = dataclasses.field(default_factory=RetrievalConfig)
     discriminator: DiscriminatorConfig = dataclasses.field(default_factory=DiscriminatorConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    stream: StreamConfig = dataclasses.field(default_factory=StreamConfig)
     mel: MelConfig = dataclasses.field(default_factory=MelConfig)
 
 

@@ -29,7 +29,8 @@ class Dataset:
         return self.length
 
     def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
-        wave = load_audio(os.path.join(self.dir_path, f"{idx}.wav"))
+        wave, _ = load_audio(os.path.join(self.dir_path, f"{idx}.wav"))
+        wave = wave.mean(axis=0)  # mono mixdown, as the JAX package's loader does
         f0 = np.load(os.path.join(self.dir_path, f"{idx}.f0.npy"))
         return wave.astype(np.float32), f0.astype(np.float32).reshape(-1)
 

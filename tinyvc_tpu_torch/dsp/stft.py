@@ -22,8 +22,18 @@ def _hann_np(n_fft: int) -> np.ndarray:
 
 
 def hann_window(n_fft: int, device=None) -> torch.Tensor:
-    """Periodic hann window, identical to ``torch.hann_window(n_fft)``."""
-    return torch.from_numpy(_hann_np(n_fft)).to(device)
+    """Periodic hann window, identical to ``torch.hann_window(n_fft)``, on
+    ``device``. Read only: the tensor is shared between calls."""
+    return _hann(n_fft, torch.device("cpu" if device is None else device))
+
+
+@functools.lru_cache(maxsize=None)
+def _hann(n_fft: int, device: torch.device) -> torch.Tensor:
+    """The window copied to ``device`` once, not with every call (a copy
+    from pageable host memory waits for the device). Made outside inference
+    mode, so that autograd may save it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_hann_np(n_fft)).to(device)
 
 
 def _frame(x: torch.Tensor, n_fft: int, hop: int, drop_first: bool) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Carrying JAX parameter trees over to the port's modules.
 
-Counterpart of `tinyvc_tpu/utils/model_store.py` (params-only ``.npz``
-exports and ``.npy`` kNN indexes). The port's modules use the JAX tree's
+The params-only ``.npz`` exports of `tinyvc_tpu/utils/model_store.py`
+(read by :func:`load_npz`; `utils/model_store.py` also reads ``.pt``
+checkpoints and kNN indexes). The port's modules use the JAX tree's
 names, so a flax path ``params/filter_net/up_0/c1/kernel`` becomes the
 state-dict key ``filter_net.up_0.c1.weight``. Only layouts change, the
 inverse of the transposes in `tinyvc_tpu/utils/torch_compat.py`:
@@ -45,16 +46,6 @@ def load_npz(path: str) -> Dict[str, Any]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = np.asarray(data[key])
     return tree
-
-
-def load_index(path: str) -> np.ndarray:
-    """A kNN dictionary ``[N, C]`` float32 from a ``.npy`` file."""
-    if not path.endswith(".npy"):
-        raise ValueError(f"expected a .npy kNN index, got {path!r}")
-    arr = np.load(path)
-    if arr.ndim != 2:
-        raise ValueError(f"expected a [N, C] index, got shape {arr.shape}")
-    return arr.astype(np.float32)
 
 
 def state_dict_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
