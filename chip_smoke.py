@@ -52,10 +52,23 @@ Phases, each timed; any failure exits non-zero:
    a host sync; `cli.infer` and `cli.infer_streaming` on a 48 kHz stereo
    WAV; warm per-block latency, real-time factor, one block's device time by
    kernel group and idle share, sustained time per block at depths 1 and 2.
-6. profile: warm request latency at B=1 and B=4 (fp32) and at B=1 and B=8
+6. chunked: chunked long-form conversion (`VoiceConverter.convert_chunked`).
+   Kernels at the 60 s utterance's chunk shapes (S=6 rows of 704 frames):
+   A seeded per row (``phase0``) against the float64 truth and without a
+   seed holding its digest (``OSC_NO_SEED_DIGEST``), B through an explicit
+   per-global-frame angle table, G on the rows and H at R=4,224, C-F (E and
+   F at the stages of 8,192 positions or more) in fp32 and bf16; the demo at
+   -c 64 (S=5) against the CPU (``WAVE_ATOL``), the phase at the chunk
+   joins against the float64 truth (``JOIN_PHASE_ATOL``), chunked against
+   whole by log-mel L1 (JAX's own distance with a margin) in both profiles;
+   the demo tiled to 60 s at S=6 and S=3 in both profiles (every kernel
+   launched, S=6 vs S=3 within ``CHUNK_COUNT_RTOL``), with the warm request
+   times beside the whole 60 s request's; `cli.infer -c` and
+   `cli.extract_index` on the card.
+7. profile: warm request latency at B=1 and B=4 (fp32) and at B=1 and B=8
    (serving) and, from ``torch.profiler``, the device time of one request
    by kernel group and the device's idle share.
-7. train: the decoder's pre-join training step at the shipped widths,
+8. train: the decoder's pre-join training step at the shipped widths,
    B=16 x 2 s (16 windows of the demo's two utterances). Kernels I-L
    (the oscillator's amplitude gradient, the resample gradients, the up and
    down chains' gradients) against their plain versions at the step's
@@ -64,8 +77,8 @@ Phases, each timed; any failure exits non-zero:
    (the losses and the U-Net's waveform), B (the backward kernels on the
    plain forward) and C (every gradient leaf, over five sources; ``STEP_*``,
    `_step_gates`); every kernel of the step must launch;
-   the CLI's run of phase 8 gives the pre-join step's warm time.
-8. post-join: the discriminator and the GAN step after its join. Kernels
+   the CLI's run of phase 9 gives the pre-join step's warm time.
+9. post-join: the discriminator and the GAN step after its join. Kernels
    M, N, O (the fused MRD forward, its dy/dx sweep, its dW/db sweep)
    against their plain versions at the step's shapes (B=16, the 8000-sample
    crop, all four resolutions; two ragged shapes) in fp32 and bf16, timed
@@ -91,7 +104,7 @@ call to compare two commits' request latency on one card; ``--train-step
 [DIR]`` the pre-join step, ``--unet-stages [DIR]`` kernels E's and F's time
 per call, ``--osc-resample [DIR]`` kernels A's, I's and J's, ``--step-chaos
 [DIR]`` every fp32 step gate of both steps for every draw, ``--stream
-[DIR]`` the streaming phase. Needs CUDA
+[DIR]`` the streaming phase, ``--chunked [DIR]`` the chunked phase. Needs CUDA
 and the rest of the repo; imports nothing of JAX or `tinyvc_tpu`.
 """
 
@@ -402,8 +415,9 @@ def _kernel_name(mangled: str) -> str:
     return name
 
 
-def _osc_truth(f0, amps, frame=480, sr=24000, fmin=20.0):
-    """float64 ground truth of the oscillator bank, ``[B, H1, L]``."""
+def _osc_truth(f0, amps, frame=480, sr=24000, fmin=20.0, phase0=None):
+    """float64 ground truth of the oscillator bank, ``[B, H1, L]``; each
+    row's phase starts at ``phase0`` ``[B]`` cycles (none: 0)."""
     import numpy as np
 
     B, F = f0.shape
@@ -417,6 +431,8 @@ def _osc_truth(f0, amps, frame=480, sr=24000, fmin=20.0):
         return x[:, j] * (1 - fr) + x[:, j1] * fr
 
     phase = np.cumsum(interp(f0.astype(np.float64)) / sr, axis=1)
+    if phase0 is not None:
+        phase += np.asarray(phase0, np.float64)[:, None]
     uv = interp((f0 > fmin).astype(np.float64))
     out = np.empty((B, amps.shape[-1], L))
     for h in range(amps.shape[-1]):
@@ -663,7 +679,7 @@ def _sum_bounds(bounds):
 
 
 def phase_unet_kernels(results, rng, dev, bf16: bool = False,
-                       cases=((1, 320), (2, 37)), timed: bool = True) -> None:
+                       cases=((1, 320), (2, 37)), timed: bool = True, min_len: int = 0) -> None:
     """Kernels D, E, F, and C at the U-Net's up stages, each call of one
     fused U-Net request against its plain version, with the two-speaker
     decoder's packed weights and N(0, 0.25) activations: at B=1, F=320 (timed,
@@ -674,7 +690,9 @@ def phase_unet_kernels(results, rng, dev, bf16: bool = False,
     with NaN in every element torch.empty hands it and must give the same
     bits. With ``timed`` False, the checks at ``cases`` only (a streaming
     block's B=1, F=28): nothing timed, the 12-channel cases skipped, no row
-    written to ``results``."""
+    written to ``results``. A down or up chain shorter than ``min_len``
+    positions is skipped: chunked conversion runs the U-Net's modules there
+    (`ops/fused_filternet.py`'s ``kernel_min_len``)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -684,6 +702,7 @@ def phase_unet_kernels(results, rng, dev, bf16: bool = False,
     from tinyvc_tpu_torch.kernels import filter_stage as fs
     from tinyvc_tpu_torch.kernels.resample import (downsample_linear, downsample_linear_plain,
                                                    upsample_linear, upsample_linear_plain)
+    from tinyvc_tpu_torch.models.decoder import fused_pack_width
     from tinyvc_tpu_torch.ops.fused_filternet import fused_weights
     from tinyvc_tpu_torch.utils.weights import decoder_from_jax, load_npz
 
@@ -691,7 +710,7 @@ def phase_unet_kernels(results, rng, dev, bf16: bool = False,
     dec = decoder_from_jax(load_npz(os.path.join(ROOT, "models", "two_speaker", "decoder_B.npz")),
                            cfg).to(dev)
     n_src = cfg.num_harmonics + 2
-    pack = n_src + 1 + (-(n_src + 1)) % 8
+    pack = fused_pack_width(n_src)
     w = fused_weights(dec.filter_net, pack)
     chans, facs = list(cfg.filter_channels), list(cfg.filter_factors)
     sfx = "_bf16" if bf16 else ""
@@ -724,7 +743,13 @@ def phase_unet_kernels(results, rng, dev, bf16: bool = False,
             limit = tol * peak if relative else tol
             how = f" = {tol:.0e} x peak {peak:.3f}" if relative else ""
             if relative and stored_bf16:
-                # each element also within one bf16 step at its own value
+                # each element also within one bf16 step at its own value,
+                # inclusive (<=): a value stored in bf16 cannot be nearer
+                # than one step when the fp32 sums differ in their last
+                # bits, and on fixed draws the deterministic kernels give
+                # the same ratio every run (a streaming block's [96 -> 48,
+                # 672] stage reads 1.000 of its limit); the ratio stays
+                # printed (ROADMAP §3)
                 lim = torch.maximum(_bf16_steps(want), torch.tensor(limit, device=want.device))
                 worst = float((diff / lim).max())
                 how += f", or one bf16 step at each element's value: worst {worst:.3f} of its limit"
@@ -790,6 +815,8 @@ def phase_unet_kernels(results, rng, dev, bf16: bool = False,
                          0.0 if f % 2 else 3.0 * xin.numel() // f),
                   library=decimate_lib(xin, f))
             T //= f
+            if T < min_len:
+                continue
             z = randn(B, cin, T)
             co = wd[0].shape[0]
             check("down_chain", f"B={B} [{cin} -> {co}, {T}]",
@@ -807,6 +834,8 @@ def phase_unet_kernels(results, rng, dev, bf16: bool = False,
                   library=lambda: F.interpolate(xin[:, None], scale_factor=f, mode="linear",
                                                 align_corners=False))
             Tx *= f
+            if Tx < min_len:
+                continue
             xu, cond = randn(B, c, Tx), randn(B, c, Tx)
             fold = i == len(chans) - 1
             co = 1 if fold else wu[4].shape[0]
@@ -936,6 +965,7 @@ def phase_unet_stages(card: str) -> None:
     from tinyvc_tpu_torch.config import DecoderConfig
     from tinyvc_tpu_torch.infer.generator import exact_fp32
     from tinyvc_tpu_torch.kernels import filter_stage as fs
+    from tinyvc_tpu_torch.models.decoder import fused_pack_width
     from tinyvc_tpu_torch.ops.fused_filternet import fused_weights
     from tinyvc_tpu_torch.utils.weights import decoder_from_jax, load_npz, pack_filter_net
 
@@ -944,7 +974,7 @@ def phase_unet_stages(card: str) -> None:
     dec = decoder_from_jax(load_npz(os.path.join(ROOT, "models", "two_speaker", "decoder_B.npz")),
                            cfg).to(dev)
     n_src = cfg.num_harmonics + 2
-    pack = n_src + 1 + (-(n_src + 1)) % 8
+    pack = fused_pack_width(n_src)
     w, wt = fused_weights(dec.filter_net, pack), pack_filter_net(dec.filter_net, 24)
     chans, facs = list(cfg.filter_channels), list(cfg.filter_factors)
     rng = np.random.default_rng(5)
@@ -1033,8 +1063,9 @@ OSC_RESAMPLE_KERNELS = ("osc_bank", "osc_frame_sums", "osc_synth", "osc_amps_gra
 
 def phase_osc_resample(card: str) -> None:
     """Kernels A, I and J call by call at the main path's shapes: A at a
-    serving B=1 and B=8 request's (F=320) and at the pre-join step's (B=16,
-    100 frames), I at the step's, J at the step's four calls in fp32 and in
+    serving B=1 and B=8 request's (F=320), at the pre-join step's (B=16,
+    100 frames) and unseeded at a 60 s chunked request's rows (B=6, 586
+    frames), I at the step's, J at the step's four calls in fp32 and in
     bf16 beside `F.conv1d`/`F.conv_transpose1d`'s; device ms (the profiler)
     and event ms, and a digest of each output's bytes. Any checkout's port
     (it uses only the wrappers), so that parent and change compare their
@@ -1066,6 +1097,15 @@ def phase_osc_resample(card: str) -> None:
         print(line)
 
     calls = []
+    # A unseeded at `_chunked_kernels`' chunk case, its draws: the digest
+    # that OSC_NO_SEED_DIGEST holds
+    chunk = np.random.default_rng(21)
+    f0 = chunk.uniform(80.0, 400.0, (6, 586)).astype(np.float32)
+    f0[0, 5:15] = 0.0
+    amps = (np.abs(chunk.standard_normal((6, 586, 15))) + 0.1).clip(max=3.0).astype(np.float32)
+    calls.append(("A B=6 F=586 (chunk rows)",
+                  lambda f0=torch.from_numpy(f0).to(dev), amps=torch.from_numpy(amps).to(dev):
+                  osc.oscillator_bank(f0, amps), None))
     for B, F_ in ((1, 320), (8, 320), (16, 100)):
         f0 = torch.from_numpy(rng.uniform(80.0, 400.0, (B, F_)).astype(np.float32)).to(dev)
         f0[0, 5:15] = 0.0
@@ -1440,6 +1480,7 @@ def _check_serving_stages(label: str, st: dict, cfg, target, index, cpu_decs: di
 
     from tinyvc_tpu_torch.dsp.stft import spectrogram as fft_spectrogram
     from tinyvc_tpu_torch.kernels import knn
+    from tinyvc_tpu_torch.models.decoder import pack_source
     from tinyvc_tpu_torch.ops.fused_filternet import filternet_fused_apply
 
     a, r = cfg.audio, cfg.retrieval
@@ -1467,9 +1508,7 @@ def _check_serving_stages(label: str, st: dict, cfg, target, index, cpu_decs: di
 
         ins = [st[k].cpu() for k in ("matched", "f0", "energy")]
         src = st["source"][:1].cpu()
-        n_src, L = src.shape[1:]
-        pack = n_src + 1 + (-(n_src + 1)) % 8
-        packed = torch.cat([src, ins[2][:1, None], src.new_zeros((1, pack - n_src - 1, L))], 1)
+        packed = pack_source(src[:, :-1], src[:, -1], ins[2][:1])
         cpu = {}
         for name, (d, dcfg) in cpu_decs.items():
             amps, kern = d.source_net(*ins)
@@ -1538,7 +1577,10 @@ PCM_ATOL = 2.0 / 32767  # a CLI's 16-bit output: one int16 step, read as / 32768
 # neighbours a top-1 choice: the card's shift must be the CPU's, except
 # where the CPU's correlation at the two shifts differs by less than that
 # block's own distance between the card's correlation and the CPU's (the
-# most by which either can be off the other, printed beside it). The
+# most by which either can be off the other, printed beside it). This
+# keeps the check a test of the port, not of an argmax on a peak broad
+# enough that two shifts fall within 1e-5 (block 10: 7.85e-6 apart, against
+# 9.40e-5; ROADMAP §3). The
 # windows the two correlate differ by up to ~4e-4 (the plain oscillator's
 # fp32 drift, within WAVE_ATOL), and a smooth correlation's broad peak can
 # hold two adjacent shifts closer than that.
@@ -1839,7 +1881,9 @@ def phase_stream(card: str) -> None:
         failed.append(f"card vs CPU {float(diffs.max())}, windows {float(wdiffs.max())}")
 
     # SOLA's argmax is a discontinuous choice: at another shift a block moves
-    # by up to 1,920 samples, so the two streams are held to each other at
+    # by up to 1,920 samples (bf16 rounding moved 60 of 75 shifts, so the
+    # raw distance, 0.2273, measures SOLA's choices, not the decoder; ROADMAP
+    # §3), so the two streams are held to each other at
     # equal shifts, each way: the serving windows stitched at the fp32
     # stream's shifts against the fp32 stream, and the serving stream as it
     # plays, at its own shifts, against the fp32 windows stitched at those.
@@ -1910,6 +1954,409 @@ def phase_stream(card: str) -> None:
 
     _stream_clis(card, enc, dec, index)
     _check(not failed, f"stream: {failed}")
+
+
+# ---------------------------------------------------------------------------
+# chunked long-form: VoiceConverter.convert_chunked (S chunk rows as a batch)
+# ---------------------------------------------------------------------------
+
+LONG_FRAMES = 3000  # 60 s at 50 frames a second, bench.py's config 4c shape
+LONG_CHUNKS = (512, 1024)  # S = 6 and 3 rows, both padded to 3072 frames
+DEMO_CHUNK = 64  # the 6 s demo (300 frames) at -c 64: S = 5 rows
+CHUNK_HALO, CHUNK_MARGIN = 96, 36  # halo_frames; filter_halo 32 + 4
+CHUNK_REQUESTS = 5  # warm requests timed a cell
+# Kernel A's output without a seed at the chunk case of `_chunked_kernels`
+# ([6, 586] frames, its generator's first draws): the first 12 hex digits
+# of the bytes' SHA-256 as the kernel wrote them on the H100 before it took
+# a seed (`--osc-resample DIR` on that checkout prints it as "A B=6 F=586").
+# A null phase0 must leave every bit.
+OSC_NO_SEED_DIGEST = "b618bbd81320"
+# The phase at the chunk joins against the float64 truth (closed_form_phase
+# of the stitched global f0, edges replicated), cycles, the utterance's first
+# core frame left out. The card's phase is kernel A's own arithmetic on the
+# card's f0 and seeds. Its error is the seed's: JAX's formula in fp32 on both
+# devices, the wrapped global prefix of fp32 frame sums (it grows with the
+# utterance) and the fp32 scan of the M + 2 = 38 margin frames that the seed
+# cancels, where A integrates in closed form (1.16e-5 from the truth at
+# amplitude 3, under 1e-6 cycles of phase). The CPU measured 2.3e-6 on the
+# demo at -c 64 and 3.6e-5 (S=6) and 4.2e-5 (S=3) at 60 s: 1e-4 bounds them.
+# The cancellation alone (A's phase at each row's seeded frame against JAX's
+# fp32 prefix there, the prefix's own error left out) is held to A's
+# distance from the truth plus the margin's fp32 scan: 2e-5 (the CPU: at
+# most 2.4e-6).
+JOIN_PHASE_ATOL = 1e-4
+JOIN_CANCEL_ATOL = 2e-5
+# Log-mel L1 of chunked against whole-utterance conversion of the demo at
+# -c 64, the JAX package's own distance with these weights, seed and pitch
+# shift on the CPU (its layer-by-layer U-Net; computed once, with the port's
+# log_mel_l1): 0.3034. The whole request's noise is kernel B's hashed stream
+# in the port and jax.random in JAX, so the two distances are taken on other
+# noise; the port's CPU read 0.3005 (fp32) and 0.3062 (serving). A 10%
+# margin over JAX's.
+CHUNKED_MEL_L1_JAX = 0.3034
+CHUNKED_MEL_MARGIN = 1.10
+CHUNK_COUNT_RTOL = 5e-2  # S=6 vs S=3, of the peak: JAX's bound (tests/test_time_shard.py:92)
+# Kernels that a chunked request of the 60 s utterance must launch (S=6:
+# B*F = 4224 rows, so G under serving too); the demo at -c 64 (B*F = 1280)
+# launches no G.
+CHUNKED_LAUNCHES = {"fp32": CONVERT_LAUNCHES["fp32"],
+                    "serving": CONVERT_LAUNCHES["serving"] + ("G",)}
+
+
+def _digest(t) -> str:
+    """The first 12 hex digits of the SHA-256 of a tensor's bytes."""
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:12]
+
+
+def _long_wave():
+    """The 6 s demo tiled to LONG_FRAMES frames (60 s), ``[L]`` fp32 numpy."""
+    import numpy as np
+
+    wave = _load_demo(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"))
+    return np.tile(wave, -(-LONG_FRAMES * 480 // wave.shape[0]))[:LONG_FRAMES * 480].copy()
+
+
+def _join_phase(st: dict, seg: int) -> tuple:
+    """(the largest phase error over the stitched cores, the largest at the
+    joins' two frames, the largest seed cancellation error), cycles: each
+    row's phase as kernel A computes it (`closed_form_phase` of its
+    ``f0_h`` seeded by its ``phase0``) against the float64 truth of the
+    stitched global f0 track, the utterance's first core frame left out
+    (its row sees a halo frame where the global track replicates its edge,
+    `tinyvc_tpu/parallel/time_shard.py:188-190`); and at the start of each
+    row's second core frame, where the seed puts JAX's fp32 global prefix,
+    A's phase against that prefix: what is left of the seed's cancellation
+    of the margin frames, without the prefix's own fp32 error."""
+    import numpy as np
+
+    from tinyvc_tpu_torch.kernels.oscillator import closed_form_phase
+
+    H, M, hop = CHUNK_HALO, CHUNK_MARGIN, 480
+    f0, f0_h, phase0 = (st[k].float().cpu().numpy() for k in ("f0", "f0_h", "phase0"))
+    S = f0.shape[0]
+    phase = closed_form_phase(f0_h, hop, 24000, phase0)
+    card = phase[:, (M + 1) * hop:(M + 1 + seg) * hop]
+    truth = closed_form_phase(f0[:, H:H + seg].reshape(1, -1), hop, 24000)[0]
+    d = card.reshape(-1) - truth
+    d = np.abs(d - np.rint(d)).reshape(S * seg, hop)
+    d[0] = 0.0
+    joins = [i * seg + k for i in range(1, S) for k in (-1, 0)]
+    prefix = st["prefix"].double().cpu().numpy()[np.arange(S) * seg + 1]
+    c = phase[:, (M + 2) * hop - 1] - prefix  # through frame M + 1: the start of frame M + 2
+    return (float(d.max()), float(d[joins].max()) if joins else 0.0,
+            float(np.abs(c - np.rint(c)).max()))
+
+
+def _report_join(label: str, join: tuple, failed: list) -> None:
+    """Print `_join_phase`'s three numbers; add to ``failed`` what is over
+    its bound."""
+    print(f"  chunked {label} phase vs float64 truth: cores {join[0]:.3e}, joins {join[1]:.3e} "
+          f"cycles (tolerance {JOIN_PHASE_ATOL:.0e}); the seed's cancellation {join[2]:.3e} "
+          f"(tolerance {JOIN_CANCEL_ATOL:.0e})")
+    if join[0] > JOIN_PHASE_ATOL or join[2] > JOIN_CANCEL_ATOL:
+        failed.append(f"{label} join phase {join}")
+
+
+def _chunked_kernels(dev, enc, index, long_padded) -> None:
+    """Kernels at the 60 s utterance's chunk shapes (S=6 rows of 512 + 2 x 96
+    frames; the source window 584 frames, the oscillator 586), each call
+    with NaN in every element torch.empty hands it and twice (the same
+    bits): A seeded by ``phase0`` against the float64 truth, and without a
+    seed holding its digest; B through an explicit per-global-frame angle
+    table against its plain version; G on the rows' windows and H (R =
+    4,224) on their content against the shipped dictionary; C, D at every
+    U-Net stage and E, F at the stages of 8,192 positions or more, in fp32
+    and bf16. Draws from a generator of its own."""
+    import numpy as np
+    import torch
+
+    from tinyvc_tpu_torch.config import TinyVCConfig
+    from tinyvc_tpu_torch.infer.generator import exact_fp32
+    from tinyvc_tpu_torch.kernels import knn
+    from tinyvc_tpu_torch.kernels import spectrogram as sp
+    from tinyvc_tpu_torch.kernels.noise import oscillate_noise_hashed, oscillate_noise_plain
+    from tinyvc_tpu_torch.kernels.oscillator import oscillator_bank, oscillator_bank_plain
+    from tinyvc_tpu_torch.models.layers import grn_time_chunks
+    from tinyvc_tpu_torch.parallel.time_shard import CHUNK_KERNEL_MIN_LEN, chunk_windows
+    from tinyvc_tpu_torch.utils.prng import per_frame_angles_torch, prng_key
+
+    rng = np.random.default_rng(21)
+    cfg = TinyVCConfig()
+    hop, n_fft, bins, H1 = 480, 1920, 961, cfg.decoder.num_harmonics + 1
+    seg = LONG_CHUNKS[0]
+    S, swf = -(-LONG_FRAMES // seg), seg + 2 * CHUNK_MARGIN
+
+    def twice(label, kernel, plain, tol, gate=True):
+        with _nan_empty():
+            got, again = kernel(), kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        same = torch.equal(got, again)
+        err = float((got.float() - want.float()).abs().max())
+        held = f"(tolerance {tol:.0e})" if gate else "(not gated: the plain version's drift)"
+        print(f"  chunked {label}: max_abs_err {err:.3e} against the plain version {held}; "
+              f"two calls bit-identical: {same}")
+        _check(same, f"chunked {label}: two calls differ")
+        _check(not gate or err <= tol, f"chunked {label}: error {err} > {tol}")
+        return got
+
+    f0 = rng.uniform(80.0, 400.0, (S, swf + 2)).astype(np.float32)
+    f0[0, 5:15] = 0.0  # unvoiced run
+    amps = (np.abs(rng.standard_normal((S, swf + 2, H1))) + 0.1).clip(max=3.0).astype(np.float32)
+    phase0 = rng.uniform(0.0, 1.0, S).astype(np.float32)
+    tf0, tamps, tp0 = (torch.from_numpy(x).to(dev) for x in (f0, amps, phase0))
+    got = twice(f"oscillator phase0 [{S}, {swf + 2}]",
+                lambda: oscillator_bank(tf0, tamps, phase0=tp0),
+                lambda: oscillator_bank_plain(tf0, tamps, phase0=tp0), None, gate=False)
+    err = float(np.abs(got.cpu().numpy() - _osc_truth(f0, amps, phase0=phase0)).max())
+    print(f"  chunked oscillator phase0 [{S}, {swf + 2}]: vs float64 truth {err:.3e} (tolerance "
+          f"{OSC_TRUTH_ATOL:.0e})")
+    _check(err <= OSC_TRUTH_ATOL, f"chunked oscillator with phase0 off the float64 truth: {err}")
+    unseeded = twice(f"oscillator no seed [{S}, {swf + 2}]", lambda: oscillator_bank(tf0, tamps),
+                     lambda: oscillator_bank_plain(tf0, tamps), None, gate=False)
+    zero = oscillator_bank(tf0, tamps, phase0=torch.zeros_like(tp0))
+    digest = _digest(unseeded)
+    print(f"  chunked oscillator no seed: output {digest} (the parent's {OSC_NO_SEED_DIGEST}); "
+          f"a zero seed bit-identical: {torch.equal(zero, unseeded)}")
+    _check(digest == OSC_NO_SEED_DIGEST, "kernel A without a seed changed its output")
+    _check(torch.equal(zero, unseeded), "kernel A with a zero seed differs from no seed")
+
+    mag = torch.from_numpy(np.abs(rng.standard_normal((S, swf, bins))).astype(np.float32)).to(dev)
+    frames = (torch.arange(S, device=dev)[:, None] * seg - CHUNK_MARGIN
+              + torch.arange(swf, device=dev)[None]).reshape(-1)
+    angle = per_frame_angles_torch(prng_key(SEED), frames, bins).reshape(S, swf, bins)
+    twice(f"noise angle [{S}, {swf}, {bins}]",
+          lambda: oscillate_noise_hashed(mag, 0, hop, n_fft, angle=angle),
+          lambda: oscillate_noise_plain(mag, 0, hop, n_fft, angle=angle), KERNEL_TOL["noise"])
+    print(f"  chunked noise table [{S * swf}, {bins}] (per_frame_angles_torch): device "
+          f"{_device_ms(lambda: per_frame_angles_torch(prng_key(SEED), frames, bins)):.4f} ms; "
+          f"kernel B on it {_device_ms(lambda: oscillate_noise_hashed(mag, 0, hop, n_fft, angle=angle)):.4f} ms")
+
+    windows = chunk_windows(torch.from_numpy(long_padded).to(dev), S, seg, CHUNK_HALO, hop)
+    with exact_fp32():
+        got = sp.spectrogram(windows)
+        want = sp.spectrogram_plain(windows)
+        torch.cuda.synchronize()
+        err, peak = float((got - want).abs().max()), float(want.abs().max())
+        tol = CHAIN_RTOL["spectrogram"] * peak
+        print(f"  chunked spectrogram {tuple(windows.shape)} -> {tuple(got.shape)}: max_abs_err "
+              f"{err:.3e} (tolerance {tol:.3e} = {CHAIN_RTOL['spectrogram']:.0e} x peak {peak:.3f})")
+        _check(err <= tol, f"chunked spectrogram: error {err} > {tol}")
+        with torch.inference_mode(), grn_time_chunks(enc, CHUNK_HALO, True):
+            content, _ = enc.infer(want)
+        content = content.contiguous()
+        with _nan_empty():
+            got, gi = knn.match_features_knn(content, index, return_indices=True)
+            again, ai = knn.match_features_knn(content, index, return_indices=True)
+        want, wi = knn.match_features_knn_plain(content, index, return_indices=True)
+        torch.cuda.synchronize()
+        same = torch.equal(got, again) and torch.equal(gi, ai)
+        R = content.shape[0] * content.shape[1]
+        print(f"  chunked knn R={R}: two calls bit-identical: {same}")
+        _check(same, "chunked knn: two calls differ")
+        _check_knn(f"chunked knn on the rows' content R={R} N={index.shape[0]} tiles "
+                   f"{knn.knn_schedule(R, index.shape[0])}", content, index, "cos", got, gi,
+                   want, wi)
+    for bf16 in (False, True):
+        phase_unet_kernels(None, rng, dev, bf16, cases=((S, swf),), timed=False,
+                           min_len=CHUNK_KERNEL_MIN_LEN)
+
+
+def _timed_requests(fn, label: str, audio_s: float, card: str):
+    """Median host ms of CHUNK_REQUESTS warm requests (each ends in a
+    synchronise), then one under the profiler: its device busy, kernels and
+    idle share (`_print_breakdown`). Returns the last output."""
+    import torch
+
+    out = fn()
+    times = []
+    for _ in range(CHUNK_REQUESTS):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    print(f"  {label}: warm request median {med:.3f} ms over {CHUNK_REQUESTS} (min "
+          f"{min(times):.3f}, max {max(times):.3f}), {audio_s / med * 1e3:.2f} audio-s/s ({card})")
+    kernels, _ = _profile_call(fn)
+    _print_breakdown(label, kernels, med)
+    return out
+
+
+def _chunked_clis(card: str, enc, dec, index, wave) -> None:
+    """`cli.infer -c 64` on the demo written as a 24 kHz WAV against
+    ``convert_chunked`` on the same file, and `cli.extract_index` on a cache
+    of six 0.4 s chunks of the demo, on the card, against the function on
+    the CPU."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tinyvc_tpu_torch.cli import extract_index as cli_index
+    from tinyvc_tpu_torch.cli import infer as cli_infer
+    from tinyvc_tpu_torch.infer.generator import VoiceConverter
+    from tinyvc_tpu_torch.infer.index import extract_index
+    from tinyvc_tpu_torch.utils.audio_io import load_audio, save_wav
+
+    models = os.path.join(ROOT, "models", "two_speaker")
+    enc_path = os.path.join(models, "encoder_B.npz")
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs, outputs = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        os.makedirs(inputs)
+        save_wav(os.path.join(inputs, "utt.wav"), wave)
+        t0 = time.perf_counter()
+        cli_infer.main(["-i", inputs, "-o", outputs, "-encp", enc_path,
+                        "-decp", os.path.join(models, "decoder_B.npz"),
+                        "-idx", os.path.join(models, "index_B.npy"), "-p", str(PITCH_SHIFT),
+                        "-c", str(DEMO_CHUNK)])
+        print(f"  cli.infer -c {DEMO_CHUNK} on the 6 s demo: {time.perf_counter() - t0:.2f} s "
+              f"({card})")
+        src, _ = load_audio(os.path.join(inputs, "utt.wav"))
+        out, sr = load_audio(os.path.join(outputs, "utt.wav"))
+        want = VoiceConverter(enc, dec, device="cuda").convert_chunked(
+            src[0], torch.from_numpy(index).cuda(), PITCH_SHIFT, chunk_frames=DEMO_CHUNK)
+        _check(sr == 24000 and out.shape == (1, src.shape[1]), f"cli.infer -c wrote {out.shape}")
+        diff = float(np.abs(out[0] - np.clip(want, -1, 1)).max())
+        print(f"  cli.infer -c {DEMO_CHUNK} vs convert_chunked: max |diff| {diff:.3e} (tolerance "
+              f"{PCM_ATOL:.2e}, one 16-bit step)")
+        _check(np.abs(out).max() > 0.01 and diff <= PCM_ATOL, f"cli.infer -c differs by {diff}")
+
+        cache = os.path.join(tmp, "cache")
+        os.makedirs(cache)
+        for i in range(6):
+            save_wav(os.path.join(cache, f"{i}.wav"), wave[i * 9600:(i + 1) * 9600])
+            np.save(os.path.join(cache, f"{i}.f0.npy"), np.zeros(20, np.float32))
+        out_idx = os.path.join(tmp, "index.npy")
+        # one batch of six chunks, 5 frames each at stride 4: 30 rows, 24 kept
+        cli_index.main(["--dataset-cache", cache, "-encp", enc_path, "-size", "24",
+                        "-o", out_idx])
+        got = np.load(out_idx)
+        want = extract_index(enc, cache, size=24, device="cpu")
+        err = float(np.abs(got - want).max())
+        tol = 1e-4 * float(np.abs(want).max())
+        print(f"  cli.extract_index on the card: {got.shape}, vs extract_index on the CPU max "
+              f"|diff| {err:.3e} (tolerance {tol:.3e}, 1e-4 of the feature scale)")
+        _check(got.shape == want.shape == (24, 768) and err <= tol,
+               f"cli.extract_index: {got.shape}, error {err}")
+
+
+def phase_chunked(card: str) -> None:
+    """Chunked long-form conversion on the card (`VoiceConverter.
+    convert_chunked`): the kernels at the chunk shapes (`_chunked_kernels`);
+    the 6 s demo at -c 64 (S=5) in fp32 against the same on the CPU (fused
+    U-Net, ``WAVE_ATOL``), with the phase at the chunk joins against the
+    float64 truth (``JOIN_PHASE_ATOL``); chunked against whole-utterance
+    conversion in both profiles by log-mel L1 (JAX's own distance with a
+    margin), serving chunked against fp32 chunked (``SERVING_MEL_L1_BOUND``);
+    the demo tiled to 60 s at -c 512 (S=6) and -c 1024 (S=3) in both
+    profiles, every kernel of the path launched, S=6 against S=3 within
+    ``CHUNK_COUNT_RTOL`` of the peak, the joins' phase, and beside the
+    whole-utterance 60 s request: warm request ms, audio-s/s, device busy,
+    idle share and kernels a request (printed, not gated); the CLIs
+    (`_chunked_clis`)."""
+    import numpy as np
+    import torch
+
+    from tinyvc_tpu_torch.config import DecoderConfig, TinyVCConfig, serving_config
+    from tinyvc_tpu_torch.dsp.mel import log_mel_l1
+    from tinyvc_tpu_torch.infer.generator import VoiceConverter
+    from tinyvc_tpu_torch.utils.model_store import load_index
+    from tinyvc_tpu_torch.utils.weights import load_npz
+
+    dev = torch.device("cuda")
+    models = os.path.join(ROOT, "models", "two_speaker")
+    enc = load_npz(os.path.join(models, "encoder_B.npz"))
+    dec = load_npz(os.path.join(models, "decoder_B.npz"))
+    index = load_index(os.path.join(models, "index_B.npy"))
+    target = torch.from_numpy(index).to(dev)
+    wave = _load_demo(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"))
+    long_wave = _long_wave()
+    long_padded = np.zeros(-(-LONG_FRAMES // LONG_CHUNKS[0]) * LONG_CHUNKS[0] * 480, np.float32)
+    long_padded[:long_wave.shape[0]] = long_wave
+    vcs = {"fp32": VoiceConverter(enc, dec, device="cuda"),
+           "serving": VoiceConverter(enc, dec, cfg=serving_config(), device="cuda")}
+    _chunked_kernels(dev, vcs["fp32"].encoder, target, long_padded)
+
+    def mel(a, b):
+        return log_mel_l1(torch.from_numpy(np.ascontiguousarray(a)),
+                          torch.from_numpy(np.ascontiguousarray(b)))
+
+    failed = []
+    demo, whole, st = {}, {}, {}
+    for label, vc in vcs.items():
+        st[label] = {}
+        with _launch_counts() as counts:
+            demo[label] = vc.convert_chunked(wave, target, PITCH_SHIFT, seed=SEED,
+                                             chunk_frames=DEMO_CHUNK, stages=st[label])
+        torch.cuda.synchronize()
+        print(f"  chunked {label} demo -c {DEMO_CHUNK}: rows {tuple(st[label]['f0'].shape)}, "
+              f"launches {counts}")
+        _check(demo[label].shape == wave.shape and bool(np.isfinite(demo[label]).all()),
+               f"chunked {label} demo: {demo[label].shape}, finite "
+               f"{np.isfinite(demo[label]).all()}")
+        for k in CONVERT_LAUNCHES[label]:
+            _check(counts[k] > 0, f"chunked {label} demo: kernel {k} was not launched")
+        whole[label] = vc.convert(wave, target, PITCH_SHIFT, seed=SEED)
+
+    cpu = VoiceConverter(enc, dec, cfg=TinyVCConfig(decoder=DecoderConfig(use_fused_filter="on")),
+                         device="cpu").convert_chunked(wave, index, PITCH_SHIFT, seed=SEED,
+                                                       chunk_frames=DEMO_CHUNK)
+    diff = float(np.abs(demo["fp32"] - cpu).max())
+    print(f"  chunked fp32 demo card vs CPU (both fused): max_abs_err {diff:.3e} (tolerance "
+          f"{WAVE_ATOL:.0e}); peak {float(np.abs(cpu).max()):.3f}")
+    if diff > WAVE_ATOL:
+        failed.append(f"card vs CPU {diff}")
+    _report_join("fp32 demo", _join_phase(st["fp32"], DEMO_CHUNK), failed)
+    bound = CHUNKED_MEL_L1_JAX * CHUNKED_MEL_MARGIN
+    for label in vcs:
+        d = mel(demo[label], whole[label])
+        print(f"  chunked {label} demo vs whole-utterance: log-mel L1 {d:.4f} (bound {bound:.4f} = "
+              f"JAX's {CHUNKED_MEL_L1_JAX} x {CHUNKED_MEL_MARGIN})")
+        if not d <= bound:
+            failed.append(f"{label} chunked vs whole {d}")
+    d = mel(demo["serving"], demo["fp32"])
+    print(f"  chunked serving demo vs chunked fp32: log-mel L1 {d:.4f} (bound "
+          f"{SERVING_MEL_L1_BOUND})")
+    if not d < SERVING_MEL_L1_BOUND:
+        failed.append(f"serving vs fp32 chunked {d}")
+
+    audio_s = long_wave.shape[0] / 24000.0
+    for label, vc in vcs.items():
+        outs = {}
+        for chunk in LONG_CHUNKS:
+            st_long = {}
+            with _launch_counts() as counts:
+                outs[chunk] = vc.convert_chunked(long_wave, target, PITCH_SHIFT, seed=SEED,
+                                                 chunk_frames=chunk, stages=st_long)
+            torch.cuda.synchronize()
+            rows = tuple(st_long["f0"].shape)
+            print(f"  chunked {label} 60 s -c {chunk}: rows {rows}, launches {counts}")
+            _check(outs[chunk].shape == long_wave.shape and bool(np.isfinite(outs[chunk]).all()),
+                   f"chunked {label} 60 s -c {chunk}: not finite")
+            for k in (CHUNKED_LAUNCHES[label] if chunk == LONG_CHUNKS[0]
+                      else CONVERT_LAUNCHES[label]):
+                _check(counts[k] > 0, f"chunked {label} -c {chunk}: kernel {k} was not launched")
+            if label == "fp32":
+                _report_join(f"fp32 60 s -c {chunk}", _join_phase(st_long, chunk), failed)
+            _timed_requests(lambda chunk=chunk: vc.convert_chunked(
+                long_wave, target, PITCH_SHIFT, seed=SEED, chunk_frames=chunk),
+                f"chunked {label} 60 s -c {chunk} (S={rows[0]})", audio_s, card)
+        a, b = outs[LONG_CHUNKS[0]], outs[LONG_CHUNKS[1]]
+        rel = float(np.abs(a - b).max() / np.abs(a).max())
+        print(f"  chunked {label} 60 s S=6 vs S=3: max |diff| {rel:.3e} of the peak (tolerance "
+              f"{CHUNK_COUNT_RTOL:.0e}), log-mel L1 {mel(a, b):.4f}")
+        if not rel < CHUNK_COUNT_RTOL:
+            failed.append(f"{label} S=6 vs S=3 {rel}")
+        _timed_requests(lambda vc=vc: vc.convert(long_wave, target, PITCH_SHIFT, seed=SEED),
+                        f"whole {label} 60 s", audio_s, card)
+
+    _chunked_clis(card, enc, dec, index, wave)
+    _check(not failed, f"chunked: {failed}")
 
 
 # ---------------------------------------------------------------------------
@@ -3487,12 +3934,15 @@ def main(argv=None) -> int:
     DIR. ``--step-chaos [DIR]``: env, build and gates F, B and C of the
     pre-join and post-join fp32 steps with every statistic of every draw
     (`phase_step_chaos`), of the port in DIR. ``--stream [DIR]``: env, build
-    and the streaming phase (`phase_stream`), of the port in DIR."""
+    and the streaming phase (`phase_stream`), of the port in DIR.
+    ``--chunked [DIR]``: env, build and the chunked phase (`phase_chunked`),
+    of the port in DIR."""
     global ROOT
     args = sys.argv[1:] if argv is None else argv
     modes = {"--profile": phase_profile_only, "--train-step": phase_train_step,
              "--unet-stages": phase_unet_stages, "--osc-resample": phase_osc_resample,
-             "--step-chaos": phase_step_chaos, "--stream": phase_stream}
+             "--step-chaos": phase_step_chaos, "--stream": phase_stream,
+             "--chunked": phase_chunked}
     mode = modes.get(args[0]) if args else None
     if mode is not None and len(args) > 1:
         ROOT = os.path.abspath(args[1])
@@ -3528,6 +3978,9 @@ def main(argv=None) -> int:
     t0 = _phase("stream")
     phase_stream(card)
     _done("stream", t0)
+    t0 = _phase("chunked")
+    phase_chunked(card)
+    _done("chunked", t0)
     t0 = _phase("profile")
     phase_profile(card, *ctx)
     phase_profile(card, serving, *ctx[1:], batches=(1, 8), label="serving")

@@ -1,7 +1,7 @@
 """The port's conversion CLIs on the CPU at full width with the two-speaker
 weights: `cli/infer.py` on a 48 kHz stereo WAV with reference ``.pt``
-weights and a target encoded from another 48 kHz file, its refusal of
-chunked conversion, and `cli/infer_streaming.py`'s file mode with gains and
+weights and a target encoded from another 48 kHz file, its chunked
+conversion (``-c``), and `cli/infer_streaming.py`'s file mode with gains and
 pipelined dispatch."""
 
 import os
@@ -63,14 +63,27 @@ def test_infer_cli_resamples_and_reads_pt_weights(tmp_path):
     np.testing.assert_allclose(out[0], np.clip(want, -1, 1), atol=PCM_ATOL, rtol=0)
 
 
-def test_infer_cli_refuses_chunked_conversion(tmp_path, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli_infer.main(["-i", str(tmp_path), "-o", str(tmp_path / "out"), "-c", "8",
-                        "--device", "cpu"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "chunked conversion is not ported yet" in err and "ROADMAP §1 item 4" in err
-    assert not (tmp_path / "out").exists()
+def test_infer_cli_chunked_conversion(tmp_path):
+    """``-c 16`` on a 1.2 s WAV: four chunk rows (60 frames, bucketed to 64),
+    the output as ``convert_chunked`` gives it, the input's length."""
+    inputs, outputs = tmp_path / "in", tmp_path / "out"
+    inputs.mkdir()
+    wave = _demo("source_A.wav", 24000, 28800)
+    save_wav(str(inputs / "utt.wav"), wave)
+    cli_infer.main(["-i", str(inputs), "-o", str(outputs),
+                    "-encp", os.path.join(MODELS, "encoder_B.npz"),
+                    "-decp", os.path.join(MODELS, "decoder_B.npz"),
+                    "-idx", os.path.join(MODELS, "index_B.npy"), "-p", "11.99", "-c", "16",
+                    "--device", "cpu"])
+    out, sr = load_audio(str(outputs / "utt.wav"))
+    assert sr == 24000 and out.shape == (1, wave.shape[0])
+    vc = VoiceConverter(load_npz(os.path.join(MODELS, "encoder_B.npz")),
+                        load_npz(os.path.join(MODELS, "decoder_B.npz")), device="cpu")
+    src, _ = load_audio(str(inputs / "utt.wav"))
+    want = vc.convert_chunked(src[0], load_index(os.path.join(MODELS, "index_B.npy")), 11.99,
+                              chunk_frames=16)
+    assert np.isfinite(want).all() and np.abs(want).max() > 0.05
+    np.testing.assert_allclose(out[0], np.clip(want, -1, 1), atol=PCM_ATOL, rtol=0)
 
 
 def test_streaming_cli_file_mode_with_gains_and_pipeline(tmp_path):

@@ -20,6 +20,7 @@ from tinyvc_tpu_torch import config as pcfg
 from tinyvc_tpu_torch.dsp.padding import pad_to_bucket
 from tinyvc_tpu_torch.infer.generator import convert_fn, decode_infer, exact_fp32
 from tinyvc_tpu_torch.kernels import filter_stage
+from tinyvc_tpu_torch.models.decoder import pack_source
 from tinyvc_tpu_torch.ops.fused_filternet import filternet_fused_apply
 from tinyvc_tpu_torch.utils.audio_io import load_audio
 from tinyvc_tpu_torch.utils.model_store import load_index
@@ -121,8 +122,8 @@ def test_flag_picks_the_unet(rng):
     auto, on, off = run("auto"), run("on"), run("off")
     with torch.inference_mode():
         layered = dec.infer(content, f0, energy, 0, angle)
-        src = dec.dsp(f0, *dec.source_net(content, f0, energy), 0, angle,
-                      pack_energy=energy, pack_width=8)
+        src = pack_source(*dec.dsp_parts(f0, *dec.source_net(content, f0, energy), 0, angle),
+                          energy)
         fused = filternet_fused_apply(dec.filter_net, pcfg.DecoderConfig(**DEC), content, f0,
                                       energy, src)
     assert src.shape == (1, 8, F * 480)

@@ -41,6 +41,8 @@ BLOCKER = textwrap.dedent("""
 STREAMING_MODULES = {"tinyvc_tpu_torch.dsp.resample", "tinyvc_tpu_torch.utils.torch_compat",
                      "tinyvc_tpu_torch.utils.model_store", "tinyvc_tpu_torch.infer.stream",
                      "tinyvc_tpu_torch.cli.infer_streaming"}
+CHUNKED_MODULES = {"tinyvc_tpu_torch.parallel", "tinyvc_tpu_torch.parallel.time_shard",
+                   "tinyvc_tpu_torch.infer.index", "tinyvc_tpu_torch.cli.extract_index"}
 
 
 def test_port_imports_nothing_of_jax():
@@ -48,8 +50,9 @@ def test_port_imports_nothing_of_jax():
                           capture_output=True, text=True, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names, count = proc.stdout.strip().splitlines()[-2:]
-    assert int(count) >= 52  # every module was imported
+    assert int(count) >= 56  # every module was imported
     assert STREAMING_MODULES <= set(names.split())
+    assert CHUNKED_MODULES <= set(names.split())
 
 
 def test_default_device_is_cuda_and_raises_without_it():

@@ -1,9 +1,9 @@
 """CLI: batch file conversion on the GPU (counterpart of
-`tinyvc_tpu/cli/infer.py`, whole-utterance mode).
+`tinyvc_tpu/cli/infer.py`).
 
     python -m tinyvc_tpu_torch.cli.infer -i inputs/ -o outputs/ \\
         -encp models/two_speaker/encoder_B.npz -decp models/two_speaker/decoder_B.npz \\
-        -idx models/two_speaker/index_B.npy -p 11.99
+        -idx models/two_speaker/index_B.npy -p 11.99 [-c 512]
 
 Inputs are the ``.wav``, ``.ogg`` and ``.mp3`` files of ``-i`` (the last two
 through ffmpeg), at any rate and channel count: channels are averaged, and
@@ -12,8 +12,16 @@ device (`dsp/resample.py`). Weights are params-only ``.npz`` exports or the
 reference's ``.pt`` state dicts; the index a ``.npy`` ``[N, C]`` or the
 reference's ``index.pt``; with ``-idx NONE`` the dictionary is encoded from
 the ``-t`` target. ``--device cuda`` (the default) fails when CUDA is
-absent; ``--device cpu`` runs the kernels' plain versions. Chunked
-conversion (``-c N``, N > 0) is not ported yet and is refused.
+absent; ``--device cpu`` runs the kernels' plain versions.
+
+``-c N`` (N > 0) converts each file in overlap-save chunks of N frames
+(`VoiceConverter.convert_chunked`, `parallel/time_shard.py`): the chunks run
+as one batch with halo context, GRN statistics summed over them, the
+harmonic phase seeded across each join and the noise phases drawn per
+global frame, so the output agrees with whole-utterance conversion at the
+mel level, not at the waveform. It pays for the halos (a 512-frame chunk
+converts 704 frames) and bounds the shapes a request runs at. The default
+0 converts each utterance whole.
 """
 
 from __future__ import annotations
@@ -21,9 +29,6 @@ from __future__ import annotations
 import argparse
 import glob
 import os
-
-CHUNKED_REFUSED = ("-c/--chunk-frames: chunked conversion is not ported yet (ROADMAP §1 "
-                   "item 4, chunked long-form); pass -c 0 for whole-utterance conversion")
 
 
 def load_mono(path: str, sample_rate: int, device):
@@ -52,11 +57,10 @@ def main(argv=None):
     p.add_argument("-t", "--target", default="target.wav")
     p.add_argument("-p", "--pitch-shift", default=0.0, type=float)
     p.add_argument("-c", "--chunk-frames", default=0, type=int,
-                   help="0 = whole-utterance (the only mode ported so far)")
+                   help="0 = whole-utterance; N>0 = overlap-save chunked conversion in N-frame "
+                   "chunks (halo recompute; agrees with whole-utterance at the mel level)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = p.parse_args(argv)
-    if args.chunk_frames > 0:
-        p.error(CHUNKED_REFUSED)
 
     import torch
 
@@ -81,7 +85,12 @@ def main(argv=None):
         paths += sorted(glob.glob(os.path.join(args.inputs, f"*.{fmt}")))
     for path in paths:
         print(f"Converting {path} ...")
-        out = vc.convert(load_mono(path, sr, vc.device), target, args.pitch_shift)
+        wave = load_mono(path, sr, vc.device)
+        if args.chunk_frames > 0:
+            out = vc.convert_chunked(wave, target, args.pitch_shift,
+                                     chunk_frames=args.chunk_frames)
+        else:
+            out = vc.convert(wave, target, args.pitch_shift)
         name = os.path.splitext(os.path.basename(path))[0]
         save_wav(os.path.join(args.outputs, f"{name}.wav"), out, sr)
     print(f"done: {len(paths)} files -> {args.outputs}")

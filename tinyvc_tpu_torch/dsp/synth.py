@@ -26,17 +26,23 @@ def oscillate_harmonics(
     sample_rate: int = 24000,
     num_harmonics: int = 14,
     min_frequency: float = 20.0,
+    phase0: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """f0 ``[B, F]`` -> unit harmonics ``[B, F*frame_size, H+1]``:
-    ``sin(2*pi*((k * phase) mod 1))`` masked by the interpolated voiced flag."""
+    ``sin(2*pi*((k * phase) mod 1))`` masked by the interpolated voiced flag.
+    ``phase0`` (cycles, ``[B]`` or a scalar tensor) seeds each row's phase:
+    added to the wrapped frame offsets before the intra-frame sums, as the
+    JAX function adds it (chunked conversion's per-chunk seed)."""
     B, nf = f0.shape
     Lw = nf * frame_size
     f0w = linear_interp_last(f0.float(), Lw)
     d = (f0w / sample_rate).reshape(B, nf, frame_size)
     intra = torch.cumsum(d, dim=-1)
     frame_sums = intra[..., -1]
-    offsets = wrapped_exclusive_prefix(frame_sums - torch.floor(frame_sums))
-    phase = (offsets[..., None] + intra).reshape(B, Lw)
+    offsets = wrapped_exclusive_prefix(frame_sums - torch.floor(frame_sums))[..., None]
+    if phase0 is not None:
+        offsets = phase0.float().reshape(-1, 1, 1) + offsets
+    phase = (offsets + intra).reshape(B, Lw)
     k = torch.arange(1, num_harmonics + 2, dtype=torch.float32, device=f0.device)
     theta = 2.0 * math.pi * torch.remainder(phase[..., None] * k, 1.0)
     uv = linear_interp_last((f0 > min_frequency).float(), Lw)

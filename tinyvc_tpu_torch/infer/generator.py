@@ -19,7 +19,7 @@ convolution and matmul here runs with TF32 off (see :func:`exact_fp32`).
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,11 +31,11 @@ from ..dsp.pitch import shift_frequency
 from ..dsp.stft import spectrogram
 from ..kernels import spectrogram as spectrogram_kernel
 from ..kernels.knn import match_features_knn
-from ..models.decoder import Decoder
+from ..models.decoder import Decoder, pack_source
 from ..models.encoder import Encoder
 from ..ops.fused_filternet import filternet_fused_apply
 from ..ops.retrieval import match_features
-from ..utils.prng import kernel_b_seed
+from ..utils.prng import kernel_b_seed, prng_key
 from ..utils.weights import decoder_from_jax, encoder_from_jax
 
 KNN_KERNEL_MAX_BYTES = 12 * 2**20  # the JAX gate: the fp32 dictionary fits VMEM
@@ -114,31 +114,48 @@ def decode_infer(
     noise_angle: Optional[torch.Tensor] = None,
     stages: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """``Decoder.infer`` with the U-Net picked by
-    ``cfg.decoder.use_fused_filter``: "on", or "auto" on CUDA tensors, runs
+    """``Decoder.infer`` with the U-Net picked by :func:`filter_infer`:
     the fused U-Net (`ops/fused_filternet.py`, kernels C-F) on the packed
-    source; "off", or "auto" on CPU tensors, the layer-by-layer
-    :class:`FilterNet`. ``noise_seed`` is kernel B's int32 seed itself
-    (:meth:`VoiceConverter.convert` derives it from the JAX key).
+    source, or the layer-by-layer :class:`FilterNet`. ``noise_seed`` is
+    kernel B's int32 seed itself (:meth:`VoiceConverter.convert` derives it
+    from the JAX key).
     ``stages`` receives SourceNet's harmonic amplitudes ``amps`` and noise
     filter ``noise_kernel`` and the source ``[B, H+2, L]``."""
+    amps, kernel = decoder.source_net(content, f0, energy)
+    harmonics, noise = decoder.dsp_parts(f0, amps, kernel, noise_seed, noise_angle)
+    out, source = filter_infer(decoder, content, f0, energy, harmonics, noise, cfg)
+    if stages is not None:
+        stages.update(amps=amps, noise_kernel=kernel, source=source)
+    return out
+
+
+def filter_infer(
+    decoder: Decoder,
+    content: torch.Tensor,
+    f0: torch.Tensor,
+    energy: torch.Tensor,
+    harmonics: torch.Tensor,
+    noise: torch.Tensor,
+    cfg: TinyVCConfig,
+    kernel_min_len: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The U-Net over the source ``[harmonics; noise]``, picked by
+    ``cfg.decoder.use_fused_filter``: "on", or "auto" on CUDA tensors, packs
+    the source for the fused stem (`models/decoder.py::pack_source`) and
+    runs the fused U-Net with ``kernel_min_len``; "off", or "auto" on CPU
+    tensors, the layer-by-layer :class:`FilterNet`. -> (waveform ``[B,
+    L]``, the source ``[B, H+2, L]``)."""
     flag = cfg.decoder.use_fused_filter
     if flag not in ("auto", "on", "off"):
         raise ValueError(f"use_fused_filter must be 'auto', 'on' or 'off', got {flag!r}")
-    use_fused = flag == "on" or (flag == "auto" and energy.device.type == "cuda")
-    n_src = cfg.decoder.num_harmonics + 2  # harmonics + noise
-    amps, kernel = decoder.source_net(content, f0, energy)
-    if use_fused:
-        pack_width = n_src + 1 + (-(n_src + 1)) % 8
-        source = decoder.dsp(f0, amps, kernel, noise_seed, noise_angle,
-                             pack_energy=energy, pack_width=pack_width)
-        out = filternet_fused_apply(decoder.filter_net, cfg.decoder, content, f0, energy, source)
-    else:
-        source = decoder.dsp(f0, amps, kernel, noise_seed, noise_angle)
-        out = decoder.filter_net(content, f0, energy, source)
-    if stages is not None:
-        stages.update(amps=amps, noise_kernel=kernel, source=source[:, :n_src])
-    return out
+    n_src = harmonics.shape[1] + 1
+    if flag == "on" or (flag == "auto" and energy.device.type == "cuda"):
+        packed = pack_source(harmonics, noise, energy)
+        out = filternet_fused_apply(decoder.filter_net, cfg.decoder, content, f0, energy, packed,
+                                    kernel_min_len=kernel_min_len)
+        return out, packed[:, :n_src]
+    source = pack_source(harmonics, noise)
+    return decoder.filter_net(content, f0, energy, source), source
 
 
 def convert_fn(
@@ -187,13 +204,20 @@ class VoiceConverter:
     """Weights on one device plus bucketed host entry points.
 
     ``enc_params``/``dec_params`` are JAX parameter trees of numpy arrays
-    (`utils/weights.py::load_npz`). The device defaults to CUDA and raises
-    when CUDA is absent; the CPU runs only when asked for."""
+    (`utils/weights.py::load_npz`); ``dec_params=None`` builds an encoder
+    only (`infer/index.py`), which converts nothing. The device defaults to
+    CUDA and raises when CUDA is absent; the CPU runs only when asked for.
+
+    One call at a time: :meth:`convert_chunked` sets the GRN settings of
+    the converter's own modules for its duration
+    (`models/layers.py::grn_time_chunks`), so any other call on the same
+    converter meanwhile (another thread) would take chunk statistics. Give
+    each thread a converter of its own."""
 
     def __init__(
         self,
         enc_params: Mapping[str, Any],
-        dec_params: Mapping[str, Any],
+        dec_params: Optional[Mapping[str, Any]],
         cfg: TinyVCConfig | None = None,
         device: str | torch.device = "cuda",
         bucket_frames: int = 64,
@@ -201,7 +225,8 @@ class VoiceConverter:
         self.cfg = cfg or TinyVCConfig()
         self.device = _resolve_device(device)
         self.encoder = encoder_from_jax(enc_params, self.cfg.encoder).to(self.device)
-        self.decoder = decoder_from_jax(dec_params, self.cfg.decoder, self.cfg.audio).to(self.device)
+        self.decoder = None if dec_params is None else decoder_from_jax(
+            dec_params, self.cfg.decoder, self.cfg.audio).to(self.device)
         self.bucket_frames = bucket_frames
 
     def _padded(self, wave: np.ndarray):
@@ -249,6 +274,8 @@ class VoiceConverter:
 
         ``stages``, when given, receives :func:`convert_fn`'s intermediate
         tensors of the bucket-padded request, on the device."""
+        if self.decoder is None:
+            raise ValueError("this VoiceConverter was built without decoder weights")
         squeeze = np.asarray(wave).ndim == 1
         x, L = self._padded(wave)
         target = torch.as_tensor(target, dtype=torch.float32).to(self.device)
@@ -257,3 +284,48 @@ class VoiceConverter:
                              kernel_b_seed(seed), self.cfg, stages=stages)
         out = out[:, :L].cpu().numpy()
         return out[0] if squeeze else out
+
+    @torch.inference_mode()
+    def convert_chunked(
+        self,
+        wave: np.ndarray,
+        target: np.ndarray | torch.Tensor,
+        pitch_shift: float = 0.0,
+        seed: int = 0,
+        chunk_frames: int = 512,
+        halo_frames: int = 96,
+        filter_halo: int = 32,
+        stages: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> np.ndarray:
+        """Chunked conversion of one utterance ``[L]`` -> ``[L]``
+        (`tinyvc_tpu/infer/generator.py::VoiceConverter.convert_chunked`):
+        overlap-save chunks of ``chunk_frames`` frames, each with
+        ``halo_frames`` of context a side, run as one batch of ``S =
+        ceil(F / chunk_frames)`` rows (`parallel/time_shard.py::
+        time_batched_convert`), the wave zero-padded to ``S * chunk_frames``
+        frames and the output cut to the input's length. GRN statistics,
+        harmonic phase and noise phases are stitched across the chunk joins,
+        so the result agrees with :meth:`convert` at the mel level. ``seed``
+        means ``key=jax.random.PRNGKey(seed)``: it indexes the noise phases
+        drawn per global frame. ``stages`` receives the chunk rows'
+        intermediates (`time_batched_convert`)."""
+        from ..parallel.time_shard import time_batched_convert
+
+        if self.decoder is None:
+            raise ValueError("this VoiceConverter was built without decoder weights")
+        wave = np.asarray(wave, dtype=np.float32)
+        if wave.ndim != 1:
+            raise ValueError(f"chunked conversion takes one utterance [L], got {wave.shape}")
+        hop = self.cfg.audio.hop_size
+        L0 = wave.shape[0]
+        frames = -(-L0 // hop)
+        S = max(1, -(-frames // chunk_frames))
+        padded = np.zeros((S * chunk_frames * hop,), np.float32)
+        padded[:L0] = wave
+        target = torch.as_tensor(target, dtype=torch.float32).to(self.device)
+        with exact_fp32():
+            out = time_batched_convert(
+                self.encoder, self.decoder, torch.from_numpy(padded).to(self.device), target,
+                float(pitch_shift), prng_key(seed), self.cfg, shards=S, halo_frames=halo_frames,
+                filter_halo=filter_halo, stages=stages)
+        return out[:L0].cpu().numpy()

@@ -38,7 +38,7 @@ NVCC_FLAGS = [
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # name -> argtypes; every function returns its cudaGetLastError() as an int
 SIGNATURES = {
-    "tvc_oscillator": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    "tvc_oscillator": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "tvc_noise": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "tvc_upsample_linear": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "tvc_downsample_linear": [_P, _P, _LL, _I, _I, _I, _P],

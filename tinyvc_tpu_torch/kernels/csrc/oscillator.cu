@@ -26,8 +26,14 @@
 // (2 x the phase mod 1, centred), and the harmonics come from the Chebyshev
 // recurrence sin((h+1)x) = 2 cos x sin(hx) - sin((h-1)x) in fp32. Against
 // the float64 truth this is ~1e-5 at amplitude 3 (the fp32 scan of the first
-// design was ~1e-3), so the wrapped offset can later start from a carried
-// phase (chunked conversion) without drift.
+// design was ~1e-3).
+//
+// A row's seed. Chunked conversion starts each row (a chunk of one
+// utterance) at a carried phase, phase0[b] cycles (null: every row at 0).
+// It enters once, where the frame offsets are summed: wrapped mod 1 to
+// Q0.64 and added to the block's offset as one more integer term, so the
+// phase stays wrapped at any length and a null phase0 leaves every bit as
+// it was. Kernel I takes no seed.
 //
 // The offsets' cost: every block sums the Q0.64 totals of the frames before
 // its own, each total a few double operations on three f0 values read from
@@ -130,12 +136,16 @@ struct FramePhase {
   }
 };
 
+// A phase in cycles wrapped mod 1, as Q0.64.
+__device__ __forceinline__ unsigned long long wrap_q(double t) {
+  const double fr = t - floor(t);
+  return fr < 1.0 ? __double2ull_rz(fr * 0x1p64) : 0ull;
+}
+
 // The frame's total phase wrapped mod 1, as Q0.64.
 __device__ __forceinline__ unsigned long long frame_q(const float* f0row, int q, int F, int frame,
                                                       double inv_sr) {
-  const double t = FramePhase(f0row, q, F, frame, inv_sr).prefix(frame - 1);
-  const double fr = t - floor(t);
-  return fr < 1.0 ? __double2ull_rz(fr * 0x1p64) : 0ull;
+  return wrap_q(FramePhase(f0row, q, F, frame, inv_sr).prefix(frame - 1));
 }
 
 // sum over q in [q0, q1) of frame_q, mod 2^64, by every thread of the block;
@@ -194,6 +204,7 @@ struct Vec<1> {
 template <int VEC>
 __global__ void __launch_bounds__(VEC == 4 ? 256 : 1024) osc_bank(const float* __restrict__ f0,
                                                  const float* __restrict__ amps,
+                                                 const float* __restrict__ phase0,
                                                  float* __restrict__ out, int F, int H1,
                                                  int frame, double inv_sr, float min_frequency) {
   extern __shared__ float s_amps[];  // [3][H1]: the previous, current and next frame's
@@ -201,7 +212,8 @@ __global__ void __launch_bounds__(VEC == 4 ? 256 : 1024) osc_bank(const float* _
   const int p = blockIdx.x;
   const int b = blockIdx.y;
   const float* f0row = f0 + static_cast<size_t>(b) * F;
-  const unsigned long long off = block_q_sum(f0row, 0, p, F, frame, inv_sr, red);
+  unsigned long long off = block_q_sum(f0row, 0, p, F, frame, inv_sr, red);
+  if (phase0 != nullptr) off += wrap_q(static_cast<double>(phase0[b]));  // the row's seed
   const int pp = p > 0 ? p - 1 : 0;
   const int pn = p + 1 < F ? p + 1 : F - 1;
   const float* arow = amps + static_cast<size_t>(b) * F * H1;
@@ -386,8 +398,11 @@ bool vectors(int frame) { return frame % 8 == 0; }  // 16-byte runs in both halv
 
 }  // namespace
 
-extern "C" int tvc_oscillator(const float* f0, const float* amps, float* out, int B, int F, int H1,
-                              int frame, float sample_rate, float min_frequency, void* stream) {
+// Kernel A: f0 [B, F], amps [B, F, H1], phase0 [B] cycles or null -> out
+// [B, H1, F*frame].
+extern "C" int tvc_oscillator(const float* f0, const float* amps, const float* phase0, float* out,
+                              int B, int F, int H1, int frame, float sample_rate,
+                              float min_frequency, void* stream) {
   if (B <= 0 || F <= 0 || H1 <= 0 || frame <= 0 || frame > 1024 || B > 65535 ||
       3 * H1 * sizeof(float) > 48 * 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -398,10 +413,10 @@ extern "C" int tvc_oscillator(const float* f0, const float* amps, float* out, in
   const size_t smem = 3 * H1 * sizeof(float);
   if (vectors(frame))
     osc_bank<4><<<grid, (frame / 4 + 31) / 32 * 32, smem, tvc::counted(s)>>>(
-        f0, amps, out, F, H1, frame, inv_sr, min_frequency);
+        f0, amps, phase0, out, F, H1, frame, inv_sr, min_frequency);
   else
     osc_bank<1><<<grid, (frame + 31) / 32 * 32, smem, tvc::counted(s)>>>(
-        f0, amps, out, F, H1, frame, inv_sr, min_frequency);
+        f0, amps, phase0, out, F, H1, frame, inv_sr, min_frequency);
   return static_cast<int>(cudaGetLastError());
 }
 

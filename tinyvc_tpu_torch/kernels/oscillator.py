@@ -39,8 +39,14 @@ MAX_GRAD_HARMONICS = 32
 _LANES = 32
 
 
+def _wrap_q(t: np.ndarray) -> np.ndarray:
+    """Cycles wrapped mod 1 as Q0.64 integers (`csrc/oscillator.cu::wrap_q`)."""
+    wrapped = t - np.floor(t)
+    return np.where(wrapped < 1.0, wrapped * 2.0**64, 0.0).astype(np.uint64)
+
+
 def closed_form_phase(f0: np.ndarray, frame_size: int = 480,
-                      sample_rate: int = 24000) -> np.ndarray:
+                      sample_rate: int = 24000, phase0: np.ndarray | None = None) -> np.ndarray:
     """The phase of every sample, ``[B, F*frame_size]`` float64 cycles in
     [-0.5, 0.5], as kernels A and I compute it (`csrc/oscillator.cu::
     FramePhase`, `frame_q`, `base_harmonic`): the running sum of f0 / sr
@@ -49,7 +55,8 @@ def closed_form_phase(f0: np.ndarray, frame_size: int = 480,
     sample i is ``n (cur + s ((j0 + i + 1) / (2 frame) - 0.5))`` with
     ``n = i - j0 + 1``; a frame's offset is the sum of the earlier frames'
     totals, each wrapped mod 1 and held as a Q0.64 integer (sums mod 2^64,
-    exact)."""
+    exact), plus the row's seed ``phase0`` ``[B]`` (fp32 cycles) wrapped
+    the same way, as kernel A adds it."""
     f = np.asarray(f0, np.float64) * (1.0 / sample_rate)
     B, F = f.shape
     idx = np.arange(F)
@@ -66,11 +73,13 @@ def closed_form_phase(f0: np.ndarray, frame_size: int = 480,
     base1 = prefix(np.array([i0 - 1]), False, 0.0)
     i = np.arange(frame_size)
     phase = np.concatenate([prefix(i[:i0], False, 0.0), prefix(i[i0:], True, base1)], -1)
-    total = phase[..., -1]
-    wrapped = total - np.floor(total)
-    q = np.where(wrapped < 1.0, wrapped * 2.0**64, 0.0).astype(np.uint64)
+    q = _wrap_q(phase[..., -1])
     offsets = np.concatenate([np.zeros((B, 1), np.uint64), np.cumsum(q, axis=1,
                                                                      dtype=np.uint64)[:, :-1]], 1)
+    if phase0 is not None:
+        seed = _wrap_q(np.asarray(phase0, np.float32).astype(np.float64).reshape(B, 1))
+        with np.errstate(over="ignore"):
+            offsets = offsets + seed  # mod 2^64, as the kernel's integer add
     x = offsets.astype(np.float64)[..., None] * 2.0**-64 + phase
     return (x - np.rint(x)).reshape(B, F * frame_size)
 
@@ -94,11 +103,13 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
-def _base_harmonic(f0: torch.Tensor, frame_size: int, sample_rate: int):
+def _base_harmonic(f0: torch.Tensor, frame_size: int, sample_rate: int, phase0=None):
     """Each sample's sine and twice its cosine, fp32, as the kernels'
     `base_harmonic` takes them: the phase of :func:`closed_form_phase`
     rounded to fp32 once (as twice the centred phase)."""
-    turn = torch.from_numpy(2.0 * closed_form_phase(f0.numpy(), frame_size, sample_rate)).float()
+    seed = None if phase0 is None else phase0.numpy()
+    turn = torch.from_numpy(2.0 * closed_form_phase(f0.numpy(), frame_size, sample_rate,
+                                                    seed)).float()
     x = torch.pi * turn.double()
     return torch.sin(x).float(), 2.0 * torch.cos(x).float()
 
@@ -106,14 +117,15 @@ def _base_harmonic(f0: torch.Tensor, frame_size: int, sample_rate: int):
 def oscillator_bank_closed_form(
     f0: torch.Tensor, amps: torch.Tensor, frame_size: int = 480,
     sample_rate: int = 24000, min_frequency: float = 20.0,
+    phase0: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Kernel A's output by its own arithmetic, ``[B, H1, L]`` fp32: the
-    phase of :func:`closed_form_phase` rounded to fp32 once (as twice the
-    centred phase), its sine and twice its cosine, the harmonics by
-    ``sin((h+1)x) = 2 cos x sin(hx) - sin((h-1)x)`` in fp32, times the
-    interpolated voiced flag and amplitude."""
+    phase of :func:`closed_form_phase` (seeded by ``phase0``) rounded to
+    fp32 once (as twice the centred phase), its sine and twice its cosine,
+    the harmonics by ``sin((h+1)x) = 2 cos x sin(hx) - sin((h-1)x)`` in
+    fp32, times the interpolated voiced flag and amplitude."""
     H1 = amps.shape[-1]
-    sn, c2 = _base_harmonic(f0, frame_size, sample_rate)
+    sn, c2 = _base_harmonic(f0, frame_size, sample_rate, phase0)
     uv = _frame_interp((f0 > min_frequency).double()[..., None], frame_size)[..., 0]
     amp = _frame_interp(amps.double(), frame_size)
     out, cur, prev = [], sn, torch.zeros_like(sn)
@@ -191,11 +203,12 @@ def oscillator_amps_grad_closed_form(
 def oscillator_bank_plain(
     f0: torch.Tensor, amps: torch.Tensor, frame_size: int = 480,
     sample_rate: int = 24000, min_frequency: float = 20.0,
+    phase0: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version: ``oscillate_harmonics(f0) * interp(amps)``,
-    transposed to ``[B, H1, L]``."""
+    """Plain PyTorch version: ``oscillate_harmonics(f0, phase0=phase0) *
+    interp(amps)``, transposed to ``[B, H1, L]``."""
     H1 = amps.shape[-1]
-    harm = oscillate_harmonics(f0, frame_size, sample_rate, H1 - 1, min_frequency)
+    harm = oscillate_harmonics(f0, frame_size, sample_rate, H1 - 1, min_frequency, phase0)
     out = harm * upsample_frames_to_samples(amps.float(), frame_size)
     return out.transpose(1, 2).contiguous()
 
@@ -203,19 +216,27 @@ def oscillator_bank_plain(
 def oscillator_bank(
     f0: torch.Tensor, amps: torch.Tensor, frame_size: int = 480,
     sample_rate: int = 24000, min_frequency: float = 20.0,
+    phase0: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """f0 ``[B, F]``, amps ``[B, F, H1]`` -> ``[B, H1, F*frame_size]``.
-    CPU tensors take the plain version; CUDA tensors launch kernel A."""
-    if build.on_cpu(f0, amps):
-        return oscillator_bank_plain(f0, amps, frame_size, sample_rate, min_frequency)
+    """f0 ``[B, F]``, amps ``[B, F, H1]`` -> ``[B, H1, F*frame_size]``;
+    ``phase0`` ``[B]`` (fp32 cycles) seeds each row's phase, none starts
+    every row at 0. CPU tensors take the plain version; CUDA tensors launch
+    kernel A."""
+    tensors = (f0, amps) if phase0 is None else (f0, amps, phase0)
+    if build.on_cpu(*tensors):
+        return oscillator_bank_plain(f0, amps, frame_size, sample_rate, min_frequency, phase0)
     build.check_input("f0", f0, 2)
     build.check_input("amps", amps, 3)
     B, F = f0.shape
     H1 = amps.shape[-1]
     if amps.shape[:2] != (B, F):
         raise ValueError(f"amps {tuple(amps.shape)} does not match f0 {tuple(f0.shape)}")
+    if phase0 is not None:
+        build.check_input("phase0", phase0, 1)
+        if phase0.shape != (B,):
+            raise ValueError(f"phase0 {tuple(phase0.shape)} does not match f0 {tuple(f0.shape)}")
     out = torch.empty((B, H1, F * frame_size), device=f0.device, dtype=torch.float32)
-    build.launch("tvc_oscillator", f0, f0, amps, out,
+    build.launch("tvc_oscillator", f0, f0, amps, phase0, out,
                  B, F, H1, frame_size, float(sample_rate), float(min_frequency))
     oscillator_bank.launches += 1
     return out

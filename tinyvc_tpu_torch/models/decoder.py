@@ -185,6 +185,28 @@ class FilterNet(nn.Module):
         return self.output_layer(x)[:, 0, :]
 
 
+def fused_pack_width(n_src: int) -> int:
+    """Rows of the fused stem's packed input for ``n_src`` source rows: the
+    source, the energy row, and zero rows up to a multiple of 8
+    (`tinyvc_tpu/models/decoder.py:439-446`)."""
+    return n_src + 1 + (-(n_src + 1)) % 8
+
+
+def pack_source(harmonics: torch.Tensor, noise: torch.Tensor,
+                energy: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Harmonics ``[B, H+1, L]`` and noise ``[B, L]`` -> the source ``[B,
+    H+2, L]``; with ``energy`` ``[B, L]``, the energy row and zero rows up
+    to :func:`fused_pack_width` rows follow: the fused stem's input."""
+    parts = [harmonics, noise[:, None, :]]
+    if energy is not None:
+        B, n_src, L = harmonics.shape[0], harmonics.shape[1] + 1, harmonics.shape[2]
+        parts.append(energy[:, None, :].to(harmonics.dtype))
+        npad = fused_pack_width(n_src) - n_src - 1
+        if npad:
+            parts.append(harmonics.new_zeros((B, npad, L)))
+    return torch.cat(parts, dim=1)
+
+
 class Decoder(nn.Module):
     """SourceNet -> DSP -> FilterNet."""
 
@@ -194,30 +216,24 @@ class Decoder(nn.Module):
         self.source_net = SourceNet(cfg, audio)
         self.filter_net = FilterNet(cfg)
 
-    def dsp(self, f0: torch.Tensor, amps: torch.Tensor, kernel: torch.Tensor, seed: int,
-            noise_angle: Optional[torch.Tensor] = None,
-            pack_energy: Optional[torch.Tensor] = None, pack_width: int = 0) -> torch.Tensor:
-        """Harmonics times amplitudes (kernel A) and filtered noise (kernel
-        B), channels-first: source ``[B, H+2, L]``, fp32. The noise phases
-        are ``noise_angle`` when given, else hashed from ``seed``.
-
-        With ``pack_energy`` ``[B, L]``, the energy row and zero rows up to
-        ``pack_width`` rows follow: the fused stem's packed input
-        (`tinyvc_tpu/models/decoder.py:439-446`)."""
+    def dsp_parts(self, f0: torch.Tensor, amps: torch.Tensor, kernel: torch.Tensor, seed: int,
+                  noise_angle: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Harmonics times amplitudes (kernel A) ``[B, H+1, L]`` and
+        filtered noise (kernel B) ``[B, L]``, fp32. The noise phases are
+        ``noise_angle`` when given, else hashed from ``seed``."""
         a = self.audio
         harmonics = oscillator_bank(f0.contiguous(), amps.contiguous(), a.hop_size, a.sample_rate)
         noise = oscillate_noise_hashed(
             kernel.contiguous(), seed, a.hop_size, a.n_fft,
             angle=None if noise_angle is None else noise_angle.contiguous(),
         )
-        parts = [harmonics, noise[:, None, :]]
-        if pack_energy is not None:
-            B, L = pack_energy.shape
-            parts.append(pack_energy[:, None, :].to(harmonics.dtype))
-            npad = pack_width - (harmonics.shape[1] + 2)
-            if npad > 0:
-                parts.append(harmonics.new_zeros((B, npad, L)))
-        return torch.cat(parts, dim=1)
+        return harmonics, noise
+
+    def dsp(self, f0: torch.Tensor, amps: torch.Tensor, kernel: torch.Tensor, seed: int,
+            noise_angle: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """:meth:`dsp_parts` as the source ``[B, H+2, L]``, channels-first."""
+        return pack_source(*self.dsp_parts(f0, amps, kernel, seed, noise_angle))
 
     def dsp_train(self, f0: torch.Tensor, amps: torch.Tensor, kernel: torch.Tensor,
                   noise_angle: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,7 @@ return bf16 (`tinyvc_tpu/models/layers.py`, `flax/linen/linear.py`).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -127,19 +128,51 @@ class ChannelLayerNorm(nn.Module):
 
 class GRN(nn.Module):
     """Global response normalisation over the time axis of ``[B, T, C]``:
-    the statistic spans the whole utterance, padding included."""
+    the statistic spans the whole utterance, padding included.
 
-    def __init__(self, channels: int, eps: float = 1e-6, dtype: torch.dtype = torch.float32):
+    For chunked conversion (`parallel/time_shard.py`), where the batch rows
+    are overlapping time chunks of one utterance: ``time_halo`` frames at
+    each end of a row are left out of the statistic, and with
+    ``time_batch_reduce`` the statistic is summed over the rows, so every
+    chunk sees the utterance's (`tinyvc_tpu/models/layers.py::GRN`)."""
+
+    def __init__(self, channels: int, eps: float = 1e-6, dtype: torch.dtype = torch.float32,
+                 time_halo: int = 0, time_batch_reduce: bool = False):
         super().__init__()
         self.eps, self.dtype = eps, dtype
+        self.time_halo, self.time_batch_reduce = time_halo, time_batch_reduce
         self.gamma = nn.Parameter(torch.zeros(channels))
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()  # statistics in fp32
-        gx = torch.sqrt(torch.sum(x * x, dim=-2, keepdim=True))
+        h = self.time_halo
+        core = x[..., h:x.shape[-2] - h, :] if h > 0 else x
+        sq = torch.sum(core * core, dim=-2, keepdim=True)
+        if self.time_batch_reduce:
+            sq = torch.sum(sq, dim=0, keepdim=True)  # chunk rows -> the utterance
+        gx = torch.sqrt(sq)
         nx = gx / (gx.mean(dim=-1, keepdim=True) + self.eps)
         return (self.gamma * (x * nx) + self.beta + x).to(self.dtype)
+
+
+@contextlib.contextmanager
+def grn_time_chunks(module: nn.Module, time_halo: int, time_batch: bool):
+    """Every :class:`GRN` under ``module`` takes ``time_halo`` and
+    ``time_batch_reduce`` = ``time_batch`` for the duration, as if the module
+    had been built with them; the settings it was built with come back
+    afterwards. Lets one set of weights serve whole and chunked conversion.
+    The settings live on the modules: a call on them from another thread
+    meanwhile sees them too."""
+    grns = [m for m in module.modules() if isinstance(m, GRN)]
+    saved = [(m.time_halo, m.time_batch_reduce) for m in grns]
+    for m in grns:
+        m.time_halo, m.time_batch_reduce = time_halo, time_batch
+    try:
+        yield module
+    finally:
+        for m, (h, b) in zip(grns, saved):
+            m.time_halo, m.time_batch_reduce = h, b
 
 
 def exact_gelu(x: torch.Tensor) -> torch.Tensor:

@@ -46,7 +46,7 @@ from ..dsp.interp import downsample_time_int_t, upsample_time_int_t
 from ..kernels.filter_stage import (conv3, down_chain_vjp, downsample_chain, stem_conv_vjp,
                                     up_chain_vjp, upsample_chain)
 from ..kernels.resample import downsample_linear, downsample_vjp, upsample_linear, upsample_vjp
-from ..models.decoder import FilterNet, _log_f0_feature, compute_dtype
+from ..models.decoder import FilterNet, _log_f0_feature, compute_dtype, fused_pack_width
 from ..models.layers import Dense
 from ..utils.weights import FusedFilterWeights, pack_filter_net
 
@@ -86,10 +86,20 @@ def filternet_fused_apply(
     f0: torch.Tensor,
     energy: torch.Tensor,
     source_packed: torch.Tensor,
+    kernel_min_len: int = 0,
 ) -> torch.Tensor:
     """content ``[B, F, C]``, f0 ``[B, F]``, energy ``[B, L]`` and the packed
     source ``[B, pack_width, L]`` (harmonics, noise, energy, zero rows;
-    `models/decoder.py::Decoder.dsp`) -> waveform ``[B, L]``."""
+    `models/decoder.py::Decoder.dsp`) -> waveform ``[B, L]``.
+
+    ``kernel_min_len``: a Downsample or Upsample stage whose time axis is
+    shorter runs the layer-by-layer module's body instead of its chain
+    kernel (E or F), and a last stage so short its module and the separate
+    k=7 output conv; the resamples stay kernels C and D. Chunked conversion
+    passes 8192, as the JAX package's does (`tinyvc_tpu/parallel/
+    time_shard.py:473-481`, `fused_filternet.py:226-236,271-284`): the
+    modules replicate-pad each conv where the chains edge-replicate their
+    input, so this changes the result, not only the route."""
     B, pack_width, L = source_packed.shape
     if energy.shape != (B, L):
         raise ValueError(f"energy {tuple(energy.shape)} does not match the source {(B, L)}")
@@ -101,14 +111,22 @@ def filternet_fused_apply(
     x = x.transpose(1, 2).contiguous()
     src = conv3(source_packed.to(dt).contiguous(), *w.stem)
     skips = [src]
-    for wd, f in zip(w.down, reversed(factors[1:])):
-        src = downsample_chain(_resample(downsample_linear, src, f), *wd)
+    for i, (wd, f) in enumerate(zip(w.down, reversed(factors[1:]))):
+        z = _resample(downsample_linear, src, f)
+        if z.shape[2] < kernel_min_len:
+            src = getattr(net, f"down_{i + 1}").body(z).to(dt)
+        else:
+            src = downsample_chain(z, *wd)
         skips.append(src)
     n_up = len(factors)
     for i, (wu, f) in enumerate(zip(w.up, factors)):
         cond = skips[len(skips) - 1 - i]
         xu = _resample(upsample_linear, x, f)
-        if i == n_up - 1:
+        if cond.shape[2] < kernel_min_len:
+            x = getattr(net, f"up_{i}").body(xu, cond).to(dt)
+            if i == n_up - 1:
+                x = net.output_layer(x.float())
+        elif i == n_up - 1:
             wconv, bconv, wfilm, bfilm, w5c, b5c, bout = wu
             x = upsample_chain(xu, cond, wconv, bconv, wfilm, bfilm, w5c, b5c,
                                fold_k=w5c.shape[0], bout=bout)
@@ -146,7 +164,7 @@ def filternet_fused_train(
     channels = list(cfg.filter_channels)
 
     x = _dense(content, net.content_in, dt) + _dense(_log_f0_feature(f0), net.f0_in, dt)
-    npad = (-(n_src + 1)) % 8
+    npad = fused_pack_width(n_src) - n_src - 1
     src = torch.cat([source.to(dt), energy[:, None, :].to(dt), source.new_zeros((B, npad, L)).to(dt)],
                     dim=1)
     w = pack_filter_net(net, src.shape[1], grad=True)
