@@ -94,6 +94,22 @@ Phases, each timed; any failure exits non-zero:
    the conv-form MRD) and ``train/loop.py::train_decoder`` with the fused
    MRD in bf16 (M, N and O must launch), each with its warm post-join step
    time, peak memory and one profiled post-join step by kernel group.
+10. train_encoder: training from raw audio. A raw tree (the demo's three
+   utterances, `source_A.wav` tiled to 60 s, a 48 kHz stereo copy: 42
+   chunks) through `cli.preprocess` on the card and on the CPU (the chunks
+   byte-identical but the resampled file's, within one 16-bit step; the f0
+   labels within `tests/test_torch_f0.py`'s bounds, ``F0_*``; YIN timed on
+   64 chunks); `cli.precompute_teacher --backend mfcc`; one full-width
+   encoder step (B=16 x 2 s) card vs CPU from one state (``ENC_STEP_*``,
+   each bound the larger of a fixed one and twice the card's own spread);
+   the encoder's K=3 window and the decoder's K=2 window (the bf16
+   pre-join step) against their single steps on the same indices and keys,
+   the decoder's launches of A, C-F and I-L a step equal; the warm encoder
+   step's time, device time, idle share, kernels and peak memory, one step
+   a dispatch and in a window; then `cli.train_encoder` per step and with
+   ``--device-data -K 3``, `cli.train_decoder -encp <that directory>
+   --device-data -K 2` (four pre-join steps), `cli.extract_index` and
+   `cli.infer -encp <dir> -decp <dir>` on the demo: finite, its length.
 
 The last two lines are one JSON object of per-kernel numbers and the
 ``{"ok": true, "device": ...}`` result. ``python3 chip_smoke.py --profile
@@ -104,8 +120,9 @@ call to compare two commits' request latency on one card; ``--train-step
 [DIR]`` the pre-join step, ``--unet-stages [DIR]`` kernels E's and F's time
 per call, ``--osc-resample [DIR]`` kernels A's, I's and J's, ``--step-chaos
 [DIR]`` every fp32 step gate of both steps for every draw, ``--stream
-[DIR]`` the streaming phase, ``--chunked [DIR]`` the chunked phase. Needs CUDA
-and the rest of the repo; imports nothing of JAX or `tinyvc_tpu`.
+[DIR]`` the streaming phase, ``--chunked [DIR]`` the chunked phase,
+``--train-encoder [DIR]`` the train_encoder phase. Needs CUDA and the rest
+of the repo; imports nothing of JAX or `tinyvc_tpu`.
 """
 
 from __future__ import annotations
@@ -3772,6 +3789,385 @@ def phase_train_cli(card: str, fused_mrd: bool = False) -> dict:
     return launches16
 
 
+# The train_encoder phase: from raw audio to a converted file through the
+# port's own encoder checkpoint.
+F0_RTOL = 1e-4  # tests/test_torch_f0.py: voiced frames' f0, relative
+F0_FLIP_SHARE = 0.02  # tests/test_torch_f0.py: the share of frames that may differ
+PCM_STEP = 1.0 / 32768  # one 16-bit step as load_audio reads it
+ENC_STEP_LOSS_RTOL = 1e-4  # card vs CPU, STEP_LOSS_RTOL
+ENC_STEP_MEDIAN = 1e-5  # the median leaf's relative L2, card vs CPU, or twice the card's spread
+ENC_STEP_LEAF = 1e-3  # each leaf, or twice its own spread
+ENC_WINDOW_K = 3
+DEC_WINDOW_K = 2
+ENC_TIMED_STEPS = 10
+
+
+def _raw_tree(raw: str) -> None:
+    """The demo's three utterances, `source_A.wav` tiled to 60 s (as the
+    chunked phase builds it) and a 48 kHz stereo copy of it: 42 chunks of
+    2 s, two batches of 16 and a ragged rest."""
+    import numpy as np
+    import torch
+
+    from tinyvc_tpu_torch.dsp.resample import resample
+    from tinyvc_tpu_torch.utils.audio_io import save_wav
+
+    demo = os.path.join(ROOT, "demo", "two_speaker")
+    for name in ("source_A.wav", "target_rendition_B.wav", "converted_A_to_B.wav"):
+        shutil.copy(os.path.join(demo, name), raw)
+    save_wav(os.path.join(raw, "long_A.wav"), _long_wave())
+    wave = _load_demo(os.path.join(demo, "source_A.wav"))
+    w48 = resample(torch.from_numpy(wave[None]), 24000, 48000).numpy()[0]
+    save_wav(os.path.join(raw, "stereo48k_A.wav"), np.stack([w48, 0.5 * w48]), 48000)
+
+
+def _f0_mismatch(got, want) -> float:
+    """tests/test_torch_f0.py::f0_mismatch: the share of frames whose voicing
+    differs or whose f0 is off by more than ``F0_RTOL``."""
+    import numpy as np
+
+    vg, vw = got > 0, want > 0
+    off = np.abs(got - want) > F0_RTOL * np.abs(want)
+    return float(np.mean((vg != vw) | (vg & vw & off)))
+
+
+def _check_caches(card_cache: str, cpu_cache: str) -> int:
+    """The card's preprocess against the CPU's: chunk by chunk the same
+    bytes, but for the resampled file's (within one 16-bit step, where the
+    two devices' resamplers straddle a rounding); the f0 labels within the
+    CPU test's bounds. Returns the number of chunks."""
+    import numpy as np
+
+    from tinyvc_tpu_torch.utils.audio_io import load_audio
+
+    names = sorted(os.listdir(cpu_cache))
+    _check(sorted(os.listdir(card_cache)) == names, "the caches hold other files")
+    n = sum(name.endswith(".wav") for name in names)
+    stepped, worst_f0 = [], 0.0
+    for i in range(n):
+        a, b = (os.path.join(c, f"{i}.wav") for c in (card_cache, cpu_cache))
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            same = fa.read() == fb.read()
+        if not same:
+            d = np.abs(load_audio(a)[0] - load_audio(b)[0])
+            _check(d.max() <= PCM_STEP * 1.0001, f"chunk {i}: {d.max() / PCM_STEP:.1f} steps off")
+            stepped.append((i, int((d > 0).sum())))
+        share = _f0_mismatch(np.load(os.path.join(card_cache, f"{i}.f0.npy")),
+                             np.load(os.path.join(cpu_cache, f"{i}.f0.npy")))
+        worst_f0 = max(worst_f0, share)
+        _check(share <= F0_FLIP_SHARE, f"chunk {i}: {share:.3f} of its f0 frames differ")
+    print(f"  preprocess: {n} chunks, card vs CPU: {n - len(stepped)} byte-identical, "
+          f"{len(stepped)} one 16-bit step apart at (chunk, samples) {stepped}; f0 frames "
+          f"differing at most {worst_f0:.3f} of a chunk (bound {F0_FLIP_SHARE} at "
+          f"{F0_RTOL:g} relative)")
+    _check(len(stepped) <= 3, "more chunks differ than the resampled file's three")
+    return n
+
+
+def _cache_arrays(cache: str, n: int):
+    import numpy as np
+
+    from tinyvc_tpu_torch.data.dataset import Dataset
+
+    ds = Dataset(cache)
+    waves, f0s = zip(*(ds[i] for i in range(n)))
+    tf = np.stack([np.load(os.path.join(cache, f"{i}.teacher.npy")) for i in range(n)])
+    return np.stack(waves), np.stack(f0s), tf
+
+
+def _state_distance(a, b) -> float:
+    """The largest absolute difference of two modules' parameters."""
+    return max(float((p.detach() - q.detach()).abs().max())
+               for p, q in zip(a.parameters(), b.parameters()))
+
+
+def _encoder_step_gate(cfg, waves, f0s, tf, card: str) -> None:
+    """One full-width step (B=16, 2 s, the cache's teacher features) from
+    one state under `exact_fp32`, card against CPU: the losses within
+    ``ENC_STEP_LOSS_RTOL``, the gradient leaves' relative L2 distances,
+    median and each, within the larger of a fixed bound and twice the
+    card's own spread (the same step run twice on the card)."""
+    import torch
+
+    from tinyvc_tpu_torch.train import encoder_train as et
+    from tinyvc_tpu_torch.utils import prng
+
+    step = et.make_train_step(cfg, distill=True)
+    key = prng.split(prng.prng_key(SEED + 1))[1]
+    args = [torch.from_numpy(a[:cfg.train.batch_size]) for a in (waves, f0s, tf)]
+    cpu_state, card_state = et.init_state(cfg, SEED), et.init_state(cfg, SEED, "cuda")
+    card_args = [a.cuda() for a in args]
+    runs = [step.loss_and_grads(card_state, *card_args, key) for _ in range(2)]
+    t0 = time.perf_counter()
+    cpu = step.loss_and_grads(cpu_state, *args, key)
+    t_cpu = time.perf_counter() - t0
+    failed = []
+    for name in ("loss", "loss_f0", "loss_distill"):
+        got = float(runs[0][0] if name == "loss" else runs[0][1][name])
+        want = float(cpu[0] if name == "loss" else cpu[1][name])
+        print(f"  encoder step {name}: card {got:.7f}, CPU {want:.7f}, "
+              f"{abs(got - want) / abs(want):.2e} relative")
+        if abs(got - want) > ENC_STEP_LOSS_RTOL * abs(want):
+            failed.append(name)
+    dist = {k: _rel_l2(runs[0][2][k].cpu(), cpu[2][k]) for k in cpu[2]}
+    floor = {k: _rel_l2(runs[1][2][k].cpu(), runs[0][2][k].cpu()) for k in cpu[2]}
+    med, fmed = statistics.median(dist.values()), statistics.median(floor.values())
+    limit = max(ENC_STEP_MEDIAN, 2.0 * fmed)
+    print(f"  encoder step gradients, card vs CPU over {len(dist)} leaves: median {med:.3e} "
+          f"(limit {limit:.1e} = max({ENC_STEP_MEDIAN:g}, 2 x the card's spread {fmed:.3e})), "
+          f"largest {max(dist.values()):.3e}; CPU step {t_cpu:.1f} s")
+    for k, v in sorted(dist.items(), key=lambda kv: -kv[1])[:4]:
+        print(f"    {v:.3e} (spread {floor[k]:.3e}) {k}")
+    if med > limit:
+        failed.append("median leaf")
+    failed += [k for k, v in dist.items() if v > max(ENC_STEP_LEAF, 2.0 * floor[k])]
+    _check(not failed, f"encoder step, card vs CPU: {failed}")
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """torch's deterministic algorithms for the duration (cuDNN's among
+    them; an op without a deterministic form warns): two runs of one
+    computation then give the same bits."""
+    import torch
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def _window_against_singles(label: str, fresh, module, singles, window):
+    """A K-step window against K single steps on the same indices and keys,
+    from ``fresh()`` states: under deterministic algorithms the parameters
+    (``module(state)``) must be equal; with the defaults, where some
+    backward kernels sum by atomics, the window must lie within twice the
+    distance between two runs of the single steps (two draws of one
+    distribution's largest element). ``singles(state)`` and
+    ``window(state)`` return the metrics; the launches of the kernels'
+    rows a step must be the same both ways. Returns them."""
+    with _deterministic():
+        a, b = fresh(), fresh()
+        singles(a)
+        window(b)
+        exact = _state_distance(module(a), module(b))
+    runs = []
+    for run in (singles, singles, window):
+        st = fresh()
+        with _launch_counts() as counts:
+            metrics = run(st)
+        runs.append((st, metrics, _row_launches(counts, TRAIN_KERNELS)))
+    spread = _state_distance(module(runs[0][0]), module(runs[1][0]))
+    dist = _state_distance(module(runs[2][0]), module(runs[0][0]))
+    print(f"  {label} vs its single steps: parameters {exact:.3e} apart under deterministic "
+          f"algorithms; by default {dist:.3e} apart (two single runs: {spread:.3e})")
+    _check(exact == 0.0, f"{label}: the window departs from its single steps")
+    _check(dist <= 2.0 * spread, f"{label}: the window departs from its single steps")
+    _check(runs[2][2] == runs[0][2] == runs[1][2],
+           f"{label}: launches, window {runs[2][2]}, singles {runs[0][2]}")
+    return runs[2][1], runs[2][2]
+
+
+def _encoder_window(cfg, store, card: str) -> None:
+    """`make_encoder_multi_step` at K=3 against three single steps
+    (`_window_against_singles`), with the time of a warm step each way."""
+    import numpy as np
+    import torch
+
+    from tinyvc_tpu_torch.train import encoder_train as et
+    from tinyvc_tpu_torch.train import loop, multi_step
+    from tinyvc_tpu_torch.utils import prng
+
+    rng = np.random.default_rng(SEED + loop.MULTI_STEP_SEED)
+    idx, keys, _ = loop._window(rng, store["n"], cfg.train.batch_size, ENC_WINDOW_K,
+                                prng.prng_key(SEED + 1), "cuda")
+    step = et.make_train_step(cfg, distill=True)
+    multi = multi_step.make_encoder_multi_step(cfg, True)
+    data = (store["wave"], store["f0"], store["teacher"])
+
+    def singles(st):
+        return [step(st, *(x[i] for x in data), k) for i, k in zip(idx, keys)][-1]
+
+    def window(st):
+        return multi(st, *data, idx, keys)
+
+    metrics, _ = _window_against_singles(f"encoder window K={ENC_WINDOW_K}",
+                                         lambda: et.init_state(cfg, SEED, "cuda"),
+                                         lambda st: st.encoder, singles, window)
+    _check(all(torch.isfinite(v) for v in metrics.values()), "the window's losses")
+
+    # a warm step's time: one a dispatch, and a window's per step
+    st = et.init_state(cfg, SEED, "cuda")
+    for label, fn, per in (("one step a dispatch",
+                            lambda: step(st, *(x[idx[0]] for x in data), keys[0]), 1),
+                           (f"K={ENC_WINDOW_K} window", lambda: window(st), ENC_WINDOW_K)):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(ENC_TIMED_STEPS // per + 1):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / per)
+        peak = torch.cuda.max_memory_allocated()
+        kernels, _ = _profile_call(fn)
+        med = statistics.median(times)
+        launched = sum(v[1] for v in kernels.values()) / per
+        print(f"  encoder step warm ({label}): {med:.3f} ms a step, median of {len(times)} "
+              f"(min {min(times):.3f}, max {max(times):.3f}); B={cfg.train.batch_size} x 2 s, "
+              f"{launched:.0f} kernels a step, peak memory {peak / 2**30:.3f} GiB ({card})")
+        _print_breakdown(f"encoder {label}", kernels, med * per)
+
+
+def _decoder_window(cfg, store, card: str) -> None:
+    """`make_decoder_multi_step` at K=2 on the bf16 pre-join step (the
+    two-speaker weights) against two single steps
+    (`_window_against_singles`): kernels A, C-F and I-L launch, as many
+    times a step both ways."""
+    import numpy as np
+
+    from tinyvc_tpu_torch.train import decoder_train as dt
+    from tinyvc_tpu_torch.train import loop, multi_step
+    from tinyvc_tpu_torch.utils import prng
+    from tinyvc_tpu_torch.utils.weights import load_npz, train_state_from_jax
+
+    models = os.path.join(ROOT, "models", "two_speaker")
+    enc = loop.load_encoder(os.path.join(models, "encoder_B.npz"), cfg, SEED, "cuda")
+    init = load_npz(os.path.join(models, "decoder_B.npz"))
+    rng = np.random.default_rng(SEED + loop.MULTI_STEP_SEED)
+    idx, keys, _ = loop._window(rng, store["n"], cfg.train.batch_size, DEC_WINDOW_K,
+                                prng.prng_key(SEED + 2), "cuda")
+    step = dt.make_train_step(cfg, d_join=False)
+    multi = multi_step.make_decoder_multi_step(cfg, False)
+
+    def singles(st):
+        return [step(st, enc, store["wave"][i], k) for i, k in zip(idx, keys)][-1]
+
+    metrics, launches = _window_against_singles(
+        f"decoder window K={DEC_WINDOW_K} (bf16 pre-join)",
+        lambda: train_state_from_jax(init, cfg.decoder, cfg.audio, "cuda"),
+        lambda st: st.decoder, singles, lambda st: multi(st, enc, store["wave"], idx, keys))
+    print(f"  decoder window: skipped {metrics['skipped_g']}; wrapper calls a step "
+          f"{({k: v / DEC_WINDOW_K for k, v in launches.items()})}")
+    _check(all(v > 0 for v in launches.values()), f"a kernel did not launch: {launches}")
+
+
+def _train_encoder_clis(card: str, cache: str, tmp: str) -> None:
+    """`cli.train_encoder` at `TrainConfig()` (B=16) per step (logged every
+    step) and with ``--device-data -K 3``; `cli.train_decoder -encp <the
+    -K run's checkpoint directory> --device-data -K 2` for four pre-join
+    steps (kernels A, C-F and I-L must launch); `cli.extract_index` and
+    `cli.infer` with both directories on `source_A.wav`: finite, and as
+    long as the input."""
+    import numpy as np
+
+    from tinyvc_tpu_torch.cli import extract_index, infer
+    from tinyvc_tpu_torch.cli import train_decoder as dec_cli
+    from tinyvc_tpu_torch.cli import train_encoder as enc_cli
+    from tinyvc_tpu_torch.utils.audio_io import load_audio
+    from tinyvc_tpu_torch.utils.checkpoint import CheckpointManager
+
+    def logged(log_dir, tags):
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(x) for x in f]
+        _check(all(np.isfinite(r[t]) for r in rows for t in tags), f"{log_dir}: a loss is not finite")
+        return [r["step"] for r in rows], [[round(r[t], 4) for t in tags] for r in rows]
+
+    enc_tags = ("loss/Pitch Estimation", "loss/Distillation")
+    runs = {"per step": (["-e", "2", "--log-interval", "1", "--save-interval", "4"], [1, 2, 3, 4]),
+            f"-K {ENC_WINDOW_K}": (["-e", "3", "--device-data", "-K", str(ENC_WINDOW_K),
+                                    "--log-interval", "3", "--save-interval", "6"], [3, 6])}
+    for label, (extra, want) in runs.items():
+        ckpt, logs = os.path.join(tmp, f"enc {label}"), os.path.join(tmp, f"enc logs {label}")
+        os.environ["TINYVC_NO_NATIVE_LOADER"] = "1"  # the cached teacher needs the indices
+        t0 = time.perf_counter()
+        try:
+            enc_cli.main(["--dataset-cache", cache, "-path", ckpt, "--log-dir", logs, *extra])
+        finally:
+            del os.environ["TINYVC_NO_NATIVE_LOADER"]
+        steps, losses = logged(logs, enc_tags)
+        print(f"  cli.train_encoder {label}: {time.perf_counter() - t0:.1f} s, logged steps "
+              f"{steps}, (f0, distill) {losses}")
+        _check(steps == want and CheckpointManager(ckpt).steps() == [want[-1]],
+               f"train_encoder {label}: steps {steps}")
+    enc_dir = os.path.join(tmp, f"enc -K {ENC_WINDOW_K}")
+    dec_dir, logs = os.path.join(tmp, "dec"), os.path.join(tmp, "dec logs")
+    t0 = time.perf_counter()
+    with _launch_counts() as counts:
+        dec_cli.main(["--dataset-cache", cache, "-encp", enc_dir, "-decp", dec_dir, "--log-dir",
+                      logs, "-step", "4", "--device-data", "-K", str(DEC_WINDOW_K),
+                      "--log-interval", "2", "--save-interval", "4"])
+    launches = _row_launches(counts, TRAIN_KERNELS)
+    steps, losses = logged(logs, ("loss/Spectrogram", "loss/DSP"))
+    print(f"  cli.train_decoder -encp <encoder dir> --device-data -K {DEC_WINDOW_K}: "
+          f"{time.perf_counter() - t0:.1f} s, logged steps {steps}, (spec, dsp) {losses}, "
+          f"launches {launches}")
+    _check(steps == [2, 4] and CheckpointManager(dec_dir).steps() == [4], "train_decoder steps")
+    _check(all(n > 0 for n in launches.values()), f"a kernel did not launch: {launches}")
+    index = os.path.join(tmp, "index.npy")
+    extract_index.main(["--dataset-cache", cache, "-encp", enc_dir, "-o", index])
+    inputs, outputs = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+    os.makedirs(inputs)
+    shutil.copy(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"), inputs)
+    infer.main(["-i", inputs, "-o", outputs, "-encp", enc_dir, "-decp", dec_dir, "-idx", index])
+    src = load_audio(os.path.join(inputs, "source_A.wav"))[0]
+    out = load_audio(os.path.join(outputs, "source_A.wav"))[0]
+    print(f"  cli.infer with the trained directories: {out.shape[-1]} samples (input "
+          f"{src.shape[-1]}), peak {np.abs(out).max():.4f}, index {np.load(index).shape}")
+    _check(out.shape == src.shape and np.isfinite(out).all(), "the converted file")
+
+
+def phase_train_encoder(card: str) -> None:
+    """Training from raw audio: `cli.preprocess` on the card and on the CPU
+    (the caches compared, YIN timed), `cli.precompute_teacher --backend
+    mfcc`, one full-width encoder step card vs CPU, the K-step windows of
+    both trainers against their single steps, then the CLIs from the cache
+    to a converted file."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tinyvc_tpu_torch.cli import precompute_teacher, preprocess
+    from tinyvc_tpu_torch.config import TinyVCConfig
+    from tinyvc_tpu_torch.dsp.f0 import yin
+
+    with tempfile.TemporaryDirectory() as tmp:
+        raw, cache, cpu_cache = (os.path.join(tmp, d) for d in ("raw", "cache", "cpu"))
+        os.makedirs(raw)
+        _raw_tree(raw)
+        t0 = time.perf_counter()
+        preprocess.main([raw, "-o", cache])
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        preprocess.main([raw, "-o", cpu_cache, "--device", "cpu"])
+        print(f"  cli.preprocess: card {t_card:.2f} s, CPU {time.perf_counter() - t0:.2f} s")
+        n = _check_caches(cache, cpu_cache)
+        _check(n >= 32, f"{n} chunks: fewer than two batches of 16")
+        t0 = time.perf_counter()
+        precompute_teacher.main(["--dataset-cache", cache, "--backend", "mfcc"])
+        print(f"  cli.precompute_teacher --backend mfcc: {time.perf_counter() - t0:.2f} s")
+        waves, f0s, tf = _cache_arrays(cache, n)
+        batch = torch.from_numpy(np.resize(waves, (64, waves.shape[1]))).cuda()
+        ms, dev_ms = _cuda_ms(lambda: yin(batch)), _device_ms(lambda: yin(batch), calls=5)
+        print(f"  YIN on 64 chunks of 2 s: {ms:.3f} ms event-timed, {dev_ms:.3f} ms of device "
+              f"time ({card})")
+
+        cfg = TinyVCConfig()
+        _encoder_step_gate(cfg, waves, f0s, tf, card)
+        store = {"wave": torch.from_numpy(waves).cuda(), "f0": torch.from_numpy(f0s).cuda(),
+                 "teacher": torch.from_numpy(tf).cuda(), "n": n}
+        _encoder_window(cfg, store, card)
+        _decoder_window(cfg, store, card)
+        del store
+        _train_encoder_clis(card, cache, tmp)
+
+
 def _profile_call(fn):
     """(device time by kernel name {name: [ms, count]}, fn's result) of one
     call under torch.profiler."""
@@ -3936,13 +4332,14 @@ def main(argv=None) -> int:
     (`phase_step_chaos`), of the port in DIR. ``--stream [DIR]``: env, build
     and the streaming phase (`phase_stream`), of the port in DIR.
     ``--chunked [DIR]``: env, build and the chunked phase (`phase_chunked`),
-    of the port in DIR."""
+    of the port in DIR. ``--train-encoder [DIR]``: env, build and the
+    train_encoder phase (`phase_train_encoder`), of the port in DIR."""
     global ROOT
     args = sys.argv[1:] if argv is None else argv
     modes = {"--profile": phase_profile_only, "--train-step": phase_train_step,
              "--unet-stages": phase_unet_stages, "--osc-resample": phase_osc_resample,
              "--step-chaos": phase_step_chaos, "--stream": phase_stream,
-             "--chunked": phase_chunked}
+             "--chunked": phase_chunked, "--train-encoder": phase_train_encoder}
     mode = modes.get(args[0]) if args else None
     if mode is not None and len(args) > 1:
         ROOT = os.path.abspath(args[1])
@@ -3950,6 +4347,10 @@ def main(argv=None) -> int:
         print("chip_smoke.py needs the repository around it (tinyvc_tpu_torch/)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    # nothing here downloads: a WavLM teacher, were transformers installed,
+    # fails at once instead of reaching for the network
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
     import torch
 
     if not torch.cuda.is_available():
@@ -4004,6 +4405,9 @@ def main(argv=None) -> int:
         launches[name] = join_launches[name]
         launches[name + "_bf16"] = fused_launches[name + "_bf16"]
     _done("post-join", t0)
+    t0 = _phase("train_encoder")
+    phase_train_encoder(card)
+    _done("train_encoder", t0)
     print(f"== total: {time.perf_counter() - t_all:.2f} s")
 
     rows = []

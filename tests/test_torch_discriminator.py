@@ -181,3 +181,37 @@ def test_init_draws_flax_distributions():
     want = {".".join(getattr(k, "key", "") for k in path[1:]): tuple(leaf.shape)
             for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]}
     assert {n: tuple(p.shape) for n, p in disc.named_parameters()} == want
+
+
+def test_reference_state_dict_imports_as_jax_does(rng):
+    """A state dict in the reference's weight-norm layout (``parametrizations.
+    weight.original0`` g ``[out, 1, 1, 1]``, ``original1`` v ``[out, in, kh,
+    kw]``) built from a random tree: the port's `torch_compat_disc` and JAX's
+    ``discriminator_params_from_torch`` carried over by
+    ``discriminator_from_jax`` give the same parameters and equal outputs."""
+    from tinyvc_tpu.utils.torch_compat_disc import discriminator_params_from_torch
+    from tinyvc_tpu_torch.utils.torch_compat_disc import discriminator_from_torch
+
+    jc, pc = jcfg.DiscriminatorConfig(**SMALL), pcfg.DiscriminatorConfig(**SMALL)
+    tree = random_params(JaxDiscriminator(jc), jnp.zeros((1, T)))["params"]
+    sd = {}
+    for kind, names, key in (("MPD", jc.periods, "mpd"), ("MRD", jc.resolutions, "mrd")):
+        for i, name in enumerate(names):
+            for conv, leaf in tree[f"{key}_{name}"].items():
+                prefix = f"{kind}.sub_discs.{i}." + ("post" if conv == "post" else
+                                                     f"convs.{conv.split('_')[1]}")
+                sd[f"{prefix}.parametrizations.weight.original0"] = torch.from_numpy(
+                    np.array(leaf["g"]).reshape(-1, 1, 1, 1))
+                sd[f"{prefix}.parametrizations.weight.original1"] = torch.from_numpy(
+                    np.transpose(np.asarray(leaf["v"]), (3, 2, 0, 1)).copy())
+                sd[f"{prefix}.bias"] = torch.from_numpy(np.array(leaf["bias"]))
+    port = discriminator_from_torch(sd, pc)
+    via_jax = discriminator_from_jax(
+        discriminator_params_from_torch(sd, jc.periods, jc.resolutions, jc.num_layers), pc)
+    for (n, p), q in zip(port.named_parameters(), via_jax.parameters()):
+        assert torch.equal(p, q), n
+    x = torch.from_numpy(_wave(rng))
+    with torch.no_grad():
+        (la, fa), (lb, fb) = port(x), via_jax(x)
+    assert all(torch.equal(a, b) for a, b in zip(la + fa, lb + fb))
+    assert torch.equal(port(x)[0][0], discriminator_from_jax({"params": tree}, pc)(x)[0][0])

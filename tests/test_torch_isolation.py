@@ -43,6 +43,10 @@ STREAMING_MODULES = {"tinyvc_tpu_torch.dsp.resample", "tinyvc_tpu_torch.utils.to
                      "tinyvc_tpu_torch.cli.infer_streaming"}
 CHUNKED_MODULES = {"tinyvc_tpu_torch.parallel", "tinyvc_tpu_torch.parallel.time_shard",
                    "tinyvc_tpu_torch.infer.index", "tinyvc_tpu_torch.cli.extract_index"}
+TRAINING_MODULES = {f"tinyvc_tpu_torch.{m}" for m in (
+    "dsp.f0", "data.noise", "data.preprocess", "data.native_loader", "train.encoder_train",
+    "train.teacher", "train.multi_step", "utils.torch_compat_disc", "cli.preprocess",
+    "cli.precompute_teacher", "cli.train_encoder")}
 
 
 def test_port_imports_nothing_of_jax():
@@ -53,6 +57,38 @@ def test_port_imports_nothing_of_jax():
     assert int(count) >= 56  # every module was imported
     assert STREAMING_MODULES <= set(names.split())
     assert CHUNKED_MODULES <= set(names.split())
+    assert TRAINING_MODULES <= set(names.split())
+
+
+NATIVE_PROBE = textwrap.dedent("""
+    import sys
+    sys.path.insert(0, {root!r})
+    from tinyvc_tpu_torch.data import native_loader
+    from tinyvc_tpu_torch.utils.audio_io import load_audio
+    load_audio({wav!r})
+    lib = native_loader.load_library()
+    maps = [ln.split()[-1] for ln in open("/proc/self/maps") if "libtinyvc_audio" in ln]
+    print(lib is not None, sorted(set(maps)))
+""")
+
+
+def test_native_library_is_the_ports_own_build():
+    """The port builds and loads its own copy of the audio library under
+    ``tinyvc_tpu_torch/kernels/_build/`` and never the JAX package's
+    ``native/libtinyvc_audio.so``, in the file or in the process."""
+    wav = os.path.join(ROOT, "demo", "two_speaker", "source_A.wav")
+    proc = subprocess.run([sys.executable, "-c", NATIVE_PROBE.format(root=ROOT, wav=wav)],
+                          capture_output=True, text=True, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    built, maps = proc.stdout.strip().split(" ", 1)
+    if built == "True":
+        assert maps != "[]" and os.path.join(ROOT, "native") not in maps
+        assert os.path.join(ROOT, "tinyvc_tpu_torch", "kernels", "_build") in maps
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "tinyvc_tpu_torch")):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(dirpath, name)) as f:
+                    assert "native/libtinyvc_audio" not in f.read(), name
 
 
 def test_default_device_is_cuda_and_raises_without_it():

@@ -4,8 +4,11 @@ the batch order against the JAX package's loader, the checkpoint round
 trip (with and without a discriminator), three steps through ``python -m
 tinyvc_tpu_torch.cli.train_decoder --device cpu`` at the shipped widths
 across the discriminator's join, logging, saving, resuming with both
-networks' moments restored, and the refusals (no CUDA by default, the flags
-of later slices)."""
+networks' moments restored; and the refusals (no CUDA by default, the
+flags of later slices). The CLI's runs take the Python loader
+(``TINYVC_NO_NATIVE_LOADER``): the native one pads every 0.4 s chunk to the
+config's 2 s, as the JAX package's does. `tests/test_torch_train_device_data.py`
+runs the device-resident cache."""
 
 import json
 import os
@@ -125,10 +128,11 @@ def test_checkpoint_without_a_discriminator_restores(tmp_path, capsys):
 def _run(args, cwd):
     return subprocess.run([sys.executable, "-m", "tinyvc_tpu_torch.cli.train_decoder", *args],
                           capture_output=True, text=True, cwd=cwd, timeout=600,
-                          env={**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "2"})
+                          env={**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "2",
+                               "TINYVC_NO_NATIVE_LOADER": "1"})
 
 
-def test_cli_trains_logs_saves_and_resumes_across_the_join(cache, tmp_path):
+def test_cli_trains_logs_saves_and_resumes_across_the_join(cache, tmp_path, monkeypatch):
     """``-d-join 2 -step 3``: steps 1 and 2 pre-join, step 3 post-join with
     the shipped discriminator; then one more post-join step resumed in
     process from the checkpoint of step 3, both networks' moments and
@@ -164,6 +168,7 @@ def test_cli_trains_logs_saves_and_resumes_across_the_join(cache, tmp_path):
     CheckpointManager(str(ckpt)).restore(st)
     assert st.step == 3 and st.gen_opt.count == 3 and st.disc_opt.count == 1
     assert any(float(t.abs().max()) > 0 for t in st.disc_opt.nu.values())
+    monkeypatch.setenv("TINYVC_NO_NATIVE_LOADER", "1")
     cli.main(args + ["-step", "4", "--device", "cpu"])
     assert CheckpointManager(str(ckpt)).steps()[-1] == 4
     resumed = torch.load(ckpt / "4" / "state.pt", weights_only=False)
@@ -181,8 +186,8 @@ def test_cli_needs_cuda_unless_cpu_is_asked_for(cache, tmp_path):
     assert "CUDA is not available" in proc.stderr
 
 
-@pytest.mark.parametrize("flag", [["--remat"], ["--device-data"], ["-K", "4"],
-                                  ["--num-processes", "2"]])
+@pytest.mark.parametrize("flag", [["--remat"], ["--coordinator-address", "localhost:1"],
+                                  ["--num-processes", "2"], ["--process-id", "0"]])
 def test_cli_refuses_later_slices_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(["--device", "cpu", *flag])

@@ -5,16 +5,18 @@ at ``-d-join`` (counterpart of `tinyvc_tpu/cli/train_decoder.py`).
         -encp models/two_speaker/encoder_B.npz -decp models/decoder \\
         --init-decoder models/two_speaker/decoder_B.npz
 
-The cache is the JAX package's (``{i}.wav`` at 24 kHz, ``{i}.f0.npy``);
-``-encp`` a params-only ``.npz``; ``-decp`` the checkpoint directory,
+The cache is `cli/preprocess.py`'s (``{i}.wav`` at 24 kHz, ``{i}.f0.npy``);
+``-encp`` a params-only ``.npz``, a reference ``.pt`` or the checkpoint
+directory of `cli/train_encoder.py`; ``-decp`` the checkpoint directory,
 resumed when it holds a checkpoint; ``--init-decoder`` an ``.npz`` to start
 from instead of a random init. The discriminator is drawn at random, or
 resumed from the checkpoint; its MRD runs the default
 ``mrd_conv_impl="lax"`` (the JAX CLI has no flag for it either).
-``--device cuda`` (the default) fails when
-CUDA is absent; ``--device cpu`` runs the kernels' plain versions. The
-flags of later slices are refused: ``--remat``, ``--device-data``, ``-K``
-and the multi-host ones.
+``--device-data`` holds the cache on the device, ``-K`` runs K steps a
+window on it (0: the log interval), with K dividing the join. ``--device
+cuda`` (the default) fails when CUDA is absent; ``--device cpu`` runs the
+kernels' plain versions. The flags of later slices are refused:
+``--remat`` and the multi-host ones.
 """
 
 from __future__ import annotations
@@ -24,8 +26,6 @@ import dataclasses
 
 REFUSED = {
     "remat": "--remat (recomputing the U-Net in the backward) is not ported yet",
-    "device_data": "--device-data (the cache held on the device) is not ported yet",
-    "steps_per_dispatch": "-K (several steps per dispatch) is not ported yet",
     "coordinator_address": "multi-host training is not ported yet",
     "num_processes": "multi-host training is not ported yet",
     "process_id": "multi-host training is not ported yet",
@@ -36,7 +36,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="train the DDSP vocoder (PyTorch/CUDA)")
     p.add_argument("--dataset-cache", default="dataset_cache")
     p.add_argument("-encp", "--encoder-path", default=None,
-                   help="params-only .npz of the frozen encoder (default: random)")
+                   help="the frozen encoder: a params-only .npz, a reference .pt or an "
+                   "encoder checkpoint directory (default: random)")
     p.add_argument("-decp", "--decoder-path", default="models/decoder",
                    help="checkpoint directory")
     p.add_argument("--init-decoder", default=None,
@@ -55,14 +56,17 @@ def main(argv=None):
     p.add_argument("--weight-feat", default=2.0, type=float)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--remat", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--device-data", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("-K", "--steps-per-dispatch", default=None, type=int, help=argparse.SUPPRESS)
+    p.add_argument("--device-data", action="store_true",
+                   help="upload the whole chunk cache to the device once and gather batches "
+                   "there")
+    p.add_argument("-K", "--steps-per-dispatch", default=0, type=int,
+                   help="with --device-data: K steps per window (0 = auto; 1 = one at a time)")
     p.add_argument("--coordinator-address", default=None, help=argparse.SUPPRESS)
     p.add_argument("--num-processes", default=None, type=int, help=argparse.SUPPRESS)
     p.add_argument("--process-id", default=None, type=int, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     for flag, why in REFUSED.items():
-        if getattr(args, flag) not in (None, False):
+        if getattr(args, flag) is not None and getattr(args, flag) is not False:
             p.error(f"{why} (ROADMAP.md)")
 
     from ..config import TinyVCConfig
@@ -85,7 +89,8 @@ def main(argv=None):
     train_decoder(cfg, dataset_dir=args.dataset_cache, encoder_path=args.encoder_path,
                   ckpt_dir=args.decoder_path, log_dir=args.log_dir,
                   spec_loss_type=args.spec_type, device=args.device,
-                  init_decoder=args.init_decoder)
+                  init_decoder=args.init_decoder, device_data=args.device_data,
+                  steps_per_dispatch=args.steps_per_dispatch)
 
 
 if __name__ == "__main__":

@@ -14,19 +14,35 @@ import numpy as np
 import torch
 
 
+def _source_coords(in_len: int, out_len: int, device):
+    """(left index, right index, fraction) of each output sample."""
+    scale = in_len / out_len
+    i = torch.arange(out_len, dtype=torch.float32, device=device)
+    src = ((i + 0.5) * scale - 0.5).clamp(0.0, float(in_len - 1))
+    idx0 = torch.floor(src)
+    frac = src - idx0
+    idx0 = idx0.long()
+    return idx0, (idx0 + 1).clamp_max(in_len - 1), frac
+
+
 def linear_interp_last(x: torch.Tensor, out_len: int) -> torch.Tensor:
     """Resample the last axis of ``x`` to ``out_len`` samples."""
     in_len = x.shape[-1]
     if in_len == out_len:
         return x
-    scale = in_len / out_len
-    i = torch.arange(out_len, dtype=torch.float32, device=x.device)
-    src = ((i + 0.5) * scale - 0.5).clamp(0.0, float(in_len - 1))
-    idx0 = torch.floor(src)
-    frac = (src - idx0).to(x.dtype)
-    idx0 = idx0.long()
-    idx1 = (idx0 + 1).clamp_max(in_len - 1)
+    idx0, idx1, frac = _source_coords(in_len, out_len, x.device)
+    frac = frac.to(x.dtype)
     return x[..., idx0] * (1.0 - frac) + x[..., idx1] * frac
+
+
+def linear_interp_time(x: torch.Tensor, out_len: int) -> torch.Tensor:
+    """Resample axis -2 (time in ``[B, T, C]``) to ``out_len`` samples."""
+    in_len = x.shape[-2]
+    if in_len == out_len:
+        return x
+    idx0, idx1, frac = _source_coords(in_len, out_len, x.device)
+    frac = frac.to(x.dtype)[:, None]
+    return x[..., idx0, :] * (1.0 - frac) + x[..., idx1, :] * frac
 
 
 def upsample_frames_to_samples(x: torch.Tensor, frame_size: int) -> torch.Tensor:

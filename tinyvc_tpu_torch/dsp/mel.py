@@ -24,11 +24,15 @@ def _mel_to_hz(m):
 
 
 @functools.lru_cache(maxsize=None)
-def mel_filterbank(sample_rate: int = 24000, n_fft: int = 1024, n_mels: int = 80) -> np.ndarray:
-    """Triangular HTK filterbank ``[n_fft//2+1, n_mels]``."""
+def mel_filterbank(sample_rate: int = 24000, n_fft: int = 1024, n_mels: int = 80,
+                   f_min: float = 0.0, f_max: float | None = None) -> np.ndarray:
+    """Triangular HTK filterbank ``[n_fft//2+1, n_mels]`` from ``f_min`` to
+    ``f_max`` (default: Nyquist)."""
+    if f_max is None:
+        f_max = sample_rate / 2.0
     n_bins = n_fft // 2 + 1
     all_freqs = np.linspace(0.0, sample_rate // 2, n_bins)
-    f_pts = _mel_to_hz(np.linspace(_hz_to_mel(0.0), _hz_to_mel(sample_rate / 2.0), n_mels + 2))
+    f_pts = _mel_to_hz(np.linspace(_hz_to_mel(f_min), _hz_to_mel(f_max), n_mels + 2))
     f_diff = f_pts[1:] - f_pts[:-1]
     slopes = f_pts[None, :] - all_freqs[:, None]
     down = -slopes[:, :-2] / f_diff[:-1]

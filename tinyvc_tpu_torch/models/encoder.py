@@ -12,6 +12,15 @@ from ..ops.retrieval import top_k_small
 from .layers import ConvNeXtStack
 
 
+def freq2id(f: torch.Tensor, num_classes: int = 512, classes_per_octave: int = 48,
+            min_frequency: float = 20.0) -> torch.Tensor:
+    """Hz -> log-spaced pitch class ids, ``ceil(clamp(cpo * log2(f / fmin),
+    0, nc - 1))`` as int64; f0 = 0 (unvoiced) gives ``log2(0) = -inf``,
+    clamped to class 0."""
+    x = classes_per_octave * torch.log2(f / min_frequency)
+    return torch.ceil(x.clamp(0.0, num_classes - 1)).long()
+
+
 def id2freq(ids: torch.Tensor, classes_per_octave: int = 48, min_frequency: float = 20.0) -> torch.Tensor:
     """Pitch class ids -> Hz; frequencies <= fmin map to 0."""
     f = min_frequency * torch.pow(2.0, ids.float() / classes_per_octave)

@@ -148,29 +148,37 @@ def _global_norm(grads) -> torch.Tensor:
 
 
 def apply_update(opt: OptState, module: torch.nn.Module, grads: Dict[str, torch.Tensor],
-                 cfg: TinyVCConfig) -> bool:
-    """The optimizer step on ``module``'s parameters and ``opt`` in place;
-    False (and the skip counted) when the gradients' global norm is not
-    finite. The generator and the discriminator each take it with their own
-    state (`tinyvc_tpu/train/decoder_train.py:97-110`: one transform, two
-    instances)."""
+                 cfg: TinyVCConfig, betas: Optional[Tuple[float, float]] = None,
+                 skip_nonfinite: bool = True) -> bool:
+    """The optimizer step on ``module``'s parameters and ``opt`` in place:
+    ``clip_by_global_norm(cfg.train.grad_clip)``, then AdamW at
+    ``cfg.train.learning_rate`` with ``betas`` (default the GAN's
+    ``adam_betas_gan``). With ``skip_nonfinite`` (optax's
+    ``skip_if_nonfinite``), a step whose gradients' global norm is not
+    finite is skipped and counted, and False returned. The generator and the
+    discriminator each take it with their own state
+    (`tinyvc_tpu/train/decoder_train.py:97-110`: one transform, two
+    instances); the encoder takes it with optax's default betas and no skip
+    (`tinyvc_tpu/train/encoder_train.py:38-42`)."""
     params = dict(module.named_parameters())
     gnorm = _global_norm(grads.values())
-    if not bool(torch.isfinite(gnorm)):
+    if skip_nonfinite and not bool(torch.isfinite(gnorm)):
         opt.notfinite_count += 1
         return False
     tc = cfg.train
-    b1, b2 = tc.adam_betas_gan
-    within = bool(gnorm < tc.grad_clip)
+    b1, b2 = tc.adam_betas_gan if betas is None else betas
+    within = gnorm < tc.grad_clip
     opt.count = min(opt.count + 1, 2**31 - 1)
-    # Adam's bias corrections in fp32, as optax computes them
-    c1 = (1.0 - torch.tensor(b1, dtype=torch.float32) ** opt.count).to(gnorm.device)
-    c2 = (1.0 - torch.tensor(b2, dtype=torch.float32) ** opt.count).to(gnorm.device)
+    # Adam's bias corrections in fp32, as optax computes them, carried to
+    # the device without a wait (a Python number would be divided by its
+    # reciprocal on CUDA)
+    c1 = (1.0 - torch.tensor(b1, dtype=torch.float32) ** opt.count).to(
+        gnorm.device, non_blocking=True)
+    c2 = (1.0 - torch.tensor(b2, dtype=torch.float32) ** opt.count).to(
+        gnorm.device, non_blocking=True)
     with torch.no_grad():
         for name, p in params.items():
-            g = grads[name]
-            if not within:
-                g = (g / gnorm) * tc.grad_clip
+            g = torch.where(within, grads[name], (grads[name] / gnorm) * tc.grad_clip)
             mu = (1 - b1) * g + b1 * opt.mu[name]
             nu = (1 - b2) * (g * g) + b2 * opt.nu[name]
             u = (mu / c1) / (torch.sqrt(nu / c2) + ADAM_EPS)

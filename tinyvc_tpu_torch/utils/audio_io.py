@@ -2,10 +2,10 @@
 
 ``load_audio(path) -> ([C, L] float32, sample_rate)`` at the file's own
 rate; callers average the channels and resample (`dsp/resample.py`). WAV is
-decoded by ``scipy.io.wavfile`` (24-bit through ``wave``), as the JAX
-package's numpy path does; the JAX package's optional C++ reader
-(``native/``) is not ported. Other formats go through ffmpeg, with the JAX
-package's error when it is not installed.
+decoded by the port's C++ library when it builds (`data/native_loader.py`),
+else by ``scipy.io.wavfile`` (24-bit through ``wave``), as the JAX package
+does; both give the same samples. Other formats go through ffmpeg, with the
+JAX package's error when it is not installed.
 """
 
 from __future__ import annotations
@@ -80,9 +80,15 @@ def _load_via_ffmpeg(path: str) -> Tuple[np.ndarray, int]:
 
 
 def load_audio(path: str) -> Tuple[np.ndarray, int]:
-    """-> (``[C, L]`` float32, sample_rate): WAV by scipy, the rest by ffmpeg."""
+    """-> (``[C, L]`` float32, sample_rate): WAV by the native library (by
+    scipy when it is not built or the file does not decode there), the rest
+    by ffmpeg."""
     if os.path.splitext(path)[1].lower() == ".wav":
-        return _load_wav(path)
+        from ..data.native_loader import NativeAudio
+
+        native = NativeAudio.maybe_create()
+        out = native.load_wav(path) if native is not None else None
+        return out if out is not None else _load_wav(path)
     return _load_via_ffmpeg(path)
 
 

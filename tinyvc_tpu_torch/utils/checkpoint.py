@@ -6,7 +6,10 @@ in the JAX layouts (a kernel as flax stores it): ``gen_params/params/...``,
 AdamW's moments ``gen_opt/mu/params/...`` and ``gen_opt/nu/params/...``,
 ``gen_opt/count``, ``gen_opt/notfinite_count``, the discriminator's
 ``disc_params/params/...`` and ``disc_opt/{mu,nu,count,notfinite_count}``
-alike, and ``step``; beside it ``config.json``. A save writes a temporary
+alike, and ``step``; beside it ``config.json``. An encoder's train state
+(`train/encoder_train.py`) is ``params/...``, ``opt/mu/params/...``,
+``opt/nu/params/...``, ``opt/count`` and ``step``, the names of JAX's
+``EncoderTrainState``. A save writes a temporary
 directory and renames it, and the newest ``max_to_keep`` steps are kept.
 Restoring the newest step resumes training where it stopped: parameters,
 moments, counts. A checkpoint without ``disc_*`` entries (written before
@@ -20,66 +23,100 @@ import dataclasses
 import json
 import os
 import shutil
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
 from ..train.decoder_train import TrainState
-from .weights import from_jax_layout, jax_name, to_jax_layout
+from ..train.encoder_train import EncoderTrainState
+from .weights import from_jax_layout, jax_name, nest, to_jax_layout
+
+# (parameters' prefix, optimizer's prefix, whether it counts skipped steps)
+_GEN, _DISC, _ENC = ("gen_params/", "gen_opt", True), ("disc_params/", "disc_opt", True), \
+    ("", "opt", False)
 
 
-def _net_to_tree(out: Dict[str, object], prefix: str, module, opt) -> None:
+def _net_to_tree(out: Dict[str, object], keys, module, opt) -> None:
+    params, prefix, skips = keys
     for name, p in module.named_parameters():
         path = jax_name(name)
-        out[f"{prefix}_params/{path}"] = to_jax_layout(p, name)
-        out[f"{prefix}_opt/mu/{path}"] = to_jax_layout(opt.mu[name], name)
-        out[f"{prefix}_opt/nu/{path}"] = to_jax_layout(opt.nu[name], name)
-    out[f"{prefix}_opt/count"] = int(opt.count)
-    out[f"{prefix}_opt/notfinite_count"] = int(opt.notfinite_count)
+        out[f"{params}{path}"] = to_jax_layout(p, name)
+        out[f"{prefix}/mu/{path}"] = to_jax_layout(opt.mu[name], name)
+        out[f"{prefix}/nu/{path}"] = to_jax_layout(opt.nu[name], name)
+    out[f"{prefix}/count"] = int(opt.count)
+    if skips:
+        out[f"{prefix}/notfinite_count"] = int(opt.notfinite_count)
 
 
-def _net_from_tree(tree: Dict[str, object], prefix: str, module, opt) -> None:
+def _net_from_tree(tree: Dict[str, object], keys, module, opt) -> None:
+    params, prefix, skips = keys
     with torch.no_grad():
         for name, p in module.named_parameters():
             path = jax_name(name)
-            p.copy_(from_jax_layout(tree[f"{prefix}_params/{path}"], name))
-            opt.mu[name] = from_jax_layout(tree[f"{prefix}_opt/mu/{path}"], name).to(p.device)
-            opt.nu[name] = from_jax_layout(tree[f"{prefix}_opt/nu/{path}"], name).to(p.device)
-    opt.count = int(tree[f"{prefix}_opt/count"])
-    opt.notfinite_count = int(tree[f"{prefix}_opt/notfinite_count"])
+            p.copy_(from_jax_layout(tree[f"{params}{path}"], name))
+            opt.mu[name] = from_jax_layout(tree[f"{prefix}/mu/{path}"], name).to(p.device)
+            opt.nu[name] = from_jax_layout(tree[f"{prefix}/nu/{path}"], name).to(p.device)
+    opt.count = int(tree[f"{prefix}/count"])
+    if skips:
+        opt.notfinite_count = int(tree[f"{prefix}/notfinite_count"])
 
 
-def state_to_tree(state: TrainState) -> Dict[str, object]:
+def state_to_tree(state: Union[TrainState, EncoderTrainState]) -> Dict[str, object]:
     """``state`` as the flat dict a checkpoint holds."""
     out: Dict[str, object] = {}
-    _net_to_tree(out, "gen", state.decoder, state.gen_opt)
-    if state.discriminator is not None:
-        _net_to_tree(out, "disc", state.discriminator, state.disc_opt)
+    if isinstance(state, EncoderTrainState):
+        _net_to_tree(out, _ENC, state.encoder, state.opt)
+    else:
+        _net_to_tree(out, _GEN, state.decoder, state.gen_opt)
+        if state.discriminator is not None:
+            _net_to_tree(out, _DISC, state.discriminator, state.disc_opt)
     out["step"] = int(state.step)
     return out
 
 
-def load_tree_into(state: TrainState, tree: Dict[str, object]) -> bool:
+def load_tree_into(state: Union[TrainState, EncoderTrainState],
+                   tree: Dict[str, object]) -> bool:
     """Write a checkpoint's dict into ``state`` (same architecture); False
     when the checkpoint holds no discriminator for the state's (which then
     stays as it is)."""
-    _net_from_tree(tree, "gen", state.decoder, state.gen_opt)
     state.step = int(tree["step"])
+    if isinstance(state, EncoderTrainState):
+        _net_from_tree(tree, _ENC, state.encoder, state.opt)
+        return True
+    _net_from_tree(tree, _GEN, state.decoder, state.gen_opt)
     if state.discriminator is None:
         return True
     if "disc_opt/count" not in tree:
         return False
-    _net_from_tree(tree, "disc", state.discriminator, state.disc_opt)
+    _net_from_tree(tree, _DISC, state.discriminator, state.disc_opt)
     return True
 
 
+def load_params(directory: str, prefix: str) -> Dict[str, object]:
+    """The parameter tree ``{"params": {...}}`` (numpy, JAX layouts) of the
+    newest checkpoint in ``directory``: the entries under ``prefix``
+    (``"params/"`` an encoder's, ``"gen_params/params/"`` a decoder's)."""
+    mgr = CheckpointManager(directory, create=False)
+    step = mgr.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no <step>/state.pt checkpoint under {directory!r}")
+    tree = torch.load(os.path.join(mgr.directory, str(step), "state.pt"), weights_only=False)
+    params = {k[len(prefix):]: v for k, v in tree.items() if k.startswith(prefix)}
+    if not params:
+        raise ValueError(f"checkpoint {directory!r} step {step} holds no {prefix!r} entries")
+    return {"params": nest(params)}
+
+
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, create: bool = True):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
-        os.makedirs(self.directory, exist_ok=True)
+        if create:
+            os.makedirs(self.directory, exist_ok=True)
 
     def steps(self):
+        if not os.path.isdir(self.directory):
+            return []
         return sorted(int(n) for n in os.listdir(self.directory)
                       if n.isdigit() and os.path.exists(os.path.join(self.directory, n, "state.pt")))
 
@@ -87,7 +124,7 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state: TrainState, config=None) -> str:
+    def save(self, step: int, state: Union[TrainState, EncoderTrainState], config=None) -> str:
         final = os.path.join(self.directory, str(step))
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -102,7 +139,7 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, str(old)))
         return final
 
-    def restore(self, state: TrainState, step: Optional[int] = None) -> Optional[TrainState]:
+    def restore(self, state, step: Optional[int] = None):
         """Load ``step`` (default the newest) into ``state``; None when the
         directory holds no checkpoint."""
         step = self.latest_step() if step is None else step

@@ -9,6 +9,8 @@ import os
 import time
 from typing import Dict
 
+TAG_PITCH = "loss/Pitch Estimation"
+TAG_DISTILL = "loss/Distillation"
 TAG_SPEC = "loss/Spectrogram"
 TAG_DSP = "loss/DSP"
 TAG_FEAT = "loss/Feature Matching"

@@ -4,10 +4,12 @@
 Accepted: params-only ``.npz`` exports (``save_params_npz``, the JAX
 package's ``cli/export_params``), the reference's ``.pt`` state dicts
 (through `utils/torch_compat.py`), and kNN indexes as ``.npy`` ``[N, C]`` or
-the reference's ``index.pt`` ``[1, C, N]``. Each loader returns the JAX
-package's parameter tree of numpy arrays, which `utils/weights.py` carries
-over to the port's modules. The JAX package's orbax checkpoint directories
-need orbax and JAX and are not read here (ROADMAP §1 item 2).
+the reference's ``index.pt`` ``[1, C, N]``; and the checkpoint directories
+the port's trainers write (`utils/checkpoint.py`: the newest step's
+parameters). Each loader returns the JAX package's parameter tree of numpy
+arrays, which `utils/weights.py` carries over to the port's modules. The
+JAX package's orbax checkpoint directories need orbax and JAX and are not
+read here (ROADMAP §1 item 2).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import TinyVCConfig
+from .checkpoint import CheckpointManager, load_params
 from .torch_compat import (decoder_params_from_torch, encoder_params_from_torch,
                            load_torch_checkpoint)
 from .weights import load_npz
@@ -40,10 +43,17 @@ def save_params_npz(path: str, params: Dict[str, Any]) -> None:
     np.savez_compressed(path, **flat)
 
 
+def _port_checkpoint(path: str) -> bool:
+    """Whether ``path`` is a directory of the port's ``<step>/state.pt``
+    checkpoints."""
+    return os.path.isdir(path) and CheckpointManager(path, create=False).latest_step() is not None
+
+
 def _unsupported(path: str, what: str) -> Exception:
     if os.path.isdir(path):
         return ValueError(
-            f"{path!r} is a directory: orbax checkpoint directories need orbax and JAX, "
+            f"{path!r} is a directory without the port's <step>/state.pt checkpoints: "
+            "orbax checkpoint directories need orbax and JAX, "
             f"which this package does not import (ROADMAP §1 item 2); export the {what} "
             "to a params-only .npz with the JAX package's cli/export_params")
     if not os.path.exists(path):
@@ -52,8 +62,11 @@ def _unsupported(path: str, what: str) -> Exception:
 
 
 def load_encoder_params(path: str, cfg: Optional[TinyVCConfig] = None) -> Dict[str, Any]:
-    """An encoder's parameter tree from ``.npz`` or a reference ``.pt``."""
+    """An encoder's parameter tree from ``.npz``, a reference ``.pt`` or a
+    checkpoint directory of the port's encoder training."""
     cfg = cfg or TinyVCConfig()
+    if _port_checkpoint(path):
+        return load_params(path, "params/")
     if path.endswith(".npz"):
         return load_npz(path)
     if path.endswith(".pt"):
@@ -64,8 +77,11 @@ def load_encoder_params(path: str, cfg: Optional[TinyVCConfig] = None) -> Dict[s
 
 
 def load_decoder_params(path: str, cfg: Optional[TinyVCConfig] = None) -> Dict[str, Any]:
-    """A decoder's parameter tree from ``.npz`` or a reference ``.pt``."""
+    """A decoder's parameter tree from ``.npz``, a reference ``.pt`` or a
+    checkpoint directory of the port's decoder training."""
     cfg = cfg or TinyVCConfig()
+    if _port_checkpoint(path):
+        return load_params(path, "gen_params/params/")
     if path.endswith(".npz"):
         return load_npz(path)
     if path.endswith(".pt"):

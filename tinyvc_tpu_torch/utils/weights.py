@@ -34,18 +34,23 @@ from ..models.layers import Conv1d
 from ..models.encoder import Encoder
 
 
+def nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """A nested tree from flat '/'-joined key paths."""
+    tree: Dict[str, Any] = {}
+    for key, value in flat.items():
+        *parents, leaf = key.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
 def load_npz(path: str) -> Dict[str, Any]:
     """Rebuild the nested parameter tree from the flat ``params/...`` keys of
     a params-only ``.npz`` (as `model_store.py::_load_params_npz` does)."""
-    tree: Dict[str, Any] = {}
     with np.load(path) as data:
-        for key in data.files:
-            parts = key.split("/")
-            node = tree
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = np.asarray(data[key])
-    return tree
+        return nest({key: np.asarray(data[key]) for key in data.files})
 
 
 def state_dict_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -205,17 +210,35 @@ def to_jax_layout(t: torch.Tensor, name: str) -> np.ndarray:
     return np.ascontiguousarray(a)
 
 
-def _opt_from_jax(opt: Any, device):
-    """An ``OptState`` from JAX's ``skip_if_nonfinite(chain(clip, adamw))``
-    state: AdamW's moments, Adam's count and the skip count."""
+def _adam_from_jax(adam: Any, device, notfinite_count: int = 0):
+    """An ``OptState`` from optax's ``ScaleByAdamState``: AdamW's moments
+    and Adam's count."""
     from ..train.decoder_train import OptState
 
-    adam = opt.inner[1][0]
     mu = state_dict_from_jax({"params": adam.mu["params"]})
     nu = state_dict_from_jax({"params": adam.nu["params"]})
     return OptState({k: v.to(device) for k, v in mu.items()},
                     {k: v.to(device) for k, v in nu.items()},
-                    int(np.asarray(adam.count)), int(np.asarray(opt.notfinite_count)))
+                    int(np.asarray(adam.count)), notfinite_count)
+
+
+def _opt_from_jax(opt: Any, device):
+    """An ``OptState`` from JAX's ``skip_if_nonfinite(chain(clip, adamw))``
+    state: AdamW's moments, Adam's count and the skip count."""
+    return _adam_from_jax(opt.inner[1][0], device, int(np.asarray(opt.notfinite_count)))
+
+
+def encoder_train_state_from_jax(state: Any, cfg: EncoderConfig = EncoderConfig(),
+                                 device="cpu"):
+    """The port's encoder train state (`train/encoder_train.py::
+    EncoderTrainState`) from JAX's ``EncoderTrainState`` (numpy leaves):
+    the parameters, the moments and count of optax's ``chain(
+    clip_by_global_norm, adamw)`` state, and the step."""
+    from ..train.encoder_train import EncoderTrainState
+
+    enc = encoder_from_jax(state.params, cfg).train().to(device)
+    return EncoderTrainState(enc, _adam_from_jax(state.opt_state[1][0], device),
+                             int(np.asarray(state.step)))
 
 
 def train_state_from_jax(state: Any, cfg: DecoderConfig = DecoderConfig(),
