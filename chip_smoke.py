@@ -110,6 +110,19 @@ Phases, each timed; any failure exits non-zero:
    ``--device-data -K 3``, `cli.train_decoder -encp <that directory>
    --device-data -K 2` (four pre-join steps), `cli.extract_index` and
    `cli.infer -encp <dir> -decp <dir>` on the demo: finite, its length.
+11. distributed: one process per card over NCCL, two ranks where the
+   machine has two or more cards, else one (every collective still runs),
+   started by this script, waited for within a timeout. First, on card 0:
+   ``--remat`` (the layer-by-layer U-Net's step bit-identical with and
+   without it under deterministic algorithms, both peak memories; the
+   fused step's launches unchanged) and the single-card path. Then the
+   ranks, each held to it: the sharded kNN on the 2048-row index at B=1 and
+   B=8 in both payloads, `convert_fn_sharded` on the demo, 12 blocks
+   streamed with ``mesh=``, `time_sharded_convert` of the 60 s utterance,
+   the data-parallel bf16 pre-join step by gates F and C, equal parameters
+   on every rank after three steps and a checkpoint restored bit for bit on
+   every rank; the world size, NCCL's version, the gradient all-reduce's
+   and the step's ms.
 
 The last two lines are one JSON object of per-kernel numbers and the
 ``{"ok": true, "device": ...}`` result. ``python3 chip_smoke.py --profile
@@ -121,8 +134,9 @@ call to compare two commits' request latency on one card; ``--train-step
 per call, ``--osc-resample [DIR]`` kernels A's, I's and J's, ``--step-chaos
 [DIR]`` every fp32 step gate of both steps for every draw, ``--stream
 [DIR]`` the streaming phase, ``--chunked [DIR]`` the chunked phase,
-``--train-encoder [DIR]`` the train_encoder phase. Needs CUDA and the rest
-of the repo; imports nothing of JAX or `tinyvc_tpu`.
+``--train-encoder [DIR]`` the train_encoder phase, ``--distributed [DIR]``
+the distributed phase. Needs CUDA and the rest of the repo; imports nothing
+of JAX or `tinyvc_tpu`.
 """
 
 from __future__ import annotations
@@ -3360,15 +3374,17 @@ def _plain_forward(post_join: bool) -> list:
     return plain
 
 
-def _step_runner(step, args, outputs, plain_modules):
+def _step_runner(step, args, outputs, plain_modules, rows=None):
     """``run(plain=False, forward=(), nudges=())`` -> (metrics, gradient
     leaves, the U-Net's output waveform) of one ``step.loss_and_grads(*args)``:
     the kernel path, or with ``plain`` the plain path (``plain_modules`` send
     CUDA tensors to their plain versions); ``forward``'s (module, name,
     value) set for the call; for each (seed, scale) of ``nudges`` in turn,
     the U-Net's source multiplied by (1 + scale e), e ~ N(0, 1) from a
-    generator seeded with ``seed`` (the same e in both paths). ``outputs``
-    turns the step's output into (metrics, leaves)."""
+    generator seeded with ``seed`` (the same e in both paths; with ``rows``,
+    (a data-parallel rank's slice, the global batch), e is drawn over the
+    global batch and the rank's rows kept). ``outputs`` turns the step's
+    output into (metrics, leaves)."""
     import torch
 
     from tinyvc_tpu_torch.models.decoder import Decoder
@@ -3381,8 +3397,9 @@ def _step_runner(step, args, outputs, plain_modules):
             src = orig(self, *a)
             for seed, scale in nudges:
                 gen = torch.Generator(device=src.device).manual_seed(seed)
-                src = src * (1.0 + scale * torch.randn(src.shape, device=src.device,
-                                                       generator=gen))
+                shape = src.shape if rows is None else (rows[1], *src.shape[1:])
+                e = torch.randn(shape, device=src.device, generator=gen)
+                src = src * (1.0 + scale * (e if rows is None else e[rows[0]]))
             return src
 
         def captured(*a):
@@ -4168,6 +4185,648 @@ def phase_train_encoder(card: str) -> None:
         _train_encoder_clis(card, cache, tmp)
 
 
+# ---------------------------------------------------------------------------
+# distributed: process groups over NCCL, one process per card
+# ---------------------------------------------------------------------------
+
+DIST_WORLD = 2  # ranks where the machine has two or more cards; one otherwise
+DIST_TIMEOUT_S = 540  # every rank, from spawn to exit; a rank still running then fails the phase
+DIST_KNN_BATCHES = (1, 8)
+DIST_KNN_SAME = 1e-5  # a frame's output this far from the plain match's took other neighbours
+TIME_SHARD_RTOL = 2e-4  # of the peak: JAX's bound of its chunked path against its own
+DIST_TIMED_STEPS = 5
+DIST_ALL_REDUCE_CALLS = 10
+# The step's checks in both operand types: the data-parallel step against
+# the single-card step split in the same rows, bit for bit, in each; the
+# split against the whole batch by gates F and C in fp32 (their statistics
+# and factor, `_HalvedEncoder`'s floors). In bf16 that distance is chaotic,
+# as the serving U-Net's is
+# (SERVING_STAGE_RTOL): every bf16 rounding that a batch-dependent sum
+# order flips carries on; on the H100 (80GB HBM3, 700 W) the split's bf16
+# waveform was 7.4e-3 to 8.7e-3 of the peak from the whole batch's and its
+# leaves' median 8.6e-2 to 1.2e-1, against the nudged floors' 1.4e-2 to
+# 4.1e-2.
+DIST_STEP_DTYPES = ("float32", "bfloat16")
+
+
+def _digest_of(tensors: dict) -> str:
+    """SHA-256 (12 hex digits) of a dict of tensors' bytes, by sorted key."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:12]
+
+
+def _dp_step(mesh=None, cfg=None, dtype_name=None):
+    """(cfg, encoder, state, wave, key, step) of the data-parallel check: the
+    pre-join step of ``cfg`` (default ``TinyVCConfig()``'s, the fused U-Net,
+    its operands ``dtype_name``: by default bf16 on the card) with the
+    two-speaker weights and the log-mel loss on `_demo_windows` (B=16 x 2
+    s); with ``mesh``, the step data-parallel on this rank's rows of that
+    batch."""
+    import torch
+
+    from tinyvc_tpu_torch.config import TinyVCConfig
+    from tinyvc_tpu_torch.parallel.mesh import shard_batch
+    from tinyvc_tpu_torch.train import decoder_train as dt
+    from tinyvc_tpu_torch.train.loop import load_encoder
+    from tinyvc_tpu_torch.utils import prng
+    from tinyvc_tpu_torch.utils.weights import load_npz, train_state_from_jax
+
+    models = os.path.join(ROOT, "models", "two_speaker")
+    cfg = cfg or TinyVCConfig()
+    enc = load_encoder(os.path.join(models, "encoder_B.npz"), cfg, SEED, "cuda")
+    state = train_state_from_jax(load_npz(os.path.join(models, "decoder_B.npz")), cfg.decoder,
+                                 cfg.audio, "cuda")
+    wave = torch.from_numpy(_demo_windows()).cuda()
+    if mesh is not None:
+        wave = shard_batch(wave, mesh)
+    key = prng.split(prng.prng_key(SEED + 2))[1]
+    return cfg, enc, state, wave, key, dt.make_train_step(cfg, False, "mel", dtype_name, mesh)
+
+
+def _state_digest(state) -> str:
+    """`_digest_of` the decoder's parameters and moments, with the step and
+    Adam's count."""
+    o = state.gen_opt
+    tensors = {f"{kind} {n}": t for n, p in state.decoder.named_parameters()
+               for kind, t in (("p", p), ("mu", o.mu[n]), ("nu", o.nu[n]))}
+    return f"{_digest_of(tensors)} step {state.step} count {o.count}"
+
+
+def _timed_steps(step, state, enc, wave, key, n: int = DIST_TIMED_STEPS):
+    """Host ms of ``n`` warm full steps (update included), each ended by a
+    synchronise, after two untimed ones; their median."""
+    import torch
+
+    from tinyvc_tpu_torch.utils import prng
+
+    keys = prng.split(key, n + 2)
+    times = []
+    for i, k in enumerate(keys):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, enc, wave, k)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _remat_check(card: str) -> None:
+    """``DecoderConfig.remat`` on the card: the layer-by-layer U-Net's
+    pre-join step (``use_fused_filter_train="off"``, the only path remat
+    changes, as in JAX) with and without it, gradients bit-identical under
+    deterministic algorithms, both peak memories printed; the fused step's
+    launches unchanged by the flag."""
+    import dataclasses
+
+    import torch
+
+    from tinyvc_tpu_torch.config import DecoderConfig, TinyVCConfig
+
+    grads, peaks, launches = {}, {}, {}
+    for remat in (False, True):
+        cfg = TinyVCConfig(decoder=DecoderConfig(use_fused_filter_train="off", remat=remat))
+        _, enc, state, wave, key, step = _dp_step(cfg=cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _deterministic():
+            grads[remat] = step.loss_and_grads(state, enc, wave, key)[2]
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2**30
+        fused = TinyVCConfig(decoder=dataclasses.replace(DecoderConfig(), remat=remat))
+        _, enc, state, wave, key, step = _dp_step(cfg=fused)
+        with _launch_counts() as counts:
+            step.loss_and_grads(state, enc, wave, key)
+            torch.cuda.synchronize()
+        launches[remat] = dict(counts)
+        del state, step
+    same = all(torch.equal(grads[False][k], grads[True][k]) for k in grads[False])
+    print(f"  --remat, the layer-by-layer U-Net's fp32 step at B=16 x 2 s: gradients "
+          f"bit-identical under deterministic algorithms: {same}; peak memory "
+          f"{peaks[False]:.3f} GiB without, {peaks[True]:.3f} GiB with ({card})")
+    print(f"  --remat, the fused step's launches by row: {_row_launches(launches[True], TRAIN_KERNELS)}"
+          f" (without: {_row_launches(launches[False], TRAIN_KERNELS)})")
+    _check(same, "--remat changes the layer-by-layer U-Net's gradients")
+    _check(launches[True] == launches[False], "--remat changes the fused step's launches")
+
+
+class _HalvedEncoder:
+    """The frozen encoder of a training step run on each half of the batch
+    and the halves joined: the step on the whole batch with only the
+    encoder's sums in a split batch's order."""
+
+    def __init__(self, encoder):
+        self.encoder = encoder
+
+    def infer(self, spec):
+        import torch
+
+        h = spec.shape[0] // 2
+        halves = (self.encoder.infer(spec[:h]), self.encoder.infer(spec[h:]))
+        return tuple(torch.cat(parts) for parts in zip(*halves))
+
+
+def _dist_references(world: int, work: str, card: str) -> dict:
+    """The single-card path on card 0, before any rank starts: kNN by
+    `ops/retrieval.py::match_features` on the demo's content at B=1 and B=8
+    against the 2048-row index, `VoiceConverter.convert` of the 6 s demo,
+    12 streamed blocks, `time_batched_convert` of the 60 s utterance at S =
+    ``world``; the pre-join step in fp32 and bf16 (``DIST_STEP_DTYPES``) on
+    the shipped source and ``STEP_DRAWS`` nudged ones, on the global batch,
+    split in two halves of its rows as two ranks split it, and (fp32, the
+    gates' floors) on the global batch with its encoder run on each half
+    (`_HalvedEncoder`), under deterministic algorithms; the bf16 step's
+    warm time. The inputs the ranks share go to ``work/inputs.pt``."""
+    import torch
+
+    from tinyvc_tpu_torch.config import TinyVCConfig
+    from tinyvc_tpu_torch.infer.generator import VoiceConverter, exact_fp32
+    from tinyvc_tpu_torch.infer.stream import StreamConverter
+    from tinyvc_tpu_torch.ops.retrieval import _similarities, match_features
+    from tinyvc_tpu_torch.parallel.time_shard import time_batched_convert
+    from tinyvc_tpu_torch.utils.model_store import load_index
+    from tinyvc_tpu_torch.utils.prng import prng_key
+    from tinyvc_tpu_torch.utils.weights import load_npz
+
+    models = os.path.join(ROOT, "models", "two_speaker")
+    enc = load_npz(os.path.join(models, "encoder_B.npz"))
+    dec = load_npz(os.path.join(models, "decoder_B.npz"))
+    index = load_index(os.path.join(models, "index_B.npy"))
+    wave = _load_demo(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"))
+    vc = VoiceConverter(enc, dec, TinyVCConfig(), device="cuda")
+    target = torch.from_numpy(index).cuda()
+    ref, inputs = {}, {}
+    with torch.inference_mode(), exact_fp32():
+        for B in DIST_KNN_BATCHES:
+            src = vc.encode(wave if B == 1 else _demo_wave(B))[0]
+            inputs[f"knn{B}"] = src.cpu()
+            ref[f"knn{B}"] = match_features(src, target, k=4, metric="cos").cpu()
+            ref[f"sims{B}"] = _similarities(src, target, "cos").cpu()
+        ref["convert"] = vc.convert(wave, target, PITCH_SHIFT, seed=SEED)
+        ref["time_shard"] = time_batched_convert(
+            vc.encoder, vc.decoder, torch.from_numpy(_long_wave()).cuda(), target, PITCH_SHIFT,
+            prng_key(SEED), vc.cfg, shards=world).cpu().numpy()
+    torch.save(inputs, os.path.join(work, "inputs.pt"))
+    block = vc.cfg.stream.block_size
+    sc = StreamConverter(enc, dec, index, TinyVCConfig(), PITCH_SHIFT, device="cuda")
+    ref["stream"] = _stream_run(sc, [wave[i * block:(i + 1) * block]
+                                     for i in range(STREAM_CPU_BLOCKS)])
+    del vc, sc
+
+    from types import SimpleNamespace
+
+    from tinyvc_tpu_torch.dsp.stft import spectrogram
+    from tinyvc_tpu_torch.kernels import filter_stage as fs
+    from tinyvc_tpu_torch.kernels import resample as rs
+    from tinyvc_tpu_torch.train import decoder_train as dt
+
+    cfg, enc_m, state, wave16, key, _ = _dp_step()
+    B = wave16.shape[0]
+    with torch.no_grad(), exact_fp32():
+        spec = spectrogram(dt.make_train_step(cfg, False).augment(wave16, key)[0],
+                           cfg.audio.n_fft, cfg.audio.hop_size)
+        whole, halves = enc_m.infer(spec), _HalvedEncoder(enc_m).infer(spec)
+    print("  the frozen encoder on each half of the step's batch against the whole batch: "
+          + ", ".join(f"{name} {float((h - w).abs().max() / w.abs().max()):.2e} of the peak"
+                      for name, h, w in zip(("content", "f0"), halves, whole)))
+    mean = dt.data_mean
+    ref["floors"] = []
+    for dtype in DIST_STEP_DTYPES:
+        step = dt.make_train_step(cfg, False, "mel", dtype)
+        run = _step_runner(step, (state, enc_m, wave16, key), _prejoin_outputs, (fs, rs))
+        halved_encoder = _step_runner(step, (state, _HalvedEncoder(enc_m), wave16, key),
+                                      _prejoin_outputs, ())
+        halves = []
+        for i in range(2):  # the two-way split on this card: each half's rows, the global draws
+            rows = slice(i * B // 2, (i + 1) * B // 2)
+            half = dt.make_train_step(cfg, False, "mel", dtype,
+                                      SimpleNamespace(data=2, model=1, data_index=i))
+            halves.append(_step_runner(half, (state, enc_m, wave16[rows], key), _prejoin_outputs,
+                                       (), rows=(rows, B)))
+        ref[dtype] = {"step": [], "split": []}
+        with _deterministic():
+            for d in [None, *range(STEP_DRAWS)]:
+                nudges = () if d is None else ((d, STEP_NUDGE),)
+                met, leaves, fake = run(nudges=nudges)
+                ref[dtype]["step"].append({"metrics": {k: float(v) for k, v in met.items()},
+                                           "leaves": {k: v.cpu() for k, v in leaves.items()},
+                                           "fake": fake.cpu(), "digest": _digest_of(leaves),
+                                           "fakes": [_digest_of({"f": fake})]})
+                if dtype == "float32":  # the floors: the encoder alone run on each half
+                    _, floor, floor_fake = halved_encoder(nudges=nudges)
+                    ref["floors"].append((_leaf_errors(floor, leaves), float(
+                        (floor_fake - fake).abs().max() / fake.abs().max())))
+                dt.data_mean = lambda mesh, *dicts: dicts  # each half alone; averaged below
+                try:
+                    (m0, l0, f0), (m1, l1, f1) = (h(nudges=nudges) for h in halves)
+                finally:
+                    dt.data_mean = mean
+                leaves = {k: (l0[k] + l1[k]) / 2 for k in l0}  # the all-reduce's mean
+                ref[dtype]["split"].append({
+                    "metrics": {k: float((m0[k] + m1[k]) / 2) for k in m0},
+                    "leaves": {k: v.cpu() for k, v in leaves.items()},
+                    "fake": torch.cat([f0, f1]).cpu(), "digest": _digest_of(leaves),
+                    "fakes": [_digest_of({"f": f0}), _digest_of({"f": f1})]})
+    ref["step_ms"] = _timed_steps(dt.make_train_step(cfg, False, "mel"), state, enc_m, wave16,
+                                  key)
+    print(f"  world 1 (one card, no process group): the bf16 pre-join step at B=16 x 2 s "
+          f"{ref['step_ms']:.3f} ms, median of {DIST_TIMED_STEPS} warm steps ({card})")
+    del state, step, run, halves
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _dist_rank(rank: int, world: int, port: int, work: str) -> None:
+    """One rank of the distributed phase (``--distributed-rank``): join the
+    NCCL group on card ``rank``, run every path on a ``(1, world)`` mesh
+    (the sharded dictionary) or a ``(world, 1)`` mesh (data and time
+    parallel), and write ``work/rank<r>.pt`` and ``work/rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from tinyvc_tpu_torch.config import TinyVCConfig
+    from tinyvc_tpu_torch.infer.generator import VoiceConverter, convert_fn_sharded, exact_fp32
+    from tinyvc_tpu_torch.infer.stream import StreamConverter
+    from tinyvc_tpu_torch.parallel.mesh import (all_reduce_mean, global_rows, init_distributed,
+                                                make_mesh)
+    from tinyvc_tpu_torch.parallel.sharded_knn import (dictionary_shard, pad_dictionary,
+                                                       sharded_match_features)
+    from tinyvc_tpu_torch.parallel.time_shard import time_sharded_convert
+    from tinyvc_tpu_torch.utils import prng
+    from tinyvc_tpu_torch.utils.checkpoint import CheckpointManager, replicate_state
+    from tinyvc_tpu_torch.utils.model_store import load_index
+    from tinyvc_tpu_torch.utils.weights import load_npz, train_state_from_jax
+
+    address = f"localhost:{port}"
+    if world > 1:  # the CLIs' path
+        init_distributed(address, world, rank, timeout_s=DIST_TIMEOUT_S)
+    else:  # init_distributed forms no group for one process
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"tcp://{address}", world_size=1, rank=0,
+                                timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        out, res = {}, {"device": torch.cuda.current_device()}
+        dm, dp = make_mesh(data=1, model=world), make_mesh(data=world, model=1)
+        models = os.path.join(ROOT, "models", "two_speaker")
+        enc = load_npz(os.path.join(models, "encoder_B.npz"))
+        dec = load_npz(os.path.join(models, "decoder_B.npz"))
+        index = load_index(os.path.join(models, "index_B.npy"))
+        wave = _load_demo(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"))
+        vc = VoiceConverter(enc, dec, TinyVCConfig(), device="cuda")
+        target = torch.from_numpy(index).cuda()
+        shard = dictionary_shard(*pad_dictionary(target, world, vc.cfg.retrieval.k), dm)
+        inputs = torch.load(os.path.join(work, "inputs.pt"))
+        with torch.inference_mode(), exact_fp32():
+            for B in DIST_KNN_BATCHES:
+                for payload in ("index", "vectors"):
+                    out[f"knn{B}_{payload}"] = sharded_match_features(
+                        dm, inputs[f"knn{B}"].cuda(), *shard, k=4, metric="cos",
+                        payload=payload).cpu()
+            x, L = vc._padded(wave)
+            with _launch_counts() as counts:
+                y = convert_fn_sharded(vc.encoder, vc.decoder, x, *shard, PITCH_SHIFT,
+                                       prng.kernel_b_seed(SEED), vc.cfg, dm)
+                torch.cuda.synchronize()
+            out["convert"], res["convert_launches"] = y[0, :L].cpu(), counts
+            with _launch_counts() as counts:
+                y = time_sharded_convert(dp, vc.encoder, vc.decoder,
+                                         torch.from_numpy(_long_wave()).cuda(), target,
+                                         PITCH_SHIFT, prng.prng_key(SEED), vc.cfg)
+                torch.cuda.synchronize()
+            out["time_shard"], res["time_shard_launches"] = y.cpu(), counts
+        block = vc.cfg.stream.block_size
+        sc = StreamConverter(enc, dec, index, TinyVCConfig(), PITCH_SHIFT, device="cuda",
+                             mesh=dm)
+        run = _stream_run(sc, [wave[i * block:(i + 1) * block]
+                               for i in range(STREAM_CPU_BLOCKS)])
+        out["stream_window"] = torch.from_numpy(run["window"])
+        out["stream_out"] = torch.from_numpy(run["out"])
+        res["stream_shifts"] = run["shifts"]
+        del vc, sc
+
+        # the data-parallel pre-join step in both operand types, each source
+        # as the parent ran it: digests of the leaves and of this rank's waveform
+        for dtype in DIST_STEP_DTYPES:
+            _, enc_m, state, wave16, key, step = _dp_step(dp, dtype_name=dtype)
+            B = wave16.shape[0]
+            run = _step_runner(step, (state, enc_m, wave16, key), _prejoin_outputs, (),
+                               rows=(global_rows(dp, B)[1], B * world))
+            res[dtype] = []
+            for d in [None, *range(STEP_DRAWS)]:
+                with _launch_counts() as counts, _deterministic():
+                    met, leaves, fake = run(nudges=() if d is None else ((d, STEP_NUDGE),))
+                    torch.cuda.synchronize()
+                res[dtype].append({"metrics": {k: float(v) for k, v in met.items()},
+                                   "digest": _digest_of(leaves), "fake": _digest_of({"f": fake})})
+        res["step_launches"] = _row_launches(counts, TRAIN_KERNELS)
+        _, enc_m, state, wave16, key, step = _dp_step(dp)
+        grads = step.loss_and_grads(state, enc_m, wave16, key)[2]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        all_reduce_mean(grads, dp.data_group, world)
+        start.record()
+        for _ in range(DIST_ALL_REDUCE_CALLS):
+            all_reduce_mean(grads, dp.data_group, world)
+        end.record()
+        torch.cuda.synchronize()
+        res["all_reduce_ms"] = start.elapsed_time(end) / DIST_ALL_REDUCE_CALLS
+        res["all_reduce_mb"] = sum(g.numel() * g.element_size() for g in grads.values()) / 2**20
+        res["step_ms"] = _timed_steps(step, state, enc_m, wave16, key)
+        del grads, state
+
+        # three steps from the shipped state, then a checkpoint round trip
+        _, enc_m, state, wave16, key, step = _dp_step(dp)
+        for k in prng.split(key, 3):
+            step(state, enc_m, wave16, k)
+        res["digest"] = _state_digest(state)
+        CheckpointManager(os.path.join(work, "ckpt")).save(state.step, state)
+        other = train_state_from_jax(load_npz(os.path.join(models, "decoder_B.npz")),
+                                     TinyVCConfig().decoder, TinyVCConfig().audio, "cuda")
+        with torch.no_grad():
+            for p in other.decoder.parameters():
+                p.add_(1.0)
+        CheckpointManager(os.path.join(work, "ckpt")).restore(other)
+        replicate_state(other)
+        res["restored_digest"] = _state_digest(other)
+        res["nccl"] = ".".join(map(str, torch.cuda.nccl.version()))
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(cmds, work: str, name: str, env=None) -> None:
+    """Run one process a rank, ``cmds[r]`` the command of rank ``r``, each
+    logging to ``work/<name><r>.log``, and wait for all of them within
+    ``DIST_TIMEOUT_S``: a rank that exits non-zero stops the others, and
+    every rank still running at the deadline is killed; either fails (the
+    logs' ends printed)."""
+    paths = [os.path.join(work, f"{name}{r}.log") for r in range(len(cmds))]
+    logs = [open(path, "w") for path in paths]
+    procs = [subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, cwd=ROOT,
+                              env=None if env is None else {**os.environ, **env})
+             for cmd, f in zip(cmds, logs)]
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    failed = None
+    try:
+        while failed is None:
+            codes = [p.poll() for p in procs]
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if bad:
+                failed = f"{name} rank {bad[0]} exited {codes[bad[0]]}"
+            elif all(c == 0 for c in codes):
+                break
+            elif time.monotonic() > deadline:
+                failed = f"{name}: ranks still running after {DIST_TIMEOUT_S} s"
+            else:
+                time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    if failed is not None:
+        for r, path in enumerate(paths):
+            with open(path) as f:
+                print(f"  {name} rank {r}'s log (end):\n" + f.read()[-6000:])
+    _check(failed is None, f"distributed: {failed}")
+
+
+def _train_clis_on_ranks(world: int, work: str, card: str) -> None:
+    """`cli.train_decoder` and `cli.train_encoder` as users start them on
+    ``world`` cards: one process a card with ``--coordinator-address
+    --num-processes --process-id`` (one process: no group), B=16 global on
+    a cache of the 16 demo windows; the decoder two steps across the join
+    (``-d-join 1``, the post-join step's discriminator gradients averaged
+    too), the encoder one epoch without a teacher. Rank 0 alone logs each
+    step and writes one checkpoint."""
+    import numpy as np
+
+    from tinyvc_tpu_torch.utils.audio_io import save_wav
+    from tinyvc_tpu_torch.utils.checkpoint import CheckpointManager
+
+    cache = os.path.join(work, "cache")
+    os.makedirs(cache)
+    for i, w in enumerate(_demo_windows()):
+        save_wav(os.path.join(cache, f"{i}.wav"), w)
+        np.save(os.path.join(cache, f"{i}.f0.npy"), np.full(100, 150.0, np.float32))
+    models = os.path.join(ROOT, "models", "two_speaker")
+    runs = {"train_decoder": (["-encp", os.path.join(models, "encoder_B.npz"), "--init-decoder",
+                               os.path.join(models, "decoder_B.npz"), "-step", "2", "-d-join",
+                               "1", "-spec-type", "mel"], "-decp", [1, 2]),
+            # each rank's loader draws its 16 // world rows from all 16 chunks: an
+            # epoch is `world` steps (JAX's per-process loaders)
+            "train_encoder": (["-e", "1"], "-path", list(range(1, world + 1)))}
+    for cli, (flags, ckpt_flag, steps) in runs.items():
+        ckpt, logs = os.path.join(work, f"{cli}_ckpt"), os.path.join(work, f"{cli}_logs")
+        port = _free_port()
+        t0 = time.perf_counter()
+        _run_ranks([[sys.executable, "-m", f"tinyvc_tpu_torch.cli.{cli}", "--dataset-cache",
+                     cache, ckpt_flag, ckpt, "--log-dir", logs, "-b", "16", "--log-interval",
+                     "1", "--save-interval", str(steps[-1]), *flags, "--coordinator-address",
+                     f"localhost:{port}", "--num-processes", str(world), "--process-id", str(r)]
+                    for r in range(world)], work, cli,
+                   env={"PYTHONPATH": ROOT, "TINYVC_NO_NATIVE_LOADER": "1"})
+        with open(os.path.join(logs, "metrics.jsonl")) as f:
+            logged = [json.loads(line)["step"] for line in f]
+        saved = CheckpointManager(ckpt, create=False).steps()
+        print(f"  cli.{cli} on {world} rank(s): {time.perf_counter() - t0:.2f} s, logged steps "
+              f"{logged}, checkpoints {saved} ({card})")
+        _check(logged == steps and saved == [steps[-1]],
+               f"cli.{cli} on {world} ranks logged {logged}, saved {saved}")
+
+
+def phase_distributed(card: str) -> None:
+    """Distributed execution on NCCL, one process per card: ``DIST_WORLD``
+    ranks where the machine has as many cards, else one (every collective's
+    code path still runs). The single-card path first, in this process
+    (`_dist_references`, `_remat_check`); then the ranks (`_dist_rank`),
+    each held to it: `sharded_match_features` on the 2048-row index at B=1
+    and B=8 in both payloads (the same neighbours but at near ties under
+    ``KNN_TIE``); `convert_fn_sharded` on the 6 s demo within ``WAVE_ATOL``
+    of `VoiceConverter.convert`; 12 streamed blocks with ``mesh=`` within
+    ``WAVE_ATOL``, held on the single-card stream's SOLA history
+    (`_sola_replay`); `time_sharded_convert` of the 60 s utterance within
+    ``TIME_SHARD_RTOL`` of `time_batched_convert` at the same S; the
+    data-parallel bf16 pre-join step against the single-card step on the
+    same global batch and key by gates F and C (`_gate_c`, its floors the
+    single-card step against itself); every rank's parameters equal after
+    three steps, and a checkpoint written by rank 0 restored on every rank
+    bit for bit. Prints the world size, the NCCL version, the gradient
+    all-reduce's ms a step and the step's ms at each world size."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tinyvc_tpu_torch.config import TinyVCConfig
+
+    world = DIST_WORLD if torch.cuda.device_count() >= DIST_WORLD else 1
+    print(f"  world size {world} ({torch.cuda.device_count()} cards), NCCL "
+          f"{'.'.join(map(str, torch.cuda.nccl.version()))}")
+    _remat_check(card)
+    work = tempfile.mkdtemp(prefix="tvc_distributed_")
+    try:
+        ref = _dist_references(world, work, card)
+        t0 = time.perf_counter()
+        port = _free_port()
+        _run_ranks([[sys.executable, os.path.abspath(__file__), "--distributed-rank", str(r),
+                     str(world), str(port), work, ROOT] for r in range(world)], work, "rank")
+        print(f"  {world} rank(s) ran in {time.perf_counter() - t0:.2f} s")
+        _train_clis_on_ranks(world, work, card)
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt")) for r in range(world)]
+        res = []
+        for r in range(world):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    failed = []
+
+    def gate(ok, msg):
+        if not ok:
+            failed.append(msg)
+            print(f"  FAILED: {msg}")
+
+    gate([r["device"] for r in res] == list(range(world)),
+         f"ranks' cards {[r['device'] for r in res]}")
+    for name in ranks[0]:  # every rank returns the whole result but its own rows of the fakes
+        if not name.startswith(("leaves", "fake")):
+            same = all(torch.equal(torch.as_tensor(ranks[0][name]), torch.as_tensor(x[name]))
+                       for x in ranks[1:])
+            gate(same, f"{name} differs between the ranks")
+
+    for B in DIST_KNN_BATCHES:
+        want, sims = ref[f"knn{B}"], ref[f"sims{B}"]
+        top = sims.topk(5, dim=-1).values
+        tie = top[..., 3] - top[..., 4]  # the k-th and the next similarity
+        for payload in ("index", "vectors"):
+            got = ranks[0][f"knn{B}_{payload}"]
+            diff = (got - want).abs().amax(-1)
+            other = diff > DIST_KNN_SAME
+            err = float(diff[~other].max())
+            print(f"  sharded kNN B={B} {payload}: {int(other.sum())} of {other.numel()} frames "
+                  f"took other neighbours (each at a near tie under {KNN_TIE:.0e}: "
+                  f"{bool((tie[other] < KNN_TIE).all())}); the rest {err:.3e} from the "
+                  f"single-card match (tolerance {KERNEL_TOL['knn']:.0e})")
+            gate(bool((tie[other] < KNN_TIE).all()), f"kNN B={B} {payload}: other neighbours")
+            gate(err <= KERNEL_TOL["knn"], f"kNN B={B} {payload}: {err}")
+
+    err = float(np.abs(ranks[0]["convert"].numpy() - ref["convert"]).max())
+    print(f"  convert_fn_sharded of the 6 s demo vs VoiceConverter.convert: max |diff| "
+          f"{err:.3e} (tolerance {WAVE_ATOL:.0e}); launches {res[0]['convert_launches']}")
+    gate(err <= WAVE_ATOL, f"convert_fn_sharded: {err}")
+    for k in CONVERT_LAUNCHES["fp32"]:
+        gate(all(r["convert_launches"][k] > 0 for r in res), f"convert_fn_sharded: {k} idle")
+
+    scfg = TinyVCConfig().stream
+    single = ref["stream"]
+    window = ranks[0]["stream_window"].numpy()
+    replay = _sola_replay(window, single["shifts"], scfg)[0]
+    werr = float(np.abs(window - single["window"]).max())
+    berr = float(np.abs(replay - single["out"]).max())
+    moved = sum(a != b for a, b in zip(res[0]["stream_shifts"], single["shifts"]))
+    print(f"  {STREAM_CPU_BLOCKS} streamed blocks with mesh=: windows {werr:.3e}, blocks on the "
+          f"single-card stream's shifts {berr:.3e} from it (tolerance {WAVE_ATOL:.0e}); "
+          f"{moved} shift(s) differ at their own history")
+    gate(max(werr, berr) <= WAVE_ATOL, f"stream with mesh=: {werr}, {berr}")
+
+    got, want = ranks[0]["time_shard"].numpy(), ref["time_shard"]
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    print(f"  time_sharded_convert of 60 s at S={world} vs time_batched_convert: {rel:.3e} of "
+          f"the peak (tolerance {TIME_SHARD_RTOL:.0e}); launches {res[0]['time_shard_launches']}")
+    gate(rel <= TIME_SHARD_RTOL, f"time_sharded_convert: {rel}")
+    for k in CONVERT_LAUNCHES["fp32"]:
+        gate(all(r["time_shard_launches"][k] > 0 for r in res), f"time_sharded_convert: {k} idle")
+
+    # the data-parallel step is the single-card step split in `world` parts
+    # (the global batch at one rank, the two-way split at two), bit for bit
+    # under deterministic algorithms: the ranks' rows, the global draws, the
+    # all-reduce's mean
+    before = len(failed)
+    for dtype in DIST_STEP_DTYPES:
+        exact = ref[dtype]["split" if world == 2 else "step"]
+        for i, d in enumerate([None, *range(STEP_DRAWS)]):
+            x = exact[i]
+            got = [r[dtype][i] for r in res]
+            same = (got[0]["metrics"] == x["metrics"] and got[0]["digest"] == x["digest"]
+                    and [g["fake"] for g in got] == x["fakes"]
+                    and all(g["digest"] == got[0]["digest"] for g in got))
+            gate(same, f"DP step {dtype} (source {d}) is not the "
+                 f"{'split' if world == 2 else 'global'} step: {got} vs {x['digest']}, "
+                 f"{x['fakes']}, {x['metrics']}")
+    print(f"  DP step at world {world} bit-identical to the single-card step "
+          f"{'split in two' if world == 2 else 'on the global batch'} under deterministic "
+          f"algorithms, fp32 and bf16, on all {STEP_DRAWS + 1} sources: {len(failed) == before}")
+
+    # the two-way split (the data-parallel step at two ranks) against the
+    # single-card step on the global batch: gates F and C in fp32, their
+    # floors the same step with only its frozen encoder run on each half
+    # (the encoder's fp32 sums follow the batch in cuBLAS, printed above;
+    # the oscillator integrates f0's rounding into the phase, and the
+    # U-Net carries it into the waveform)
+    for dtype in DIST_STEP_DTYPES:
+        per_draw, fp32 = [], dtype == "float32"
+        for i, d in enumerate([None, *range(STEP_DRAWS)]):
+            whole, split = ref[dtype]["step"][i], ref[dtype]["split"][i]
+            e_f = float((split["fake"] - whole["fake"]).abs().max() / whole["fake"].abs().max())
+            per_draw.append(_leaf_errors(split["leaves"], whole["leaves"]))
+            label = "shipped source" if d is None else f"draw {d}"
+            line = (f"  {dtype} split step, {label}: waveform {e_f:.2e} of the peak, median leaf "
+                    f"{statistics.median(per_draw[-1].values()):.2e}")
+            if fp32:
+                floor, f_wave = ref["floors"][i]
+                limit = max(STEP_FWD_RTOL, STEP_FLOOR_FACTOR * f_wave)
+                line += (f"; the floor's {f_wave:.2e} and {statistics.median(floor.values()):.2e}"
+                         f" (gate F's limit {limit:.2e})")
+                gate(e_f <= limit, f"split step gate F ({label}): waveform {e_f} > {limit}")
+            print(line + ("" if fp32 else " (not gated)"))
+            for name in PREJOIN_LOSSES if d is None else ():
+                a, b = split["metrics"][name], whole["metrics"][name]
+                print(f"  {dtype} split step {name}: {a:.7f}, global {b:.7f}, relative "
+                      f"{abs(a - b) / abs(b):.2e} (tolerance {STEP_LOSS_RTOL:.0e})")
+                gate(abs(a - b) <= STEP_LOSS_RTOL * abs(b), f"{dtype} split step: {name}")
+        if fp32:
+            med, fmed, med_limit, _, failed_c = _gate_c(per_draw, [f[0] for f in ref["floors"]])
+            print(f"  fp32 split step gate C over {len(per_draw)} sources: median of the "
+                  f"medians {med:.2e}, limit {med_limit:.2e} (the floors' {fmed:.2e}); "
+                  f"{len(failed_c)} failure(s)")
+            gate(not failed_c, f"split step gate C: {len(failed_c)} failure(s), first "
+                 f"{failed_c[:6]}")
+    letters = res[0]["step_launches"]
+    print(f"  DP step launches a step: {letters}")
+    for row, n in letters.items():
+        gate(all(r["step_launches"][row] > 0 for r in res), f"DP step: {row} idle")
+    digests = {r["digest"] for r in res} | {r["restored_digest"] for r in res}
+    print(f"  after three DP steps: parameter digests {[r['digest'] for r in res]}; restored "
+          f"from rank 0's checkpoint {[r['restored_digest'] for r in res]}")
+    gate(len(digests) == 1, f"digests {digests}")
+    ms = statistics.median(r["step_ms"] for r in res)
+    print(f"  world {world}: NCCL {res[0]['nccl']}; the gradient all-reduce "
+          f"{statistics.median(r['all_reduce_ms'] for r in res):.3f} ms a step "
+          f"({res[0]['all_reduce_mb']:.1f} MiB); the DP step at B=16 x 2 s global "
+          f"{ms:.3f} ms (world 1 without a group: {ref['step_ms']:.3f} ms) ({card})")
+    _check(not failed, f"distributed: {failed}")
+
+
 def _profile_call(fn):
     """(device time by kernel name {name: [ms, count]}, fn's result) of one
     call under torch.profiler."""
@@ -4333,16 +4992,23 @@ def main(argv=None) -> int:
     and the streaming phase (`phase_stream`), of the port in DIR.
     ``--chunked [DIR]``: env, build and the chunked phase (`phase_chunked`),
     of the port in DIR. ``--train-encoder [DIR]``: env, build and the
-    train_encoder phase (`phase_train_encoder`), of the port in DIR."""
+    train_encoder phase (`phase_train_encoder`), of the port in DIR.
+    ``--distributed [DIR]``: env, build and the distributed phase
+    (`phase_distributed`), of the port in DIR; it starts its ranks as
+    ``--distributed-rank RANK WORLD PORT WORK DIR``."""
     global ROOT
     args = sys.argv[1:] if argv is None else argv
     modes = {"--profile": phase_profile_only, "--train-step": phase_train_step,
              "--unet-stages": phase_unet_stages, "--osc-resample": phase_osc_resample,
              "--step-chaos": phase_step_chaos, "--stream": phase_stream,
-             "--chunked": phase_chunked, "--train-encoder": phase_train_encoder}
+             "--chunked": phase_chunked, "--train-encoder": phase_train_encoder,
+             "--distributed": phase_distributed}
     mode = modes.get(args[0]) if args else None
     if mode is not None and len(args) > 1:
         ROOT = os.path.abspath(args[1])
+    rank = args[0] == "--distributed-rank" if args else False
+    if rank:  # one rank of the distributed phase: RANK WORLD PORT WORK ROOT
+        ROOT = os.path.abspath(args[5])
     if not os.path.isdir(os.path.join(ROOT, "tinyvc_tpu_torch")):
         print("chip_smoke.py needs the repository around it (tinyvc_tpu_torch/)", file=sys.stderr)
         return 1
@@ -4356,6 +5022,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke.py runs on a GPU", file=sys.stderr)
         return 1
+    if rank:
+        _dist_rank(int(args[1]), int(args[2]), int(args[3]), args[4])
+        return 0
     if mode is not None:
         print(f"{args[0][2:]} of {ROOT}")
         card = phase_env()
@@ -4408,6 +5077,9 @@ def main(argv=None) -> int:
     t0 = _phase("train_encoder")
     phase_train_encoder(card)
     _done("train_encoder", t0)
+    t0 = _phase("distributed")
+    phase_distributed(card)
+    _done("distributed", t0)
     print(f"== total: {time.perf_counter() - t_all:.2f} s")
 
     rows = []

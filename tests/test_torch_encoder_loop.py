@@ -6,8 +6,8 @@ K-step windows of `train/multi_step.py` against K single steps (bit for
 bit) and the encoder's against JAX's ``make_encoder_multi_step``;
 ``effective_k``; and ``cli.train_encoder --device cpu`` at the shipped
 widths: it trains, logs, saves and resumes, with and without ``--device-data
--K``, needs CUDA unless the CPU is asked for, and refuses the multi-host
-flags.
+-K``, needs CUDA unless the CPU is asked for, and takes the multi-host flags
+(one process without a group; two gloo ranks).
 
 Both loops start from one state: JAX's initial state is written as the
 port's checkpoint, so the port resumes from it. Bounds, measured before
@@ -312,11 +312,49 @@ def test_cli_needs_cuda_unless_cpu_is_asked_for(full_cache, tmp_path):
     assert not (tmp_path / "c").exists() or not os.listdir(tmp_path / "c")
 
 
-@pytest.mark.parametrize("flag", [["--coordinator-address", "localhost:1"],
-                                  ["--num-processes", "2"], ["--process-id", "0"]])
-def test_cli_refuses_the_multi_host_flags(flag, capsys):
+def test_cli_single_process_flags_train_without_a_group(full_cache, tmp_path, monkeypatch):
+    """``--num-processes 1 --process-id 0`` (JAX's single-host form) forms
+    no process group and trains one process."""
+    import torch.distributed as dist
+
+    from tinyvc_tpu_torch.cli import train_encoder as cli
+
+    monkeypatch.setenv("TINYVC_NO_NATIVE_LOADER", "1")
+    ckpt = tmp_path / "enc"
+    cli.main(["--dataset-cache", full_cache, "-path", str(ckpt), "--log-dir",
+              str(tmp_path / "logs"), "-b", "2", "-e", "1", "--device", "cpu",
+              "--num-processes", "1", "--process-id", "0"])
+    assert not dist.is_initialized()
+    assert CheckpointManager(str(ckpt)).steps() == [1]
+
+
+def test_cli_two_processes_need_an_address(capsys):
     from tinyvc_tpu_torch.cli import train_encoder as cli
 
     with pytest.raises(SystemExit) as e:
-        cli.main(["--device", "cpu", *flag])
-    assert e.value.code == 2 and "multi-host training is not ported yet" in capsys.readouterr().err
+        cli.main(["--device", "cpu", "--num-processes", "2", "--process-id", "0"])
+    assert e.value.code == 2 and "need --coordinator-address" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("batch", [3, 2])
+def test_cli_on_two_ranks(full_cache, tmp_path, batch):
+    """Two gloo ranks: a global batch that does not divide the world fails
+    on both with JAX's message; one that does trains data-parallel, rank 0
+    alone logging (3 chunks, a row a rank: 3 steps) and saving once."""
+    from torch_dist import launch
+
+    ckpt, logs = tmp_path / "enc", tmp_path / "logs"
+    flags = ["--dataset-cache", full_cache, "-path", str(ckpt), "--log-dir", str(logs),
+             "-b", str(batch), "-e", "1", "--log-interval", "1", "--save-interval", "3"]
+    results = launch(tmp_path / "run", [{"name": "cli", "kind": "cli",
+                                         "args": {"cli": "train_encoder", "flags": flags}}],
+                     timeout=240)
+    if batch == 3:
+        for code, _, err in results:
+            assert code != 0 and "global batch (3) divisible by the global device count (2)" in err
+        return
+    for r, (code, out, err) in enumerate(results):
+        assert code == 0, err[-3000:]
+        assert ("epoch 0 step 3" in out) == (r == 0)
+    assert [row[0] for row in _losses(str(logs))] == [1, 2, 3]
+    assert CheckpointManager(str(ckpt)).steps() == [3]

@@ -1,5 +1,6 @@
-"""The port stands alone and hides no fallback: `tinyvc_tpu_torch` and
-`chip_smoke.py` import nothing of JAX or `tinyvc_tpu`; the entry points refuse
+"""The port stands alone and hides no fallback: `tinyvc_tpu_torch`,
+`chip_smoke.py` and the distributed tests' worker (`tests/
+torch_dist_worker.py`) import nothing of JAX or `tinyvc_tpu`; the entry points refuse
 to run on a machine without CUDA unless the CPU is asked for; and the kernel
 build is one ``nvcc`` per source for ``sm_90a``, started together, and one
 link."""
@@ -17,7 +18,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODELS = os.path.join(ROOT, "models", "two_speaker")
 
 BLOCKER = textwrap.dedent("""
-    import importlib, importlib.abc, pkgutil, sys
+    import importlib, importlib.abc, importlib.util, pkgutil, sys
     BLOCKED = ("jax", "jaxlib", "flax", "optax", "tinyvc_tpu", "triton")
 
     class Refuse(importlib.abc.MetaPathFinder):
@@ -33,6 +34,9 @@ BLOCKER = textwrap.dedent("""
         tinyvc_tpu_torch.__path__, "tinyvc_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    # the distributed tests' worker runs as a script of the port alone
+    spec = importlib.util.spec_from_file_location("torch_dist_worker", {worker!r})
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print(" ".join(names))
@@ -43,6 +47,7 @@ STREAMING_MODULES = {"tinyvc_tpu_torch.dsp.resample", "tinyvc_tpu_torch.utils.to
                      "tinyvc_tpu_torch.cli.infer_streaming"}
 CHUNKED_MODULES = {"tinyvc_tpu_torch.parallel", "tinyvc_tpu_torch.parallel.time_shard",
                    "tinyvc_tpu_torch.infer.index", "tinyvc_tpu_torch.cli.extract_index"}
+DISTRIBUTED_MODULES = {"tinyvc_tpu_torch.parallel.mesh", "tinyvc_tpu_torch.parallel.sharded_knn"}
 TRAINING_MODULES = {f"tinyvc_tpu_torch.{m}" for m in (
     "dsp.f0", "data.noise", "data.preprocess", "data.native_loader", "train.encoder_train",
     "train.teacher", "train.multi_step", "utils.torch_compat_disc", "cli.preprocess",
@@ -50,7 +55,8 @@ TRAINING_MODULES = {f"tinyvc_tpu_torch.{m}" for m in (
 
 
 def test_port_imports_nothing_of_jax():
-    proc = subprocess.run([sys.executable, "-c", BLOCKER.format(root=ROOT)],
+    worker = os.path.join(ROOT, "tests", "torch_dist_worker.py")
+    proc = subprocess.run([sys.executable, "-c", BLOCKER.format(root=ROOT, worker=worker)],
                           capture_output=True, text=True, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names, count = proc.stdout.strip().splitlines()[-2:]
@@ -58,6 +64,7 @@ def test_port_imports_nothing_of_jax():
     assert STREAMING_MODULES <= set(names.split())
     assert CHUNKED_MODULES <= set(names.split())
     assert TRAINING_MODULES <= set(names.split())
+    assert DISTRIBUTED_MODULES <= set(names.split())
 
 
 NATIVE_PROBE = textwrap.dedent("""

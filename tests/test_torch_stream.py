@@ -2,7 +2,8 @@
 against `tinyvc_tpu.infer.stream` on the CPU: the fade windows, the phase
 vocoder, the key schedule, and a stream of blocks at small widths with
 random weights, block by block, with the sin² crossfade and the phase
-vocoder; then the port's pipelined dispatch, reset and latency."""
+vocoder; then the port's pipelined dispatch, reset and latency, and a
+stream over a sharded dictionary (``mesh=``) at one rank."""
 
 import math
 
@@ -72,7 +73,7 @@ def _voiced(rng, L, sr=24000):
     return (w + 0.02 * rng.standard_normal(L)).astype(np.float32)
 
 
-def _setup(rng, phase_vocoder: bool):
+def _setup(rng, phase_vocoder: bool, draw=random_params):
     scfg = dict(STREAM, use_phase_vocoder=phase_vocoder)
     jc = jcfg.TinyVCConfig(encoder=jcfg.EncoderConfig(**ENC), decoder=jcfg.DecoderConfig(**DEC),
                            stream=jcfg.StreamConfig(**scfg))
@@ -80,12 +81,12 @@ def _setup(rng, phase_vocoder: bool):
                            stream=pcfg.StreamConfig(**scfg))
     F = jc.stream.input_size // 480
     E, D = Encoder(jc.encoder), Decoder(jc.decoder, jc.audio)
-    enc_p = random_params(E, jnp.zeros((1, F, 961)))
+    enc_p = draw(E, jnp.zeros((1, F, 961)))
     # random weights decode f0 in the kHz; push the pitch head towards class
     # 140 (~150 Hz), as tests/test_torch_convert.py does
     head = enc_p["params"]["pitch_estimator"]["stack"]["output_layer"]
     head["bias"] = head["bias"] + 8.0 * np.exp(-(((np.arange(512) - 140) / 20.0) ** 2))
-    dec_p = random_params(D, jnp.zeros((1, F, 32)), jnp.full((1, F), 100.0),
+    dec_p = draw(D, jnp.zeros((1, F, 32)), jnp.full((1, F), 100.0),
                           jnp.zeros((1, F * 480)), jnp.zeros((2,), jnp.uint32),
                           noise_angle=jnp.zeros((1, F, 961)))
     target = rng.standard_normal((40, 32)).astype(np.float32)
@@ -197,6 +198,43 @@ def test_reset_keeps_the_key_and_latency(rng):
         sc.process_block(blocks[0][:100])
 
 
-def test_mesh_raises_and_names_its_item(rng):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _port_stream(rng, mesh=object())
+@pytest.fixture()
+def one_rank_group():
+    """A gloo process group of this process alone, for the length of a test."""
+    import torch.distributed as dist
+    from torch_dist import free_port
+
+    from tinyvc_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        yield make_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_stream_at_one_rank_is_the_plain_stream(rng, one_rank_group):
+    """``mesh=`` streams: at one rank (one shard), through the sharded match
+    and its collectives, the same blocks and shifts as without a mesh up to
+    the mean's sum order (`tests/test_torch_sharded_knn.py` holds two ranks
+    to JAX's)."""
+    sc, blocks = _port_stream(rng)
+    plain = []
+    for b in blocks:
+        stats = {}
+        plain.append((sc.step(b, stats).numpy(), int(stats["shift"])))
+    sc, blocks = _port_stream(np.random.default_rng(0), mesh=one_rank_group)
+    assert sc.target[0].shape == (40, 32) and bool(sc.target[1].all())  # no padding at S=1
+    for b, (want, shift) in zip(blocks, plain):
+        stats = {}
+        got = sc.step(b, stats).numpy()
+        assert int(stats["shift"]) == shift
+        np.testing.assert_allclose(got, want, atol=1e-6 * np.abs(want).max(), rtol=0)
+
+
+def test_mesh_stream_needs_one_data_row(rng):
+    from tinyvc_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="needs data=1"):
+        _port_stream(rng, mesh=Mesh(data=2, model=1, rank=0, data_group=None, model_group=None))

@@ -4,8 +4,9 @@ the batch order against the JAX package's loader, the checkpoint round
 trip (with and without a discriminator), three steps through ``python -m
 tinyvc_tpu_torch.cli.train_decoder --device cpu`` at the shipped widths
 across the discriminator's join, logging, saving, resuming with both
-networks' moments restored; and the refusals (no CUDA by default, the
-flags of later slices). The CLI's runs take the Python loader
+networks' moments restored; no CUDA by default; ``--remat``; the
+multi-host flags (one process without a group, incomplete flags refused,
+two gloo ranks). The CLI's runs take the Python loader
 (``TINYVC_NO_NATIVE_LOADER``): the native one pads every 0.4 s chunk to the
 config's 2 s, as the JAX package's does. `tests/test_torch_train_device_data.py`
 runs the device-resident cache."""
@@ -186,10 +187,65 @@ def test_cli_needs_cuda_unless_cpu_is_asked_for(cache, tmp_path):
     assert "CUDA is not available" in proc.stderr
 
 
-@pytest.mark.parametrize("flag", [["--remat"], ["--coordinator-address", "localhost:1"],
-                                  ["--num-processes", "2"], ["--process-id", "0"]])
-def test_cli_refuses_later_slices_flags(flag, capsys):
+@pytest.mark.parametrize("remat", [True, False])
+def test_cli_remat_reaches_the_config(remat, monkeypatch):
+    from tinyvc_tpu_torch.train import loop
+
+    seen = {}
+    monkeypatch.setattr(loop, "train_decoder", lambda cfg, **kw: seen.update(cfg=cfg, **kw))
+    cli.main(["--device", "cpu"] + (["--remat"] if remat else []))
+    assert seen["cfg"].decoder.remat is remat and seen["device"] == "cpu"
+
+
+def test_cli_single_process_flags_train_without_a_group(cache, tmp_path, monkeypatch):
+    """``--num-processes 1 --process-id 0`` (JAX's single-host form) forms
+    no process group and trains one process."""
+    import torch.distributed as dist
+
+    monkeypatch.setenv("TINYVC_NO_NATIVE_LOADER", "1")
+    ckpt = tmp_path / "ckpt"
+    cli.main(["--dataset-cache", cache, "-encp", os.path.join(MODELS, "encoder_B.npz"),
+              "--init-decoder", os.path.join(MODELS, "decoder_B.npz"), "-decp", str(ckpt),
+              "--log-dir", str(tmp_path / "logs"), "-b", "2", "-step", "1", "-spec-type",
+              "mel", "--device", "cpu", "--num-processes", "1", "--process-id", "0"])
+    assert not dist.is_initialized()
+    assert CheckpointManager(str(ckpt)).steps() == [1]
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--num-processes", "2", "--process-id", "0"], "need --coordinator-address"),
+    (["--num-processes", "2", "--coordinator-address", "localhost:1"], "--process-id must be"),
+    (["--num-processes", "2", "--process-id", "2", "--coordinator-address", "localhost:1"],
+     "--process-id must be in [0, 2)"),
+])
+def test_cli_rejects_incomplete_multi_host_flags(flags, message, capsys):
     with pytest.raises(SystemExit) as e:
-        cli.main(["--device", "cpu", *flag])
-    assert e.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+        cli.main(["--device", "cpu", *flags])
+    assert e.value.code == 2 and message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("batch", [3, 2])
+def test_cli_on_two_ranks(cache, tmp_path, batch):
+    """Two gloo ranks: a global batch that does not divide the world fails
+    on both with JAX's message; one that does trains data-parallel from the
+    shipped weights, rank 0 alone logging, one checkpoint."""
+    from torch_dist import launch
+
+    ckpt, logs = tmp_path / "ckpt", tmp_path / "logs"
+    flags = ["--dataset-cache", cache, "-encp", os.path.join(MODELS, "encoder_B.npz"),
+             "--init-decoder", os.path.join(MODELS, "decoder_B.npz"), "-decp", str(ckpt),
+             "--log-dir", str(logs), "-b", str(batch), "-step", "1", "--log-interval", "1",
+             "-spec-type", "mel"]
+    results = launch(tmp_path / "run", [{"name": "cli", "kind": "cli",
+                                         "args": {"cli": "train_decoder", "flags": flags}}],
+                     timeout=240)
+    if batch == 3:
+        for code, _, err in results:
+            assert code != 0 and "global batch (3) divisible by the global device count (2)" in err
+        return
+    for r, (code, out, err) in enumerate(results):
+        assert code == 0, err[-3000:]
+        assert ("step 1 spec=" in out) == (r == 0)
+    lines = [json.loads(x) for x in (logs / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in lines] == [1]
+    assert CheckpointManager(str(ckpt)).steps() == [1]

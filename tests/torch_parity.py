@@ -35,6 +35,27 @@ def random_params(module, *args, **kwargs):
     return jax.tree_util.tree_unflatten(treedef, values)
 
 
+def numpy_params(module, *args, seed: int = 7, **kwargs):
+    """:func:`random_params`'s distributions drawn by numpy from ``seed``:
+    the same shapes at a fraction of the time (one ``jax.random`` draw a leaf
+    compiles for each new shape)."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args, **kwargs)
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(shapes)
+    rng = np.random.default_rng(seed)
+    values = []
+    for path, leaf in leaves:
+        names = [getattr(p, "key", "") for p in path]
+        if names[-1] == "kernel":
+            bound = 1.0 / math.sqrt(int(np.prod(leaf.shape[:-1])))
+            v = rng.uniform(-bound, bound, leaf.shape)
+        else:
+            v = 0.1 * rng.standard_normal(leaf.shape)
+            if names[-1] == "gamma" and names[-2] == "norm":
+                v = v + 1.0
+        values.append(np.asarray(v, np.float32))
+    return jax.tree_util.tree_unflatten(treedef, values)
+
+
 def jax_stages(encoder, decoder, enc_p, dec_p, wave, target, pitch_shift, angle, cfg):
     """Run `tinyvc_tpu.infer.generator.convert_fn` (jitted) on ``wave`` with
     the explicit noise ``angle``, and the same stages one by one; returns

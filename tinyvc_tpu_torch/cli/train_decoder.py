@@ -15,21 +15,20 @@ resumed from the checkpoint; its MRD runs the default
 ``--device-data`` holds the cache on the device, ``-K`` runs K steps a
 window on it (0: the log interval), with K dividing the join. ``--device
 cuda`` (the default) fails when CUDA is absent; ``--device cpu`` runs the
-kernels' plain versions. The flags of later slices are refused:
-``--remat`` and the multi-host ones.
+kernels' plain versions. ``--remat`` recomputes the layer-by-layer U-Net's
+blocks in the backward (`models/decoder.py::FilterNet`; the fused training
+U-Net, CUDA's default, does not read it, as in JAX).
+
+Data-parallel training runs one process per card, each launched with the
+same flags and ``--coordinator-address host:port --num-processes N
+--process-id i`` (NCCL; gloo with ``--device cpu``), ``-b`` the global
+batch (`train/loop.py`, `parallel/mesh.py`).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-
-REFUSED = {
-    "remat": "--remat (recomputing the U-Net in the backward) is not ported yet",
-    "coordinator_address": "multi-host training is not ported yet",
-    "num_processes": "multi-host training is not ported yet",
-    "process_id": "multi-host training is not ported yet",
-}
 
 
 def main(argv=None):
@@ -55,24 +54,34 @@ def main(argv=None):
     p.add_argument("--weight-spec", default=1.0, type=float)
     p.add_argument("--weight-feat", default=2.0, type=float)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    p.add_argument("--remat", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the U-Net's blocks in the backward (the layer-by-layer U-Net)")
     p.add_argument("--device-data", action="store_true",
                    help="upload the whole chunk cache to the device once and gather batches "
                    "there")
     p.add_argument("-K", "--steps-per-dispatch", default=0, type=int,
                    help="with --device-data: K steps per window (0 = auto; 1 = one at a time)")
-    p.add_argument("--coordinator-address", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--num-processes", default=None, type=int, help=argparse.SUPPRESS)
-    p.add_argument("--process-id", default=None, type=int, help=argparse.SUPPRESS)
+    p.add_argument("--coordinator-address", default=None,
+                   help="data-parallel: host:port of process 0 (one process per card)")
+    p.add_argument("--num-processes", default=None, type=int)
+    p.add_argument("--process-id", default=None, type=int)
     args = p.parse_args(argv)
-    for flag, why in REFUSED.items():
-        if getattr(args, flag) is not None and getattr(args, flag) is not False:
-            p.error(f"{why} (ROADMAP.md)")
+
+    from ..parallel.mesh import init_distributed
+
+    # before anything touches a card: each process takes its own
+    try:
+        init_distributed(args.coordinator_address, args.num_processes, args.process_id,
+                         args.device)
+    except ValueError as e:
+        p.error(str(e))
 
     from ..config import TinyVCConfig
     from ..train.loop import train_decoder
 
     cfg = TinyVCConfig()
+    if args.remat:
+        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, remat=True))
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train,
         batch_size=args.batch_size,

@@ -12,17 +12,14 @@ resumed when it holds a checkpoint, which `cli/train_decoder.py -encp` and
 `cli/infer.py -encp` read. ``--device-data`` holds the cache on the device,
 ``-K`` runs K steps a window on it (0: the log interval). ``--device cuda``
 (the default) fails when CUDA is absent; ``--device cpu`` runs on the CPU.
-The multi-host flags are refused: distributed training is not ported yet.
+Data-parallel training runs one process per card, each launched with the
+same flags and ``--coordinator-address host:port --num-processes N
+--process-id i`` (NCCL; gloo with ``--device cpu``), ``-b`` the global
+batch.
 """
 
 import argparse
 import dataclasses
-
-REFUSED = {
-    "coordinator_address": "multi-host training is not ported yet",
-    "num_processes": "multi-host training is not ported yet",
-    "process_id": "multi-host training is not ported yet",
-}
 
 
 def main(argv=None):
@@ -43,13 +40,20 @@ def main(argv=None):
     p.add_argument("-K", "--steps-per-dispatch", default=0, type=int,
                    help="with --device-data: K steps per window (0 = auto; 1 = one at a time)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    p.add_argument("--coordinator-address", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--num-processes", default=None, type=int, help=argparse.SUPPRESS)
-    p.add_argument("--process-id", default=None, type=int, help=argparse.SUPPRESS)
+    p.add_argument("--coordinator-address", default=None,
+                   help="data-parallel: host:port of process 0 (one process per card)")
+    p.add_argument("--num-processes", default=None, type=int)
+    p.add_argument("--process-id", default=None, type=int)
     args = p.parse_args(argv)
-    for flag, why in REFUSED.items():
-        if getattr(args, flag) is not None:
-            p.error(f"{why} (ROADMAP.md)")
+
+    from ..parallel.mesh import init_distributed
+
+    # before anything touches a card: each process takes its own
+    try:
+        init_distributed(args.coordinator_address, args.num_processes, args.process_id,
+                         args.device)
+    except ValueError as e:
+        p.error(str(e))
 
     from ..config import TinyVCConfig
     from ..train.loop import train_encoder

@@ -82,6 +82,10 @@ class DecoderConfig:
     use_fused_filter: str = "auto"  # 'auto' | 'on' | 'off'
     use_fused_filter_train: str = "auto"  # 'auto' | 'on' | 'off'
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
+    # recompute the layer-by-layer U-Net's Downsample and Upsample blocks in
+    # the backward instead of keeping their activations (JAX's nn.remat);
+    # the fused training U-Net does not read it, as in JAX
+    remat: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -176,11 +176,47 @@ def convert_fn(
     ``noise_angle`` ``[B, F, bins]`` replaces them. ``stages``, when given,
     receives the intermediate tensors (the frame-padded input, spec, content,
     f0, matched, energy, amps, noise_kernel, source, out) for inspection."""
+    return _convert(encoder, decoder, wave, lambda c: serving_match_features(c, target, cfg),
+                    pitch_shift, noise_seed, cfg, noise_angle, stages)
+
+
+def convert_fn_sharded(
+    encoder: Encoder,
+    decoder: Decoder,
+    wave: torch.Tensor,
+    dictionary: torch.Tensor,
+    mask: torch.Tensor,
+    pitch_shift: float,
+    noise_seed: int,
+    cfg: TinyVCConfig,
+    mesh,
+    noise_angle: Optional[torch.Tensor] = None,
+    stages: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """:func:`convert_fn` with the kNN dictionary's rows sharded over the
+    mesh's ``model`` axis (`tinyvc_tpu/infer/generator.py::
+    convert_fn_sharded`): ``wave`` is this rank's rows, ``dictionary`` and
+    ``mask`` this rank's shard of the padded dictionary
+    (`parallel/sharded_knn.py::pad_dictionary`, ``dictionary_shard``).
+    Each rank runs the spectrogram, the encoder, the sharded match
+    (`parallel/sharded_knn.py::sharded_match_features`, the similarity
+    product in fp32, not kernel H: JAX's path), the pitch shift and the
+    decoder on its rows."""
+    from ..parallel.sharded_knn import sharded_match_features
+
+    r = cfg.retrieval
+    return _convert(encoder, decoder, wave, lambda c: sharded_match_features(
+        mesh, c, dictionary, mask, k=r.k, alpha=r.alpha, metric=r.metric),
+        pitch_shift, noise_seed, cfg, noise_angle, stages)
+
+
+def _convert(encoder, decoder, wave, match, pitch_shift, noise_seed, cfg, noise_angle, stages):
+    """The pipeline of both converters, ``match`` the kNN step."""
     wave = autopad_waveform(wave, cfg.audio.hop_size)
     spec = serving_spectrogram(wave, cfg)
     energy = estimate_energy(wave, cfg.audio.energy_frame_size)
     content, f0 = encoder.infer(spec)
-    matched = serving_match_features(content, target, cfg)
+    matched = match(content)
     f0 = shift_frequency(f0, pitch_shift)
     out = decode_infer(decoder, matched, f0, energy, noise_seed, cfg, noise_angle, stages)
     if stages is not None:

@@ -33,7 +33,7 @@ import torch
 from ..config import TinyVCConfig
 from ..utils import prng
 from ..utils.weights import decoder_from_jax, encoder_from_jax
-from .generator import _resolve_device, convert_fn, exact_fp32
+from .generator import _resolve_device, convert_fn, convert_fn_sharded, exact_fp32
 
 # block subkey -> (kernel B's int32 seed, noise phases [1, F, bins] or None)
 NoiseFn = Callable[[np.ndarray], Tuple[int, Optional[torch.Tensor]]]
@@ -149,14 +149,16 @@ def make_stream_step(encoder, decoder, cfg: TinyVCConfig, device, mesh=None,
                      noise: NoiseFn = hashed_noise):
     """The per-block function ``(state, block [block_size] on the device,
     target [N, C], pitch_shift, stats=None) -> (state, out [block_size])``.
+    With ``mesh`` (`parallel/mesh.py::Mesh`), ``target`` is this rank's
+    ``(dictionary, mask)`` shard over the mesh's ``model`` axis and the
+    window converts through `infer/generator.py::convert_fn_sharded`
+    (JAX's BASELINE config 5): every rank of the model group converts the
+    same window and returns the same block.
     ``noise`` gives each block's noise from the block's subkey: kernel B's
     seed by default; a test hands in the JAX package's CPU draw as phases.
     ``stats``, when given, receives the converted window ``window``, the
     normalised correlation over the shifts ``corr`` and the SOLA shift
     ``shift``, on the device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a sharded kNN dictionary (mesh=) is not ported yet (ROADMAP §1 item 6, distributed)")
     scfg = cfg.stream
     block = scfg.block_size
     fades = _fade_windows(scfg.crossfade_size, device)
@@ -167,8 +169,13 @@ def make_stream_step(encoder, decoder, cfg: TinyVCConfig, device, mesh=None,
         input_wav = torch.cat([state.input_wav[block:], block_in])
         seed, angle = noise(subkey)
         with exact_fp32():
-            y = convert_fn(encoder, decoder, input_wav[None], target, pitch_shift, seed, cfg,
-                           noise_angle=angle)[0].float()
+            if mesh is None:
+                y = convert_fn(encoder, decoder, input_wav[None], target, pitch_shift, seed, cfg,
+                               noise_angle=angle)
+            else:
+                y = convert_fn_sharded(encoder, decoder, input_wav[None], *target, pitch_shift,
+                                       seed, cfg, mesh, noise_angle=angle)
+            y = y[0].float()
 
         out, tail, corr, shift = sola_stitch(y, state.sola_buffer, scfg, fades)
         if stats is not None:
@@ -183,7 +190,10 @@ class StreamConverter:
     ``StreamConverter``, the reference's ``StreamInfer``), with the state on
     one device. The device defaults to CUDA and raises when CUDA is absent;
     the CPU runs only when asked for. ``target`` ``[N, C]`` is moved to the
-    device once and never written."""
+    device once and never written. With ``mesh`` (a ``data=1`` grid: a
+    stream is one row), the dictionary is padded over the ``model`` axis
+    and this rank keeps only its shard (`parallel/sharded_knn.py`); every
+    rank of the group steps the same blocks."""
 
     def __init__(
         self,
@@ -203,6 +213,13 @@ class StreamConverter:
         self.decoder = decoder_from_jax(dec_params, self.cfg.decoder,
                                         self.cfg.audio).to(self.device)
         self.target = torch.as_tensor(target, dtype=torch.float32).to(self.device)
+        if mesh is not None:
+            from ..parallel.sharded_knn import dictionary_shard, pad_dictionary
+
+            if mesh.data != 1:
+                raise ValueError(f"a stream is one row: its mesh needs data=1, got {mesh.data}")
+            padded, mask = pad_dictionary(self.target, mesh.model, self.cfg.retrieval.k)
+            self.target = dictionary_shard(padded, mask, mesh)
         self.pitch_shift = float(np.float32(pitch_shift))
         self._step = make_stream_step(self.encoder, self.decoder, self.cfg, self.device, mesh,
                                       noise)

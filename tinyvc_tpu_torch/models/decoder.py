@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import AudioConfig, DecoderConfig
 from ..dsp.interp import downsample_time_int_t, upsample_time_int_t
@@ -148,7 +149,10 @@ class FilterNet(nn.Module):
     """Sample-rate U-Net refining the DSP source into the waveform. The down
     path takes cat(source, energy); its outputs FiLM-condition the up path.
     Everything but the output conv computes in ``cfg.compute_dtype``; the
-    output conv is fp32 (`tinyvc_tpu/models/decoder.py::FilterNet`)."""
+    output conv is fp32 (`tinyvc_tpu/models/decoder.py::FilterNet`). With
+    ``cfg.remat``, each Downsample and Upsample call under grad keeps only
+    its inputs and recomputes its activations in the backward
+    (``torch.utils.checkpoint``, JAX's ``nn.remat`` of both blocks)."""
 
     def __init__(self, cfg: DecoderConfig = DecoderConfig()):
         super().__init__()
@@ -169,6 +173,13 @@ class FilterNet(nn.Module):
             self.add_module(f"up_{i}", Upsample(c, n, f, dt))
         self.num_up = len(factors)
         self.output_layer = Conv1d(channels[-1], 1, 7)
+        self.remat = cfg.remat
+
+    def _block(self, name: str, *args: torch.Tensor) -> torch.Tensor:
+        block = getattr(self, name)
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
 
     def forward(self, content: torch.Tensor, f0: torch.Tensor, energy: torch.Tensor,
                 source: torch.Tensor) -> torch.Tensor:
@@ -178,10 +189,10 @@ class FilterNet(nn.Module):
         src = self.down_0(torch.cat([source, energy[:, None, :]], dim=1))
         skips = [src]
         for i in range(self.num_down):
-            src = getattr(self, f"down_{i + 1}")(src)
+            src = self._block(f"down_{i + 1}", src)
             skips.append(src)
         for i in range(self.num_up):
-            x = getattr(self, f"up_{i}")(x, skips[len(skips) - 1 - i])
+            x = self._block(f"up_{i}", x, skips[len(skips) - 1 - i])
         return self.output_layer(x)[:, 0, :]
 
 

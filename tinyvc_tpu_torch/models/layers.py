@@ -20,6 +20,7 @@ import contextlib
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -134,13 +135,17 @@ class GRN(nn.Module):
     are overlapping time chunks of one utterance: ``time_halo`` frames at
     each end of a row are left out of the statistic, and with
     ``time_batch_reduce`` the statistic is summed over the rows, so every
-    chunk sees the utterance's (`tinyvc_tpu/models/layers.py::GRN`)."""
+    chunk sees the utterance's (`tinyvc_tpu/models/layers.py::GRN`); with
+    ``time_group`` as well, a process group whose ranks hold the other
+    rows, it is then summed over the group (JAX's ``psum`` over the time
+    axis, `parallel/time_shard.py::time_sharded_convert`)."""
 
     def __init__(self, channels: int, eps: float = 1e-6, dtype: torch.dtype = torch.float32,
                  time_halo: int = 0, time_batch_reduce: bool = False):
         super().__init__()
         self.eps, self.dtype = eps, dtype
         self.time_halo, self.time_batch_reduce = time_halo, time_batch_reduce
+        self.time_group = None
         self.gamma = nn.Parameter(torch.zeros(channels))
         self.beta = nn.Parameter(torch.zeros(channels))
 
@@ -151,28 +156,31 @@ class GRN(nn.Module):
         sq = torch.sum(core * core, dim=-2, keepdim=True)
         if self.time_batch_reduce:
             sq = torch.sum(sq, dim=0, keepdim=True)  # chunk rows -> the utterance
+        if self.time_group is not None:
+            dist.all_reduce(sq, group=self.time_group)  # every rank's rows
         gx = torch.sqrt(sq)
         nx = gx / (gx.mean(dim=-1, keepdim=True) + self.eps)
         return (self.gamma * (x * nx) + self.beta + x).to(self.dtype)
 
 
 @contextlib.contextmanager
-def grn_time_chunks(module: nn.Module, time_halo: int, time_batch: bool):
-    """Every :class:`GRN` under ``module`` takes ``time_halo`` and
-    ``time_batch_reduce`` = ``time_batch`` for the duration, as if the module
-    had been built with them; the settings it was built with come back
-    afterwards. Lets one set of weights serve whole and chunked conversion.
-    The settings live on the modules: a call on them from another thread
-    meanwhile sees them too."""
+def grn_time_chunks(module: nn.Module, time_halo: int, time_batch: bool, group=None):
+    """Every :class:`GRN` under ``module`` takes ``time_halo``,
+    ``time_batch_reduce`` = ``time_batch`` and ``time_group`` = ``group``
+    for the duration, as if the module had been built with them; the
+    settings it was built with come back afterwards. Lets one set of
+    weights serve whole, chunked and time-sharded conversion. The settings
+    live on the modules: a call on them from another thread meanwhile sees
+    them too."""
     grns = [m for m in module.modules() if isinstance(m, GRN)]
-    saved = [(m.time_halo, m.time_batch_reduce) for m in grns]
+    saved = [(m.time_halo, m.time_batch_reduce, m.time_group) for m in grns]
     for m in grns:
-        m.time_halo, m.time_batch_reduce = time_halo, time_batch
+        m.time_halo, m.time_batch_reduce, m.time_group = time_halo, time_batch, group
     try:
         yield module
     finally:
-        for m, (h, b) in zip(grns, saved):
-            m.time_halo, m.time_batch_reduce = h, b
+        for m, (h, b, g) in zip(grns, saved):
+            m.time_halo, m.time_batch_reduce, m.time_group = h, b, g
 
 
 def exact_gelu(x: torch.Tensor) -> torch.Tensor:

@@ -48,6 +48,7 @@ from ..models.discriminator import Discriminator, fused_mrd_valid_counts
 from ..models.encoder import Encoder
 from ..ops.fused_filternet import filternet_fused_train
 from ..ops.retrieval import match_features
+from ..parallel.mesh import data_mean, global_rows
 from ..utils import prng
 from .losses import (discriminator_adversarial_loss, feature_matching_loss,
                      generator_adversarial_loss, log_mel_loss, multi_scale_stft_loss)
@@ -202,10 +203,17 @@ class TrainStep:
     forward and backward and returns (loss_g, metrics, gradients by
     parameter name) without touching the state; calling the step also
     applies the update and returns the metrics, with ``loss_g`` and
-    ``skipped_g``."""
+    ``skipped_g``.
+
+    With ``mesh`` (`parallel/mesh.py::Mesh`) the step is data-parallel:
+    ``wave`` is this rank's rows of the global batch, the random draws
+    cover the global batch (each rank keeps its rows, so the ranks together
+    draw what one process draws), and the gradients and losses are averaged
+    over the data group before the global norm and the non-finite skip, so
+    that every rank takes the same update."""
 
     def __init__(self, cfg: TinyVCConfig, spec_loss_type: str = "ms-stft",
-                 dtype_name: Optional[str] = None):
+                 dtype_name: Optional[str] = None, mesh=None):
         if spec_loss_type == "ms-stft":
             self.spec_loss = multi_scale_stft_loss
         elif spec_loss_type == "mel":
@@ -216,6 +224,7 @@ class TrainStep:
             raise ValueError(f"spec_loss_type must be 'ms-stft' or 'mel', got {spec_loss_type!r}")
         self.cfg = cfg
         self.dtype_name = dtype_name
+        self.mesh = mesh
 
     def operands(self, device: torch.device) -> str:
         """The fused kernels' operand dtype (the U-Net's, and the fused
@@ -247,14 +256,16 @@ class TrainStep:
 
     def augment(self, wave: torch.Tensor, key: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         """The step's key split into the gain's and the noise's: (the wave
-        scaled by ``2 * uniform`` per row, the noise phases)."""
+        scaled by ``2 * uniform`` per row, the noise phases), this rank's
+        rows of the global batch's draws."""
         cfg = self.cfg
         k_gain, k_noise = prng.split(np.asarray(key, np.uint32))
         B, L = wave.shape
+        Bg, rows = global_rows(self.mesh, B)
         F_ = L // cfg.audio.hop_size
-        gain = torch.from_numpy(prng.uniform(k_gain, (B, 1))).to(wave.device)
-        angle = torch.from_numpy(
-            prng.uniform(k_noise, (B, F_, cfg.audio.fft_bin), -math.pi, math.pi)).to(wave.device)
+        gain = torch.from_numpy(prng.uniform(k_gain, (Bg, 1), rows=rows)).to(wave.device)
+        angle = torch.from_numpy(prng.uniform(k_noise, (Bg, F_, cfg.audio.fft_bin), -math.pi,
+                                              math.pi, rows=rows)).to(wave.device)
         return wave.float() * (gain * 2.0), angle
 
     def spec_losses(self, fake: torch.Tensor, source: torch.Tensor, wave: torch.Tensor):
@@ -270,8 +281,10 @@ class TrainStep:
             loss_spec, loss_dsp = self.spec_losses(fake, source, wave)
             loss_g = loss_spec * cfg.train.weight_spec + loss_dsp * cfg.train.weight_dsp
             grads = _grads(loss_g, state.decoder)
-        metrics = {"loss_spec": loss_spec.detach(), "loss_dsp": loss_dsp.detach()}
-        return loss_g.detach(), metrics, grads
+        metrics = {"loss_spec": loss_spec.detach(), "loss_dsp": loss_dsp.detach(),
+                   "loss_g": loss_g.detach()}
+        grads, metrics = data_mean(self.mesh, grads, metrics)
+        return metrics.pop("loss_g"), metrics, grads
 
     def __call__(self, state: TrainState, encoder: Encoder, wave: torch.Tensor,
                  key: np.ndarray) -> Dict[str, torch.Tensor]:
@@ -293,8 +306,8 @@ class PostJoinStep(TrainStep):
     ``loss_feat``, ``loss_g``, ``loss_d``, ``skipped_g`` and ``skipped_d``."""
 
     def __init__(self, cfg: TinyVCConfig, spec_loss_type: str = "ms-stft",
-                 dtype_name: Optional[str] = None):
-        super().__init__(cfg, spec_loss_type, dtype_name)
+                 dtype_name: Optional[str] = None, mesh=None):
+        super().__init__(cfg, spec_loss_type, dtype_name, mesh)
         # the fused MRD's plane-major maps: the losses divide by the valid counts
         if cfg.discriminator.mrd_conv_impl == "fused":
             self.logit_counts, self.fmap_counts = fused_mrd_valid_counts(
@@ -330,8 +343,9 @@ class PostJoinStep(TrainStep):
             d_grads = _grads(loss_d, disc)
         metrics = {"loss_spec": loss_spec.detach(), "loss_dsp": loss_dsp.detach(),
                    "loss_adv": loss_adv.detach(), "loss_feat": loss_feat.detach(),
-                   "loss_d": loss_d.detach()}
-        return loss_g.detach(), metrics, g_grads, d_grads
+                   "loss_d": loss_d.detach(), "loss_g": loss_g.detach()}
+        g_grads, d_grads, metrics = data_mean(self.mesh, g_grads, d_grads, metrics)
+        return metrics.pop("loss_g"), metrics, g_grads, d_grads
 
     def __call__(self, state: TrainState, encoder: Encoder, wave: torch.Tensor,
                  key: np.ndarray) -> Dict[str, torch.Tensor]:
@@ -347,8 +361,8 @@ class PostJoinStep(TrainStep):
 
 
 def make_train_step(cfg: TinyVCConfig, d_join: bool, spec_loss_type: str = "ms-stft",
-                    dtype_name: Optional[str] = None) -> TrainStep:
+                    dtype_name: Optional[str] = None, mesh=None) -> TrainStep:
     """The pre-join (``d_join=False``) or post-join step; ``dtype_name``
     overrides the fused kernels' operand dtype (default: bf16 on CUDA, fp32
-    on the CPU)."""
-    return (PostJoinStep if d_join else TrainStep)(cfg, spec_loss_type, dtype_name)
+    on the CPU); ``mesh``: data-parallel over its data axis."""
+    return (PostJoinStep if d_join else TrainStep)(cfg, spec_loss_type, dtype_name, mesh)

@@ -25,12 +25,14 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import TinyVCConfig
 from ..dsp.interp import linear_interp_time
 from ..dsp.stft import spectrogram
 from ..infer.generator import exact_fp32
 from ..models.encoder import Encoder, freq2id
+from ..parallel.mesh import data_mean, global_rows
 from ..utils import prng
 from .decoder_train import OptState, _grads, apply_update, init_params
 
@@ -57,26 +59,36 @@ def init_state(cfg: TinyVCConfig, seed: int, device="cpu") -> EncoderTrainState:
 
 
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                           class_weights: torch.Tensor) -> torch.Tensor:
+                           class_weights: torch.Tensor, mesh=None) -> torch.Tensor:
     """``F.cross_entropy(weight=w)``'s semantics on ``[..., classes]``
     logits: each element's NLL scaled by ``w[label]``, summed, over the
-    summed weights."""
+    summed weights. With ``mesh``, over the global batch: the weights are
+    summed over the data group, and this rank's sum is scaled by the group's
+    size, so that the ranks' mean is the global loss (and the mean of their
+    gradients its gradient)."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     w = class_weights[labels]
-    return torch.sum(w * nll) / torch.sum(w)
+    den = torch.sum(w)
+    if mesh is None:
+        return torch.sum(w * nll) / den
+    dist.all_reduce(den, group=mesh.data_group)  # the labels carry no gradient
+    return torch.sum(w * nll) * mesh.data / den
 
 
 def encoder_loss(encoder: Encoder, spec: torch.Tensor, labels: torch.Tensor,
                  teacher: Optional[torch.Tensor], class_weights: torch.Tensor,
-                 distill_weight: float) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                 distill_weight: float, mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, {"loss_f0", "loss_distill"}); ``distill_weight`` 0 runs the
-    pitch head alone and reports a distillation loss of 0."""
+    pitch head alone and reports a distillation loss of 0. ``mesh``: this
+    rank's share of the global batch's loss (:func:`weighted_cross_entropy`;
+    the distillation term is a mean over equal shares)."""
     if not distill_weight:
-        loss_f0 = weighted_cross_entropy(encoder.pitch_estimator(spec), labels, class_weights)
+        loss_f0 = weighted_cross_entropy(encoder.pitch_estimator(spec), labels, class_weights,
+                                         mesh)
         return loss_f0, {"loss_f0": loss_f0, "loss_distill": torch.zeros((), device=spec.device)}
     z, logits = encoder(spec)
-    loss_f0 = weighted_cross_entropy(logits, labels, class_weights)
+    loss_f0 = weighted_cross_entropy(logits, labels, class_weights, mesh)
     loss_distill = torch.mean(torch.abs(z - linear_interp_time(teacher, z.shape[1])))
     loss = loss_f0 + loss_distill * distill_weight
     return loss, {"loss_f0": loss_f0, "loss_distill": loss_distill}
@@ -87,11 +99,15 @@ class EncoderTrainStep:
     teacher [B, Ft, D] or None, key)`` updates ``state`` in place and returns
     the metrics ``loss``, ``loss_f0`` and ``loss_distill`` (device scalars).
     ``loss_and_grads`` returns (loss, metrics, gradients by parameter name)
-    without touching the state."""
+    without touching the state. With ``mesh``, data-parallel as the
+    decoder's step is (`train/decoder_train.py::TrainStep`): this rank's
+    rows, the gain drawn over the global batch, the gradients and losses
+    averaged over the data group before the update."""
 
-    def __init__(self, cfg: TinyVCConfig, distill: bool = True):
+    def __init__(self, cfg: TinyVCConfig, distill: bool = True, mesh=None):
         self.cfg = cfg
         self.distill = distill
+        self.mesh = mesh
         self._weights = {}
 
     def class_weights(self, device) -> torch.Tensor:
@@ -106,7 +122,8 @@ class EncoderTrainStep:
         """(labels from the clean f0, the gain-scaled wave's spectrogram)."""
         e, a = self.cfg.encoder, self.cfg.audio
         labels = freq2id(f0.float(), e.num_pitch_classes, e.classes_per_octave, e.min_frequency)
-        gain = torch.from_numpy(prng.uniform(np.asarray(key, np.uint32), (wave.shape[0], 1)))
+        B, rows = global_rows(self.mesh, wave.shape[0])
+        gain = torch.from_numpy(prng.uniform(np.asarray(key, np.uint32), (B, 1), rows=rows))
         wave = wave.float() * (gain.to(wave.device) * 2.0)
         return labels, spectrogram(wave, a.n_fft, a.hop_size)
 
@@ -116,9 +133,11 @@ class EncoderTrainStep:
         with exact_fp32(), torch.enable_grad():
             labels, spec = self.inputs(wave, f0, key)
             loss, metrics = encoder_loss(state.encoder, spec, labels, teacher,
-                                         self.class_weights(wave.device), weight)
+                                         self.class_weights(wave.device), weight, self.mesh)
             grads = _grads(loss, state.encoder)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+        metrics = {k: v.detach() for k, v in {"loss": loss, **metrics}.items()}
+        grads, metrics = data_mean(self.mesh, grads, metrics)
+        return metrics.pop("loss"), metrics, grads
 
     def __call__(self, state: EncoderTrainState, wave: torch.Tensor, f0: torch.Tensor,
                  teacher: Optional[torch.Tensor], key: np.ndarray) -> Dict[str, torch.Tensor]:
@@ -131,7 +150,8 @@ class EncoderTrainStep:
         return metrics
 
 
-def make_train_step(cfg: TinyVCConfig, distill: bool = True) -> EncoderTrainStep:
+def make_train_step(cfg: TinyVCConfig, distill: bool = True, mesh=None) -> EncoderTrainStep:
     """The step with (``distill=True``) or without the distillation term;
-    without it the teacher argument is ignored (pass None)."""
-    return EncoderTrainStep(cfg, distill)
+    without it the teacher argument is ignored (pass None). ``mesh``:
+    data-parallel over its data axis."""
+    return EncoderTrainStep(cfg, distill, mesh)

@@ -34,6 +34,16 @@ The discriminator is drawn from ``seed + 1`` after the decoder
 
 Losses are logged every ``log_interval`` steps and the state saved every
 ``save_interval`` steps and at the end.
+
+Data-parallel (`parallel/mesh.py`, one process per card): when the process
+group (`init_distributed`) holds more than one process, both loops run on a
+``(data=world, model=1)`` mesh, and the global batch must divide the world
+(else JAX's message). Each rank's loader draws its ``local_batch_size``
+rows with seed ``seed + 7919 * rank`` (the native loader, the Python
+loader and the device-resident cache alike); each step averages its
+gradients over the ranks; the state is broadcast from rank 0 after init
+and after a restore; checkpoints are written by rank 0 (`utils/
+checkpoint.py`); only rank 0 logs. K-step windows run only without a mesh.
 """
 
 from __future__ import annotations
@@ -51,8 +61,9 @@ from ..data.noise import NoiseGenerator
 from ..dsp.resample import resample
 from ..infer.generator import _resolve_device
 from ..models.encoder import Encoder
+from ..parallel.mesh import local_batch_size, make_mesh, process_count, process_index, replicate
 from ..utils import prng
-from ..utils.checkpoint import CheckpointManager
+from ..utils.checkpoint import CheckpointManager, replicate_state
 from ..utils.metrics import (TAG_D_ADV, TAG_DISTILL, TAG_DSP, TAG_FEAT, TAG_G_ADV, TAG_PITCH,
                              TAG_SKIPPED, TAG_SPEC, MetricsWriter)
 from ..utils.model_store import load_encoder_params
@@ -62,6 +73,23 @@ from .multi_step import effective_k, make_decoder_multi_step, make_encoder_multi
 from .teacher import CachedTeacher, WavLMTeacher, make_teacher
 
 MULTI_STEP_SEED = 4242  # the K-step windows' index draws: default_rng(seed + 4242)
+RANK_SEED = 7919  # rank r's loader draws from seed + 7919 * r
+
+
+def _mesh_or_none(batch_size: int):
+    """A ``(data=world, model=1)`` mesh when the process group holds more
+    than one process (the global batch must divide it), else None."""
+    n = process_count()
+    if n == 1:
+        return None
+    if batch_size % n:
+        raise ValueError(f"multi-host training needs global batch ({batch_size}) "
+                         f"divisible by the global device count ({n})")
+    return make_mesh(data=n, model=1)
+
+
+def _rank_seed(seed: int) -> int:
+    return seed + RANK_SEED * process_index()
 
 
 def load_encoder(path: Optional[str], cfg: TinyVCConfig, seed: int, device) -> Encoder:
@@ -84,7 +112,8 @@ def _make_loader(cfg: TinyVCConfig, dataset_dir: str, seed: int):
     (which also reports each batch's ``idx``) when
     ``TINYVC_NO_NATIVE_LOADER`` is set or the library does not build."""
     ds = Dataset(dataset_dir)
-    batch = cfg.train.batch_size
+    batch = local_batch_size(cfg.train.batch_size)
+    seed = _rank_seed(seed)
     loader = None
     if not os.environ.get("TINYVC_NO_NATIVE_LOADER"):
         try:
@@ -140,8 +169,8 @@ def _device_data_loader(cfg: TinyVCConfig, dataset_dir: str, seed: int, device):
                            for i in range(n)])
     store = {"wave": torch.from_numpy(waves).to(device), "f0": torch.from_numpy(f0s).to(device),
              "teacher": None if tfeats is None else torch.from_numpy(tfeats).to(device), "n": n}
-    B = cfg.train.batch_size
-    rng = np.random.default_rng(seed)
+    B = local_batch_size(cfg.train.batch_size)
+    rng = np.random.default_rng(_rank_seed(seed))
     steps_per_epoch = max(n // B, 1)
 
     def epochs():
@@ -199,6 +228,7 @@ def train_encoder(
     window (0: auto, the log interval; 1: one step at a time)."""
     device = _resolve_device(device)
     epochs = cfg.train.encoder_epochs if epochs is None else epochs
+    mesh = _mesh_or_none(cfg.train.batch_size)
     store = None
     if device_data:
         epochs_iter, _, store = _device_data_loader(cfg, dataset_dir, seed, device)
@@ -208,6 +238,8 @@ def train_encoder(
     ckpt = CheckpointManager(ckpt_dir)
     if ckpt.restore(state) is not None:
         print(f"resumed encoder training at step {state.step}")
+    if mesh is not None:
+        replicate_state(state)
     noise_gen = NoiseGenerator(noises_dir) if noises_dir else None
     teacher = make_teacher(dataset_dir, teacher_model)
     # without a teacher the step drops the distillation term: the content
@@ -216,16 +248,18 @@ def train_encoder(
     key = prng.prng_key(seed + 1)
     step = state.step
     t0 = time.time()
-    writer = MetricsWriter(log_dir)
+    writer = MetricsWriter(log_dir) if process_index() == 0 else None
 
     def log(epoch: int, metrics) -> None:
+        if writer is None:
+            return
         writer.write(step, {TAG_PITCH: metrics["loss_f0"], TAG_DISTILL: metrics["loss_distill"]})
         print(f"epoch {epoch} step {step} f0={float(metrics['loss_f0']):.4f} "
               f"distill={float(metrics['loss_distill']):.4f} ({time.time() - t0:.0f}s)",
               flush=True)
 
     K = 1
-    if steps_per_dispatch != 1 and store is not None and noise_gen is None \
+    if steps_per_dispatch != 1 and store is not None and mesh is None and noise_gen is None \
             and not isinstance(teacher, WavLMTeacher):  # a live teacher runs on the host
         steps_per_epoch = max(store["n"] // cfg.train.batch_size, 1)
         total = epochs * steps_per_epoch
@@ -249,7 +283,7 @@ def train_encoder(
             if step % cfg.train.save_interval == 0:
                 ckpt.save(step, state, cfg)
     else:
-        step_fn = encoder_train.make_train_step(cfg, distill=distill)
+        step_fn = encoder_train.make_train_step(cfg, distill=distill, mesh=mesh)
         for epoch in range(epochs):
             for batch in next(epochs_iter):
                 wave = batch["wave"]
@@ -278,7 +312,8 @@ def train_encoder(
                 if step % cfg.train.save_interval == 0:
                     ckpt.save(step, state, cfg)
     ckpt.save(state.step, state, cfg)
-    writer.close()
+    if writer is not None:
+        writer.close()
     return state
 
 
@@ -302,6 +337,7 @@ def train_decoder(
     auto, the log interval; 1: one step at a time)."""
     device = _resolve_device(device)
     max_steps = cfg.train.max_steps if max_steps is None else max_steps
+    mesh = _mesh_or_none(cfg.train.batch_size)
     store = None
     if device_data:
         epochs_iter, _, store = _device_data_loader(cfg, dataset_dir, seed, device)
@@ -316,15 +352,20 @@ def train_decoder(
     if ckpt.restore(state) is not None:
         print(f"resumed decoder training at step {state.step} "
               "(optimizer state and join gate preserved)")
+    if mesh is not None:
+        replicate(encoder.parameters())
+        replicate_state(state)
 
     key = prng.prng_key(seed + 2)
     step = state.step
     t0 = t_log = time.time()
     s_log = step
-    writer = MetricsWriter(log_dir)
+    writer = MetricsWriter(log_dir) if process_index() == 0 else None
 
     def log(d_join: bool, metrics) -> None:
         nonlocal t_log, s_log
+        if writer is None:
+            return
         scalars = {TAG_SPEC: metrics["loss_spec"], TAG_DSP: metrics["loss_dsp"]}
         if d_join:
             scalars[TAG_G_ADV] = metrics["loss_adv"]
@@ -345,7 +386,7 @@ def train_decoder(
 
     tc = cfg.train
     K = 1
-    if steps_per_dispatch != 1 and store is not None:
+    if steps_per_dispatch != 1 and store is not None and mesh is None:
         K = _steps_per_window(steps_per_dispatch, tc.log_interval, tc.save_interval,
                               tc.discriminator_join, max_steps, step)
     if K > 1:
@@ -363,7 +404,7 @@ def train_decoder(
             if step % tc.save_interval == 0:
                 ckpt.save(step, state, cfg)
     else:
-        steps = {d_join: decoder_train.make_train_step(cfg, d_join, spec_loss_type)
+        steps = {d_join: decoder_train.make_train_step(cfg, d_join, spec_loss_type, mesh=mesh)
                  for d_join in (False, True)}
         while step < max_steps:
             for batch in next(epochs_iter):
@@ -379,5 +420,6 @@ def train_decoder(
                 if step % tc.save_interval == 0:
                     ckpt.save(step, state, cfg)
     ckpt.save(state.step, state, cfg)
-    writer.close()
+    if writer is not None:
+        writer.close()
     return state

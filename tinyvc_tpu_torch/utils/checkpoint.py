@@ -15,6 +15,11 @@ Restoring the newest step resumes training where it stopped: parameters,
 moments, counts. A checkpoint without ``disc_*`` entries (written before
 the discriminator was ported) restores the generator and keeps the state's
 freshly drawn discriminator.
+
+In a process group of more than one rank (data-parallel training, the
+counterpart of JAX's collective save), rank 0 writes and then every rank
+passes a barrier; a restore reads the step rank 0 finds newest on every
+rank, and :func:`replicate_state` then makes every rank's state rank 0's.
 """
 
 from __future__ import annotations
@@ -26,7 +31,9 @@ import shutil
 from typing import Dict, Optional, Union
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import broadcast_object, process_count, process_index, replicate
 from ..train.decoder_train import TrainState
 from ..train.encoder_train import EncoderTrainState
 from .weights import from_jax_layout, jax_name, nest, to_jax_layout
@@ -72,6 +79,30 @@ def state_to_tree(state: Union[TrainState, EncoderTrainState]) -> Dict[str, obje
             _net_to_tree(out, _DISC, state.discriminator, state.disc_opt)
     out["step"] = int(state.step)
     return out
+
+
+def _nets(state: Union[TrainState, EncoderTrainState]):
+    """(module, optimizer state) of each network the state trains."""
+    if isinstance(state, EncoderTrainState):
+        return [(state.encoder, state.opt)]
+    nets = [(state.decoder, state.gen_opt)]
+    if state.discriminator is not None:
+        nets.append((state.discriminator, state.disc_opt))
+    return nets
+
+
+def replicate_state(state: Union[TrainState, EncoderTrainState]) -> None:
+    """Rank 0's state on every rank, in place: the parameters and moments by
+    bucketed broadcasts, the step and the optimizers' counts as one object."""
+    tensors, counts = [], []
+    for module, opt in _nets(state):
+        for name, p in module.named_parameters():
+            tensors += [p, opt.mu[name], opt.nu[name]]
+        counts.append((opt.count, opt.notfinite_count))
+    replicate(tensors)
+    state.step, counts = broadcast_object((state.step, counts))
+    for (_, opt), (count, skipped) in zip(_nets(state), counts):
+        opt.count, opt.notfinite_count = count, skipped
 
 
 def load_tree_into(state: Union[TrainState, EncoderTrainState],
@@ -125,7 +156,16 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state: Union[TrainState, EncoderTrainState], config=None) -> str:
+        """Write ``<dir>/<step>/`` (by rank 0 alone in a group of more than
+        one rank, then a barrier that every rank passes)."""
         final = os.path.join(self.directory, str(step))
+        if process_index() == 0:
+            self._write(final, state, config)
+        if process_count() > 1:
+            dist.barrier()
+        return final
+
+    def _write(self, final: str, state, config) -> None:
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
@@ -137,12 +177,13 @@ class CheckpointManager:
         os.replace(tmp, final)
         for old in self.steps()[:-self.max_to_keep]:
             shutil.rmtree(os.path.join(self.directory, str(old)))
-        return final
 
     def restore(self, state, step: Optional[int] = None):
-        """Load ``step`` (default the newest) into ``state``; None when the
-        directory holds no checkpoint."""
+        """Load ``step`` (default the newest, as rank 0 finds it) into
+        ``state``; None when the directory holds no checkpoint."""
         step = self.latest_step() if step is None else step
+        if process_count() > 1:
+            step = broadcast_object(step)
         if step is None:
             return None
         tree = torch.load(os.path.join(self.directory, str(step), "state.pt"), weights_only=False)

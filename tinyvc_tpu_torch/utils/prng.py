@@ -20,6 +20,8 @@ XLA's does.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -68,14 +70,21 @@ def random_bits32(key: np.ndarray) -> np.uint32:
     return (hi ^ lo)[0]
 
 
-def random_bits(key: np.ndarray, shape) -> np.ndarray:
+def random_bits(key: np.ndarray, shape, rows: Optional[slice] = None) -> np.ndarray:
     """``jax.random.bits(key, shape, uint32)``: the cipher of the counters
     ``(0, i)``, ``i`` the flat index (a 64-bit iota split into two words),
-    its two words XORed."""
+    its two words XORed. ``rows``: only those rows of axis 0 of the draw
+    (the same values, computing no other counter)."""
     n = int(np.prod(shape, dtype=np.int64))
     if n >= 2**32:
         raise ValueError(f"random_bits supports fewer than 2**32 values, got {n}")
-    hi, lo = threefry2x32(key, np.zeros(n, _U32), np.arange(n, dtype=_U32))
+    shape = tuple(shape)
+    i = np.arange(n, dtype=_U32)
+    if rows is not None:
+        inner = n // shape[0]
+        i = i[rows.start * inner:rows.stop * inner]
+        shape = (rows.stop - rows.start,) + shape[1:]
+    hi, lo = threefry2x32(key, np.zeros_like(i), i)
     return (hi ^ lo).reshape(shape)
 
 
@@ -87,14 +96,17 @@ def _bits_to_uniform(bits: np.ndarray, minval: float, maxval: float) -> np.ndarr
     return np.maximum(lo, fma.astype(np.float32))
 
 
-def uniform(key: np.ndarray, shape, minval: float = 0.0, maxval: float = 1.0) -> np.ndarray:
+def uniform(key: np.ndarray, shape, minval: float = 0.0, maxval: float = 1.0,
+            rows: Optional[slice] = None) -> np.ndarray:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``: 23
     random mantissa bits under the exponent of 1.0, minus 1, scaled and
     shifted, and floored at ``minval``. XLA fuses the scale and shift into
     one multiply-add (one rounding); here the product is exact in float64
     and the sum is rounded to float64, then to float32, which differs from
-    one rounding only where the float64 sum lands on a float32 tie."""
-    return _bits_to_uniform(random_bits(key, shape), minval, maxval)
+    one rounding only where the float64 sum lands on a float32 tie.
+    ``rows``: only those rows of axis 0 (a data-parallel rank's rows of a
+    draw over the global batch)."""
+    return _bits_to_uniform(random_bits(key, shape, rows), minval, maxval)
 
 
 def fold_in(key: np.ndarray, data) -> np.ndarray:
