@@ -110,7 +110,22 @@ Phases, each timed; any failure exits non-zero:
    ``--device-data -K 3``, `cli.train_decoder -encp <that directory>
    --device-data -K 2` (four pre-join steps), `cli.extract_index` and
    `cli.infer -encp <dir> -decp <dir>` on the demo: finite, its length.
-11. distributed: one process per card over NCCL, two ranks where the
+11. export: `cli.export` on the card (each program's export seconds and
+   ``.pt2`` size); each loaded program against the eager module at (b=1, the
+   demo's 320 frames) and (b=3, f=101) (``EXPORT_RTOL``) with both ms, and
+   SourceNet's program moved to the CPU against the card's; a
+   conversion built from the three programs, the spectrogram, the match, the
+   pitch shift, the energy and ``Decoder.dsp`` (kernels A, B) against
+   `convert_fn` with the layer-by-layer U-Net (``EXPORT_CONVERT_RTOL``), its
+   log-mel distance to the fused conversion printed; `cli.export_params` from
+   checkpoint directories of the two-speaker trees, bit for bit, and
+   `cli.infer` on the ``.npz`` equal to `cli.infer` on the directories; the
+   bf16 encoder card vs CPU on the demo (``BF16_ENCODER_RTOL``) with its kNN
+   neighbours against fp32's, and its content converted through kernel H
+   under the bf16 decoder; the web UI's ``svc`` bit-equal to
+   ``VoiceConverter.convert``'s int16, and the exits of the web UI and the
+   device list without gradio and PyAudio.
+12. distributed: one process per card over NCCL, two ranks where the
    machine has two or more cards, else one (every collective still runs),
    started by this script, waited for within a timeout. First, on card 0:
    ``--remat`` (the layer-by-layer U-Net's step bit-identical with and
@@ -134,8 +149,8 @@ call to compare two commits' request latency on one card; ``--train-step
 per call, ``--osc-resample [DIR]`` kernels A's, I's and J's, ``--step-chaos
 [DIR]`` every fp32 step gate of both steps for every draw, ``--stream
 [DIR]`` the streaming phase, ``--chunked [DIR]`` the chunked phase,
-``--train-encoder [DIR]`` the train_encoder phase, ``--distributed [DIR]``
-the distributed phase. Needs CUDA and the rest of the repo; imports nothing
+``--train-encoder [DIR]`` the train_encoder phase, ``--export [DIR]`` the
+export phase, ``--distributed [DIR]`` the distributed phase. Needs CUDA and the rest of the repo; imports nothing
 of JAX or `tinyvc_tpu`.
 """
 
@@ -3759,7 +3774,7 @@ def phase_train_cli(card: str, fused_mrd: bool = False) -> dict:
         before = np.load(init)
         moved = [k for k in before.files
                  if not np.array_equal(state[f"gen_params/{k}"], before[k])]
-        drawn = {k: v for k, v in state_to_tree(dt.init_state(cfg, SEED + 1)).items()
+        drawn = {k: v for k, v in state_to_tree(dt.init_state(cfg, SEED + 1, "cpu")).items()
                  if k.startswith("disc_params/")}
         moved_d = [k for k, v in drawn.items() if not np.array_equal(state[k], v)]
     adv = ("loss/Generator Adversarial", "loss/Feature Matching",
@@ -3912,7 +3927,7 @@ def _encoder_step_gate(cfg, waves, f0s, tf, card: str) -> None:
     step = et.make_train_step(cfg, distill=True)
     key = prng.split(prng.prng_key(SEED + 1))[1]
     args = [torch.from_numpy(a[:cfg.train.batch_size]) for a in (waves, f0s, tf)]
-    cpu_state, card_state = et.init_state(cfg, SEED), et.init_state(cfg, SEED, "cuda")
+    cpu_state, card_state = et.init_state(cfg, SEED, "cpu"), et.init_state(cfg, SEED, "cuda")
     card_args = [a.cuda() for a in args]
     runs = [step.loss_and_grads(card_state, *card_args, key) for _ in range(2)]
     t0 = time.perf_counter()
@@ -4654,6 +4669,325 @@ def _train_clis_on_ranks(world: int, work: str, card: str) -> None:
                f"cli.{cli} on {world} ranks logged {logged}, saved {saved}")
 
 
+# Export (`infer/export.py`): each loaded program against the port's eager
+# module on the card, relative to the module's peak: the program is the
+# module's own ATen operations (the CPU tests measure 0). The conversion built
+# from the three programs against `convert_fn` with the layer-by-layer U-Net
+# on the same seed: 1e-5 of the peak, the CPU tests' bound between a program
+# and JAX's subgraph. The bf16 encoder on the card against the CPU's, on the
+# demo's content and logits: bf16 products summed in another order flip
+# single bf16 steps that the later layers carry; 2e-2 of the peak, the CPU
+# tests' bound against JAX's bf16 encoder (measured 7.0e-3 there). A
+# program moved to the CPU (`load_exported(device="cpu")`) against the
+# card's: fp32 sums in another order, the same 1e-5.
+EXPORT_RTOL = 1e-6
+EXPORT_CONVERT_RTOL = 1e-5
+BF16_ENCODER_RTOL = 2e-2
+EXPORT_OTHER_SHAPE = (3, 101)  # (b, f) besides (1, the demo's frames)
+
+
+def _same_tree(a: dict, b: dict) -> bool:
+    """Whether two nested parameter trees of numpy arrays hold the same keys
+    and the same bits."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(_same_tree(a[k], b[k]) for k in a))
+    return a.dtype == b.dtype and a.shape == b.shape and bool((a == b).all())
+
+
+def _rel_peak(got, want) -> float:
+    """max |got - want| over max |want| of two tensors (fp32)."""
+    want = want.float()
+    return float((got.float() - want).abs().max()) / float(want.abs().max())
+
+
+def phase_export(card: str) -> None:
+    """`cli.export` on the card (each program's export seconds and file
+    size), each loaded program against the eager module at (b=1, the demo's
+    frames) and at ``EXPORT_OTHER_SHAPE`` with both ms; a conversion built
+    from the three programs and the DSP kernels against `convert_fn`;
+    `cli.export_params` from checkpoint directories, and `cli.infer` on its
+    ``.npz`` against the directories; the bf16 encoder card vs CPU with its
+    kNN neighbours against fp32; the web UI's `svc` and the gated CLIs."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tinyvc_tpu_torch.cli import audio_device_list as cli_devices
+    from tinyvc_tpu_torch.cli import export as cli_export
+    from tinyvc_tpu_torch.cli import export_params as cli_export_params
+    from tinyvc_tpu_torch.cli import infer as cli_infer
+    from tinyvc_tpu_torch.cli import infer_webui as cli_webui
+    from tinyvc_tpu_torch.config import DecoderConfig, EncoderConfig, TinyVCConfig
+    from tinyvc_tpu_torch.dsp.energy import estimate_energy
+    from tinyvc_tpu_torch.dsp.mel import log_mel_l1
+    from tinyvc_tpu_torch.dsp.padding import autopad_waveform, pad_to_bucket
+    from tinyvc_tpu_torch.dsp.pitch import shift_frequency
+    from tinyvc_tpu_torch.infer.export import load_exported
+    from tinyvc_tpu_torch.infer.generator import (VoiceConverter, convert_fn, exact_fp32,
+                                                  serving_match_features,
+                                                  serving_spectrogram)
+    from tinyvc_tpu_torch.models.encoder import decode_f0
+    from tinyvc_tpu_torch.ops.retrieval import _similarities, top_k_small
+    from tinyvc_tpu_torch.train.decoder_train import OptState, TrainState
+    from tinyvc_tpu_torch.train.encoder_train import EncoderTrainState
+    from tinyvc_tpu_torch.utils.audio_io import load_audio
+    from tinyvc_tpu_torch.utils.checkpoint import CheckpointManager
+    from tinyvc_tpu_torch.utils.model_store import load_index
+    from tinyvc_tpu_torch.utils.prng import kernel_b_seed
+    from tinyvc_tpu_torch.utils.weights import decoder_from_jax, encoder_from_jax, load_npz
+
+    models = os.path.join(ROOT, "models", "two_speaker")
+    enc_npz, dec_npz = (os.path.join(models, f"{n}_B.npz") for n in ("encoder", "decoder"))
+    enc_p, dec_p = load_npz(enc_npz), load_npz(dec_npz)
+    index = load_index(os.path.join(models, "index_B.npy"))
+    wave = _load_demo(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"))
+    cfg = TinyVCConfig()
+    hop = cfg.audio.hop_size
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="export-", dir=os.environ.get("TMPDIR"))
+    t_part = [time.perf_counter()]
+
+    def part_done(label):
+        now = time.perf_counter()
+        print(f"  ({label}) {now - t_part[0]:.2f} s")
+        t_part[0] = now
+
+    try:
+        # (a) the CLI on the card; each torch.export.export call timed
+        seconds, real_export = [], torch.export.export
+
+        def timed_export(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real_export(*args, **kwargs)
+            finally:
+                seconds.append(time.perf_counter() - t0)
+
+        out_dir = os.path.join(tmp, "exported")
+        buf = io.StringIO()
+        torch.export.export = timed_export
+        try:
+            with contextlib.redirect_stdout(buf):
+                cli_export.main(["-o", out_dir, "-encp", enc_npz, "-decp", dec_npz])
+        finally:
+            torch.export.export = real_export
+        names = ("encoder", "source_net", "filter_net")
+        paths = {n: os.path.join(out_dir, f"{n}.pt2") for n in names}
+        want_lines = [f"{n}: {paths[n]}" for n in names] + ["symbolic: True"]
+        _check(buf.getvalue().splitlines() == want_lines,
+               f"cli.export printed {buf.getvalue()!r}")
+        _check(len(seconds) == 3, f"{len(seconds)} torch.export calls, not 3")
+        for n, s in zip(names, seconds):
+            print(f"  export {n}: {s:.2f} s, {os.path.getsize(paths[n]) / 2**20:.2f} MiB ({card})")
+        t0 = time.perf_counter()
+        programs = {n: load_exported(paths[n]) for n in names}
+        print(f"  load the three programs: {time.perf_counter() - t0:.2f} s")
+        for n in names:
+            _check(programs[n].device.type == "cuda", f"{n} loaded on {programs[n].device}")
+
+        part_done("a")
+
+        # (b) each program against the eager module on the card
+        enc = encoder_from_jax(enc_p, cfg.encoder).to(dev)
+        dec = decoder_from_jax(dec_p, cfg.decoder, cfg.audio).to(dev)
+        eager = {"encoder": enc, "source_net": dec.source_net,
+                 "filter_net": lambda c, f, e, s: dec.filter_net(c, f, e, s.transpose(1, 2))}
+        padded, L = pad_to_bucket(wave[None], hop, 64)
+        x = torch.from_numpy(padded).to(dev)
+        with torch.inference_mode(), exact_fp32():
+            spec = serving_spectrogram(autopad_waveform(x, hop), cfg)
+            content, logits = enc(spec)
+            f0 = shift_frequency(enc.infer(spec)[1], PITCH_SHIFT)
+            energy = estimate_energy(x, cfg.audio.energy_frame_size)
+            amps, kern = dec.source_net(content, f0, energy)
+            source = dec.dsp(f0, amps, kern, kernel_b_seed(SEED)).transpose(1, 2).contiguous()
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        Bo, Fo = EXPORT_OTHER_SHAPE
+        other = {"spec": torch.rand(Bo, Fo, cfg.audio.fft_bin, device=dev, generator=g),
+                 "content": torch.randn(Bo, Fo, cfg.decoder.content_channels, device=dev,
+                                        generator=g),
+                 "f0": 80.0 + 220.0 * torch.rand(Bo, Fo, device=dev, generator=g),
+                 "energy": 0.3 * torch.rand(Bo, Fo * hop, device=dev, generator=g),
+                 "source": 0.3 * torch.randn(Bo, Fo * hop, cfg.decoder.num_harmonics + 2,
+                                             device=dev, generator=g)}
+        cases = {"encoder": ((spec,), (other["spec"],)),
+                 "source_net": ((content, f0, energy),
+                                (other["content"], other["f0"], other["energy"])),
+                 "filter_net": ((content, f0, energy, source),
+                                (other["content"], other["f0"], other["energy"],
+                                 other["source"]))}
+        for n in names:
+            for args in cases[n]:
+                got = programs[n](*args)
+                with torch.inference_mode(), exact_fp32():
+                    want = eager[n](*args)
+                got, want = ((got,), (want,)) if n == "filter_net" else (got, want)
+                errs = [_rel_peak(a, b) for a, b in zip(got, want)]
+                shape = f"b={args[0].shape[0]}, f={args[0].shape[1]}"
+                for a, b in zip(got, want):
+                    _check(a.shape == b.shape and a.dtype == b.dtype,
+                           f"{n} at {shape}: {a.shape} {a.dtype} != {b.shape} {b.dtype}")
+
+                def run_eager(n=n, args=args):
+                    with torch.inference_mode(), exact_fp32():
+                        return eager[n](*args)
+
+                ms, ms_eager = _cuda_ms(lambda: programs[n](*args), reps=10), \
+                    _cuda_ms(run_eager, reps=10)
+                print(f"  {n} at {shape}: program vs eager "
+                      + ", ".join(f"{e:.3e}" for e in errs)
+                      + f" of the peak (bound {EXPORT_RTOL:.0e}); program {ms:.3f} ms, "
+                      f"eager {ms_eager:.3f} ms ({card})")
+                _check(max(errs) <= EXPORT_RTOL, f"{n} program off the module by {errs}")
+        moved = load_exported(paths["source_net"], device="cpu")
+        args = cases["source_net"][1]
+        errs = [_rel_peak(a, b.cpu()) for a, b in zip(moved(*(a.cpu() for a in args)),
+                                                      programs["source_net"](*args))]
+        print(f"  source_net moved to the CPU vs the card's: "
+              + ", ".join(f"{e:.3e}" for e in errs)
+              + f" of the peak (bound {EXPORT_CONVERT_RTOL:.0e})")
+        _check(moved.device.type == "cpu" and max(errs) <= EXPORT_CONVERT_RTOL,
+               f"source_net moved to the CPU: {moved.device}, {errs}")
+
+        part_done("b")
+
+        # (c) a conversion built from the three programs and the DSP kernels
+        target = torch.from_numpy(index).to(dev)
+        with _launch_counts() as counts, torch.inference_mode(), exact_fp32():
+            xa = autopad_waveform(x, hop)
+            content_p, logits_p = programs["encoder"](serving_spectrogram(xa, cfg))
+            e = cfg.encoder
+            f0_p = shift_frequency(decode_f0(logits_p, e.pitch_topk, e.classes_per_octave,
+                                             e.min_frequency), PITCH_SHIFT)
+            matched = serving_match_features(content_p, target, cfg)
+            energy_p = estimate_energy(xa, cfg.audio.energy_frame_size)
+            amps_p, kern_p = programs["source_net"](matched, f0_p, energy_p)
+            src = dec.dsp(f0_p, amps_p, kern_p, kernel_b_seed(SEED))
+            built = programs["filter_net"](matched, f0_p, energy_p,
+                                           src.transpose(1, 2).contiguous())
+        print(f"  launches of the built conversion: {counts}")
+        for k in ("A", "B"):
+            _check(counts[k] > 0, f"kernel {k} did not run in the built conversion")
+        off = TinyVCConfig(decoder=DecoderConfig(use_fused_filter="off"))
+        with torch.inference_mode(), exact_fp32():
+            want = convert_fn(enc, dec, x, target, PITCH_SHIFT, kernel_b_seed(SEED), off)
+        err = _rel_peak(built, want)
+        fused = VoiceConverter(enc_p, dec_p, cfg, device="cuda").convert(
+            wave, target, PITCH_SHIFT, seed=SEED)
+        mel = log_mel_l1(built[0, :L].cpu(), torch.from_numpy(fused))
+        print(f"  built conversion vs convert_fn (layer-by-layer U-Net): {err:.3e} of the peak "
+              f"(bound {EXPORT_CONVERT_RTOL:.0e}); log-mel L1 to the fused conversion "
+              f"{mel:.4f} (not gated: the U-Nets differ near the ends by design)")
+        _check(err <= EXPORT_CONVERT_RTOL, f"built conversion off convert_fn by {err}")
+        _check(bool(torch.isfinite(built).all()), "non-finite built conversion")
+
+        part_done("c")
+
+        # (d) export_params from checkpoint directories of the trainers' writer
+        enc_dir, dec_dir = os.path.join(tmp, "enc_ckpt"), os.path.join(tmp, "dec_ckpt")
+        enc_m = encoder_from_jax(enc_p, cfg.encoder).to(dev)
+        CheckpointManager(enc_dir).save(1, EncoderTrainState(enc_m, OptState.fresh(enc_m)), cfg)
+        dec_m = decoder_from_jax(dec_p, cfg.decoder, cfg.audio).to(dev)
+        CheckpointManager(dec_dir).save(1, TrainState.fresh(dec_m), cfg)
+        npz_e, npz_d = os.path.join(tmp, "e.npz"), os.path.join(tmp, "d.npz")
+        cli_export_params.main(["-encp", enc_dir, "-decp", dec_dir, "-o-enc", npz_e,
+                                "-o-dec", npz_d])
+        for a, b in ((npz_e, enc_npz), (npz_d, dec_npz)):
+            ta, tb = load_npz(a), load_npz(b)
+            _check(_same_tree(ta, tb), f"{a} is not {b}'s tree bit for bit")
+        inputs = os.path.join(tmp, "in")
+        os.makedirs(inputs)
+        shutil.copy(os.path.join(ROOT, "demo", "two_speaker", "source_A.wav"), inputs)
+        outs = {}
+        for label, e, d in (("dirs", enc_dir, dec_dir), ("npz", npz_e, npz_d)):
+            o = os.path.join(tmp, f"out_{label}")
+            cli_infer.main(["-i", inputs, "-o", o, "-encp", e, "-decp", d,
+                            "-idx", os.path.join(models, "index_B.npy"),
+                            "-p", str(PITCH_SHIFT)])
+            outs[label] = load_audio(os.path.join(o, "source_A.wav"))[0]
+        same = np.array_equal(outs["dirs"], outs["npz"])
+        print(f"  cli.infer -encp/-decp exported .npz vs checkpoint directories: "
+              f"{'bit-equal' if same else 'DIFFERENT'}")
+        _check(same, "cli.infer on the exported .npz differs from the checkpoint directories")
+
+        part_done("d")
+
+        # (e) the bf16 encoder on the card against the CPU's
+        bf16 = TinyVCConfig(encoder=EncoderConfig(compute_dtype="bfloat16"))
+        card_vc = VoiceConverter(enc_p, None, bf16, device="cuda")
+        cpu_vc = VoiceConverter(enc_p, None, bf16, device="cpu")
+        fp32_content = VoiceConverter(enc_p, None, cfg, device="cuda").encode(wave)[0]
+        c16, f16 = card_vc.encode(wave)
+        c16_cpu, f16_cpu = cpu_vc.encode(wave)
+        _check(c16.dtype == torch.bfloat16, f"bf16 encoder returned {c16.dtype}")
+        err_c = _rel_peak(c16.cpu(), c16_cpu)
+        err_f = float((f16.cpu() - f16_cpu).abs().max())
+        r = cfg.retrieval
+
+        def neighbours(c):
+            with torch.inference_mode(), exact_fp32():
+                return top_k_small(_similarities(c.float(), target, r.metric), r.k)[1]
+
+        n32, n16, n16_cpu = neighbours(fp32_content), neighbours(c16), \
+            neighbours(c16_cpu.to(dev))
+        frames = n32.shape[1]
+        flips = int((torch.sort(n32, -1)[0] != torch.sort(n16, -1)[0]).any(-1).sum())
+        flips_cpu = int((torch.sort(n16_cpu, -1)[0] != torch.sort(n16, -1)[0]).any(-1).sum())
+        print(f"  bf16 encoder card vs CPU on the demo: content {err_c:.3e} of the peak (bound "
+              f"{BF16_ENCODER_RTOL:.0e}), f0 max |diff| {err_f:.3f} Hz; kNN neighbours "
+              f"(k={r.k}, index_B) differing from fp32 content's on {flips} of {frames} frames, "
+              f"card vs CPU bf16 on {flips_cpu} ({card})")
+        _check(err_c <= BF16_ENCODER_RTOL, f"bf16 encoder card vs CPU {err_c}")
+        both = TinyVCConfig(encoder=EncoderConfig(compute_dtype="bfloat16"),
+                            decoder=DecoderConfig(compute_dtype="bfloat16"))
+        with _launch_counts() as counts:
+            out16 = VoiceConverter(enc_p, dec_p, both, device="cuda").convert(
+                wave, target, PITCH_SHIFT, seed=SEED)
+        print(f"  bf16 encoder and decoder: the demo converted, finite "
+              f"{bool(np.isfinite(out16).all())}, kernel H launched {counts['H']}")
+        _check(bool(np.isfinite(out16).all()) and counts["H"] > 0,
+               "the bf16 encoder's content did not convert through kernel H")
+
+        part_done("e")
+
+        # (f) the web UI's svc on the card, and the gated CLIs
+        vc = VoiceConverter(enc_p, dec_p, cfg, device="cuda")
+        stereo = (np.stack([wave, 0.8 * wave], axis=1) * 20000).astype(np.int16)
+        up = (48000, np.repeat(stereo, 2, axis=0))
+        tgt_wave = _load_demo(os.path.join(ROOT, "demo", "two_speaker", "converted_A_to_B.wav"))
+        tgt = (24000, (tgt_wave * 20000).astype(np.int16))
+        sr, got = cli_webui.svc(vc, cfg, up, tgt, PITCH_SHIFT)
+        wf = cli_webui.audio_to_wave(vc, cfg, up)
+        ref = vc.convert(wf, vc.build_dictionary(cli_webui.audio_to_wave(vc, cfg, tgt)),
+                         PITCH_SHIFT)
+        want16 = (np.clip(ref, -1.0, 1.0) * 32768.0).astype(np.int16)
+        _check(sr == 24000 and np.array_equal(got, want16),
+               "svc differs from VoiceConverter.convert's int16")
+        print(f"  web UI svc on a 48 kHz stereo int16 input: {got.shape[0]} samples, bit-equal "
+              "to VoiceConverter.convert's int16")
+        for cli, package in ((cli_webui, "gradio"), (cli_devices, "pyaudio")):
+            saved = sys.modules.get(package, "absent")
+            sys.modules[package] = None  # blocked: an installed one would start a server
+            try:
+                cli.main(["--device", "cuda"] if cli is cli_webui else [])
+                raise AssertionError(f"{package}'s CLI did not exit")
+            except SystemExit as e:
+                _check(str(e) == f"{package} is not installed in this environment",
+                       f"{package}'s CLI exited with {e}")
+                print(f"  {cli.__name__}: exits with {str(e)!r}")
+            finally:
+                if saved == "absent":
+                    del sys.modules[package]
+                else:
+                    sys.modules[package] = saved
+        part_done("f")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_distributed(card: str) -> None:
     """Distributed execution on NCCL, one process per card: ``DIST_WORLD``
     ranks where the machine has as many cards, else one (every collective's
@@ -4993,7 +5327,8 @@ def main(argv=None) -> int:
     ``--chunked [DIR]``: env, build and the chunked phase (`phase_chunked`),
     of the port in DIR. ``--train-encoder [DIR]``: env, build and the
     train_encoder phase (`phase_train_encoder`), of the port in DIR.
-    ``--distributed [DIR]``: env, build and the distributed phase
+    ``--export [DIR]``: env, build and the export phase (`phase_export`), of
+    the port in DIR. ``--distributed [DIR]``: env, build and the distributed phase
     (`phase_distributed`), of the port in DIR; it starts its ranks as
     ``--distributed-rank RANK WORLD PORT WORK DIR``."""
     global ROOT
@@ -5002,7 +5337,7 @@ def main(argv=None) -> int:
              "--unet-stages": phase_unet_stages, "--osc-resample": phase_osc_resample,
              "--step-chaos": phase_step_chaos, "--stream": phase_stream,
              "--chunked": phase_chunked, "--train-encoder": phase_train_encoder,
-             "--distributed": phase_distributed}
+             "--export": phase_export, "--distributed": phase_distributed}
     mode = modes.get(args[0]) if args else None
     if mode is not None and len(args) > 1:
         ROOT = os.path.abspath(args[1])
@@ -5077,6 +5412,9 @@ def main(argv=None) -> int:
     t0 = _phase("train_encoder")
     phase_train_encoder(card)
     _done("train_encoder", t0)
+    t0 = _phase("export")
+    phase_export(card)
+    _done("export", t0)
     t0 = _phase("distributed")
     phase_distributed(card)
     _done("distributed", t0)

@@ -226,8 +226,8 @@ def _decoder_step(mesh=None):
     cfg = pcfg.TinyVCConfig(encoder=pcfg.EncoderConfig(**{**ENC_CFG, "ssl_dilations": (1,)}),
                             decoder=pcfg.DecoderConfig(**{**DEC_SMALL,
                                                           "filter_channels": (32, 24, 16, 12, 8)}))
-    enc = pet.init_state(cfg, 6).encoder.eval().requires_grad_(False)
-    state = pdt.TrainState.fresh(pdt.init_state(cfg, 7).decoder)
+    enc = pet.init_state(cfg, 6, "cpu").encoder.eval().requires_grad_(False)
+    state = pdt.TrainState.fresh(pdt.init_state(cfg, 7, "cpu").decoder)
     step = pdt.make_train_step(cfg, False, "mel", mesh=mesh)
     wave = torch.from_numpy(_decoder_wave())
     if mesh is not None:

@@ -176,8 +176,8 @@ def test_encoder_window_is_k_single_steps(cache, distill):
     _, pc = _configs()
     waves, f0s, tf = (torch.from_numpy(a) for a in _cache_tensors(cache))
     idx, keys = _window_inputs(3, 2)
-    a = pet.init_state(pc, 1)
-    b = pet.init_state(pc, 1)
+    a = pet.init_state(pc, 1, "cpu")
+    b = pet.init_state(pc, 1, "cpu")
     m = pms.make_encoder_multi_step(pc, distill)(a, waves, f0s, tf if distill else None,
                                                  torch.from_numpy(idx), keys)
     step = pet.make_train_step(pc, distill)
@@ -227,7 +227,7 @@ def test_decoder_window_is_k_single_steps(cache, d_join):
     waves = torch.from_numpy(_cache_tensors(cache)[0])
     idx, keys = _window_inputs(2, 2)
     enc = ploop.load_encoder(None, cfg, 0, "cpu")
-    a, b = pdt.init_state(cfg, 1), pdt.init_state(cfg, 1)
+    a, b = pdt.init_state(cfg, 1, "cpu"), pdt.init_state(cfg, 1, "cpu")
     m = pms.make_decoder_multi_step(cfg, d_join, "mel")(a, enc, waves, torch.from_numpy(idx),
                                                         keys)
     step = pdt.make_train_step(cfg, d_join, "mel")

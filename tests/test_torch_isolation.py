@@ -48,6 +48,9 @@ STREAMING_MODULES = {"tinyvc_tpu_torch.dsp.resample", "tinyvc_tpu_torch.utils.to
 CHUNKED_MODULES = {"tinyvc_tpu_torch.parallel", "tinyvc_tpu_torch.parallel.time_shard",
                    "tinyvc_tpu_torch.infer.index", "tinyvc_tpu_torch.cli.extract_index"}
 DISTRIBUTED_MODULES = {"tinyvc_tpu_torch.parallel.mesh", "tinyvc_tpu_torch.parallel.sharded_knn"}
+EXPORT_MODULES = {f"tinyvc_tpu_torch.{m}" for m in (
+    "infer.export", "cli.export", "cli.export_params", "cli.infer_webui",
+    "cli.audio_device_list")}
 TRAINING_MODULES = {f"tinyvc_tpu_torch.{m}" for m in (
     "dsp.f0", "data.noise", "data.preprocess", "data.native_loader", "train.encoder_train",
     "train.teacher", "train.multi_step", "utils.torch_compat_disc", "cli.preprocess",
@@ -60,11 +63,12 @@ def test_port_imports_nothing_of_jax():
                           capture_output=True, text=True, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names, count = proc.stdout.strip().splitlines()[-2:]
-    assert int(count) >= 56  # every module was imported
+    assert int(count) >= 61  # every module was imported
     assert STREAMING_MODULES <= set(names.split())
     assert CHUNKED_MODULES <= set(names.split())
     assert TRAINING_MODULES <= set(names.split())
     assert DISTRIBUTED_MODULES <= set(names.split())
+    assert EXPORT_MODULES <= set(names.split())
 
 
 NATIVE_PROBE = textwrap.dedent("""

@@ -22,6 +22,7 @@ from tinyvc_tpu.infer.generator import convert_fn as j_convert_fn
 from tinyvc_tpu.models import Decoder as JDecoder
 from tinyvc_tpu.models import Encoder as JEncoder
 from tinyvc_tpu.models import decoder as j_decoder
+from tinyvc_tpu.ops import match_features as j_match_features
 from tinyvc_tpu.ops.pallas import filter_stage as jfs
 from tinyvc_tpu.ops.pallas.resample import pallas_downsample_t, pallas_upsample_t
 from tinyvc_tpu.utils.model_store import _load_params_npz
@@ -30,11 +31,11 @@ from tinyvc_tpu_torch.dsp.mel import log_mel_l1
 from tinyvc_tpu_torch.infer import generator
 from tinyvc_tpu_torch.kernels import filter_stage, knn, resample
 from tinyvc_tpu_torch.kernels import spectrogram as kernel_g
-from tinyvc_tpu_torch.models.encoder import Encoder
 from tinyvc_tpu_torch.ops.fused_filternet import filternet_fused_apply
+from tinyvc_tpu_torch.ops.retrieval import match_features
 from tinyvc_tpu_torch.utils.audio_io import load_audio
 from tinyvc_tpu_torch.utils.weights import decoder_from_jax, encoder_from_jax, load_npz
-from torch_parity import random_params
+from torch_parity import numpy_params, random_params
 
 BF16 = torch.bfloat16
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -220,9 +221,52 @@ def test_bf16_source_net_and_filter_net_match_jax(rng):
     assert _rel(got.numpy(), want) <= 2e-2
 
 
-def test_encoder_refuses_bf16():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Encoder(pcfg.EncoderConfig(compute_dtype="bfloat16"))
+def test_bf16_encoder_matches_jax(rng):
+    je = JEncoder(jcfg.EncoderConfig(**ENC, compute_dtype="bfloat16"))
+    params = numpy_params(je, jnp.zeros((1, 8, 961)))
+    spec = np.abs(rng.standard_normal((2, 40, 961))).astype(np.float32)
+    content, logits = jax.jit(je.apply)(params, spec)
+    port = encoder_from_jax(params, pcfg.EncoderConfig(**ENC, compute_dtype="bfloat16"))
+    with torch.inference_mode():
+        got_c, got_l = port(torch.from_numpy(spec))
+        fp32_c, _ = encoder_from_jax(params, pcfg.EncoderConfig(**ENC))(torch.from_numpy(spec))
+    assert got_c.dtype == got_l.dtype == BF16  # JAX's bf16 stacks return bf16
+    # bf16 stacks rounded where flax rounds; XLA on the CPU keeps excess
+    # precision across some of those roundings (without it the logits are
+    # equal and the content one bf16 step apart). Measured 7.0e-3 and
+    # 6.8e-3 of the peak, against 6.2e-3 and 8.5e-3 between the port's own
+    # bf16 and fp32 encoders.
+    assert _rel(_f32(got_c), _f32(content)) <= 2e-2
+    assert _rel(_f32(got_l), _f32(logits)) <= 2e-2
+    # the bf16 stacks are not the fp32 ones
+    assert _rel(fp32_c.numpy(), _f32(got_c)) > 1e-4
+
+
+def test_bf16_content_is_matched_and_converted_as_jax(rng):
+    """The bf16 encoder's content against an fp32 dictionary: JAX's einsum
+    promotes the similarities to fp32 and casts the neighbours' mean back to
+    bf16; both kNN routes and an fp32 decoder take it."""
+    src = torch.from_numpy(rng.standard_normal((2, 30, 32)).astype(np.float32)).to(BF16)
+    ref = rng.standard_normal((50, 32)).astype(np.float32)
+    want = j_match_features(_jbf16(src.float().numpy()), jnp.broadcast_to(ref[None], (2, 50, 32)))
+    got = match_features(src, torch.from_numpy(ref))
+    assert got.dtype == BF16 and want.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(_f32(got), _f32(want))
+    cfg = pcfg.TinyVCConfig(decoder=pcfg.DecoderConfig(compute_dtype="bfloat16"))
+    assert generator.serving_match_features(src, torch.from_numpy(ref), cfg).dtype == BF16
+
+    cfgs = [pcfg.TinyVCConfig(encoder=pcfg.EncoderConfig(**ENC, compute_dtype="bfloat16"),
+                              decoder=pcfg.DecoderConfig(**DEC, compute_dtype=dt))
+            for dt in ("float32", "bfloat16")]
+    enc_p = numpy_params(JEncoder(jcfg.EncoderConfig(**ENC)), jnp.zeros((1, 8, 961)))
+    dec_p = numpy_params(JDecoder(jcfg.DecoderConfig(**DEC), jcfg.AudioConfig()),
+                         jnp.zeros((1, 8, 32)), jnp.full((1, 8), 100.0), jnp.zeros((1, 8 * 480)),
+                         jax.random.PRNGKey(0), noise_angle=jnp.zeros((1, 8, 961)))
+    wave = (0.1 * rng.standard_normal(9600)).astype(np.float32)
+    for cfg in cfgs:
+        vc = generator.VoiceConverter(enc_p, dec_p, cfg, device="cpu")
+        out = vc.convert(wave, vc.build_dictionary(wave), 2.0)
+        assert out.shape == wave.shape and np.isfinite(out).all()
 
 
 # --- the whole slice ---------------------------------------------------------

@@ -80,7 +80,7 @@ def _small_cfg():
 
 def test_checkpoint_round_trip(tmp_path):
     cfg = _small_cfg()
-    st = pdt.init_state(cfg, 1)
+    st = pdt.init_state(cfg, 1, "cpu")
     for opt in (st.gen_opt, st.disc_opt):
         for t in opt.mu.values():
             t.normal_()
@@ -94,7 +94,7 @@ def test_checkpoint_round_trip(tmp_path):
     kernel = tree["gen_params/params/filter_net/up_4/c1/kernel"]
     assert kernel.shape == (3, 8, 8)  # flax's [K, Cin, Co]
     assert tree["disc_params/params/mrd_32/conv_1/v"].shape == (5, 3, 4, 8)  # HWIO
-    fresh = pdt.init_state(cfg, 2)
+    fresh = pdt.init_state(cfg, 2, "cpu")
     assert ckpt.restore(fresh) is fresh
     for net, opt, fnet, fopt in ((st.decoder, st.gen_opt, fresh.decoder, fresh.gen_opt),
                                  (st.discriminator, st.disc_opt, fresh.discriminator,
@@ -111,12 +111,12 @@ def test_checkpoint_without_a_discriminator_restores(tmp_path, capsys):
     port wrote them) restores the generator and keeps the state's freshly
     drawn discriminator, saying so."""
     cfg = _small_cfg()
-    old = pdt.init_state(cfg, 1)
+    old = pdt.init_state(cfg, 1, "cpu")
     old = pdt.TrainState(old.decoder, old.gen_opt, step=4)
     CheckpointManager(str(tmp_path)).save(4, old, cfg)
     tree = torch.load(tmp_path / "4" / "state.pt", weights_only=False)
     assert not any(k.startswith("disc_") for k in tree)
-    fresh = pdt.init_state(cfg, 2)
+    fresh = pdt.init_state(cfg, 2, "cpu")
     disc = {n: p.detach().clone() for n, p in fresh.discriminator.named_parameters()}
     assert CheckpointManager(str(tmp_path)).restore(fresh) is fresh
     assert "holds no discriminator" in capsys.readouterr().out
@@ -165,7 +165,7 @@ def test_cli_trains_logs_saves_and_resumes_across_the_join(cache, tmp_path, monk
     # resume in process: the state of step 3, both networks' moments and
     # all, then one more post-join step
     cfg = pcfg.TinyVCConfig(train=pcfg.TrainConfig(batch_size=2))
-    st = pdt.init_state(cfg, 0)
+    st = pdt.init_state(cfg, 0, "cpu")
     CheckpointManager(str(ckpt)).restore(st)
     assert st.step == 3 and st.gen_opt.count == 3 and st.disc_opt.count == 1
     assert any(float(t.abs().max()) > 0 for t in st.disc_opt.nu.values())

@@ -22,6 +22,7 @@ from tinyvc_tpu.models import Decoder, Encoder
 from tinyvc_tpu.train import decoder_train as jdt
 from tinyvc_tpu_torch import config as pcfg
 from tinyvc_tpu_torch.train import decoder_train as pdt
+from tinyvc_tpu_torch.train import encoder_train as pet
 from tinyvc_tpu_torch.train.loop import load_encoder
 from tinyvc_tpu_torch.utils.weights import (encoder_from_jax, state_dict_from_jax,
                                             train_state_from_jax)
@@ -152,7 +153,7 @@ def test_optimizer_matches_optax(rng):
     counted, as `tests/test_training.py::test_skip_if_nonfinite_guard`
     checks for JAX). Elementwise fp32: within a few ulps."""
     _, pc = _configs()
-    dec = pdt.init_state(pc, 3).decoder
+    dec = pdt.init_state(pc, 3, "cpu").decoder
     names = [n for n, _ in dec.named_parameters()][:6]
     state = pdt.OptState.fresh(dec)
     params = {n: p.detach().numpy().copy() for n, p in dec.named_parameters()}
@@ -209,7 +210,7 @@ def test_post_join_builds_and_steps(rng):
         pc, discriminator=pcfg.DiscriminatorConfig(periods=(2, 3), resolutions=(32,), channels=4,
                                                    max_channels=16, num_layers=2),
         train=dataclasses.replace(pc.train, disc_crop=2400))
-    st = pdt.init_state(pc, 1)
+    st = pdt.init_state(pc, 1, "cpu")
     disc_before = {n: p.detach().clone() for n, p in st.discriminator.named_parameters()}
     step = pdt.make_train_step(pc, d_join=True, spec_loss_type="mel")
     assert isinstance(step, pdt.PostJoinStep)
@@ -227,7 +228,7 @@ def test_init_state_draws_flax_distributions():
     """Random init: kernels and biases uniform within 1/sqrt(fan_in) of the
     kernel, LayerNorm gains 1, GRN and shifts 0; zero moments."""
     _, pc = _configs()
-    st = pdt.init_state(pc, 0)
+    st = pdt.init_state(pc, 0, "cpu")
     for name, p in st.decoder.named_parameters():
         assert torch.equal(st.gen_opt.mu[name], torch.zeros_like(p))
     sub = st.decoder.filter_net.up_4.c1
@@ -237,6 +238,15 @@ def test_init_state_draws_flax_distributions():
     layer = st.decoder.source_net.layer_0
     assert torch.equal(layer.norm.gamma, torch.ones_like(layer.norm.gamma))
     assert float(layer.grn.gamma.abs().max()) == 0.0
-    again = pdt.init_state(pc, 0)
+    again = pdt.init_state(pc, 0, "cpu")
     assert all(torch.equal(p, q) for p, q in zip(st.decoder.parameters(),
                                                   again.decoder.parameters()))
+
+
+@pytest.mark.parametrize("module", (pdt, pet))
+def test_init_state_runs_on_the_card_unless_asked(monkeypatch, module):
+    """Both trainers' ``init_state`` default to CUDA, as the port's entry
+    points do, and raise ``_resolve_device``'s error without a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available; pass device='cpu'"):
+        module.init_state(_configs()[1], 0)

@@ -159,8 +159,8 @@ def case_encoder_step(args, x):
 
 
 def _decoder_state(cfg, seed):
-    enc = encoder_train.init_state(cfg, seed).encoder.eval().requires_grad_(False)
-    state = decoder_train.init_state(cfg, seed + 1)
+    enc = encoder_train.init_state(cfg, seed, "cpu").encoder.eval().requires_grad_(False)
+    state = decoder_train.init_state(cfg, seed + 1, "cpu")
     return enc, decoder_train.TrainState.fresh(state.decoder)
 
 
@@ -185,7 +185,7 @@ def case_restore(args, x):
     """A state drawn from another seed, restored from ``ckpt`` and made
     rank 0's: its tree."""
     cfg = _config(args)
-    state = decoder_train.init_state(cfg, args["seed"])
+    state = decoder_train.init_state(cfg, args["seed"], "cpu")
     CheckpointManager(args["ckpt"]).restore(state)
     replicate_state(state)
     tree = state_to_tree(state)

@@ -2,8 +2,9 @@
 
 Every transform here has ``n_fft == 4 * hop``. Framing is reflect padding
 plus ``unfold``, and the inverse overlap-adds four shifted hop blocks, as the
-JAX package does. The fp32 real FFT is ``torch.fft``: the JAX package computes
-it outside any Pallas kernel on this path.
+JAX package does. The fp32 real FFT is ``torch.fft``, and the training loss's
+``impl="matmul"`` magnitude a ``torch.matmul``: the JAX package computes both
+outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -67,6 +68,46 @@ def stft_magnitude(x: torch.Tensor, n_fft: int, hop: int, drop_first: bool = Fal
     if grad_safe:
         return torch.sqrt(y.real * y.real + y.imag * y.imag + MAG_EPS)
     return y.abs()
+
+
+@functools.lru_cache(maxsize=None)
+def _windowed_dft_np(n_fft: int) -> np.ndarray:
+    """``[n_fft, 2*bins]`` (cos | -sin) real-DFT matrix with the hann
+    window folded in: ``|rfft(w * f)| == mag(f @ D)``
+    (`tinyvc_tpu/dsp/stft.py::_windowed_dft`)."""
+    bins = n_fft // 2 + 1
+    n = np.arange(n_fft, dtype=np.float64)[:, None]
+    k = np.arange(bins, dtype=np.float64)[None, :]
+    ang = 2.0 * np.pi * n * k / n_fft
+    d = np.concatenate([np.cos(ang), -np.sin(ang)], axis=1)
+    return (_hann_np(n_fft)[:, None].astype(np.float64) * d).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _windowed_dft(n_fft: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The matrix rounded to ``dtype`` and held as fp32 on ``device``, made
+    once (outside inference mode, so that autograd may save it)."""
+    with torch.inference_mode(False):
+        d = torch.from_numpy(_windowed_dft_np(n_fft)).to(device)
+        return d.to(dtype).float()
+
+
+def stft_magnitude_matmul(x: torch.Tensor, n_fft: int, hop: int, drop_first: bool = False,
+                          dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The gradient-safe magnitude STFT as frames @ windowed-DFT matrix
+    (`tinyvc_tpu/dsp/stft.py::stft_magnitude_matmul`). JAX multiplies
+    ``dtype`` operands with fp32 sums (``preferred_element_type``), so
+    nothing is rounded after the product: here the frames and the matrix
+    are rounded to ``dtype`` and multiplied as fp32 with TF32 off (a
+    product of two bf16 values is exact in fp32)."""
+    from ..infer.generator import exact_fp32
+
+    frames = _frame(x.float(), n_fft, hop, drop_first).to(dtype).float()
+    with exact_fp32():
+        y = torch.matmul(frames, _windowed_dft(n_fft, torch.device(x.device), dtype))
+    bins = n_fft // 2 + 1
+    re, im = y[..., :bins], y[..., bins:]
+    return torch.sqrt(re * re + im * im + MAG_EPS)
 
 
 def spectrogram(x: torch.Tensor, n_fft: int = 1920, hop: int = 480) -> torch.Tensor:

@@ -147,7 +147,11 @@ def match_features_knn(
     """source ``[B, T, C]`` fp32, reference ``[N, C]`` -> matched
     ``[B, T, C]`` fp32 (and, with ``return_indices``, the neighbours
     ``[B, T, k]``, best first). CPU tensors take the plain version; CUDA
-    tensors launch kernel H."""
+    tensors launch kernel H. A bf16 ``source`` (the bf16 encoder's content)
+    is matched in fp32 and the result cast back, as JAX casts its kernel's."""
+    if source.dtype != torch.float32:
+        res = match_features_knn(source.float(), reference, k, alpha, metric, return_indices)
+        return (res[0].to(source.dtype), res[1]) if return_indices else res.to(source.dtype)
     if build.on_cpu(source, reference):
         return match_features_knn_plain(source, reference, k, alpha, metric, return_indices)
     _check_args(source, reference, k, metric)

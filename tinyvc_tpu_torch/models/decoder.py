@@ -36,20 +36,12 @@ from ..dsp.interp import downsample_time_int_t, upsample_time_int_t
 from ..dsp.synth import oscillate_noise
 from ..kernels.noise import oscillate_noise_hashed
 from ..kernels.oscillator import OscillatorBank, oscillator_bank
-from .layers import Conv1d, ConvNeXtLayer, Dense, Dense1x1CF, FiLM
+from .layers import Conv1d, ConvNeXtLayer, Dense, Dense1x1CF, FiLM, compute_dtype
 
 
 def _log_f0_feature(f0: torch.Tensor) -> torch.Tensor:
     """``log(relu(f0) + 1e-6)[..., None]``."""
     return torch.log(f0.clamp_min(0.0) + 1e-6)[..., None]
-
-
-def compute_dtype(name: str) -> torch.dtype:
-    """A config's ``compute_dtype`` name -> the torch dtype."""
-    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    if name not in dtypes:
-        raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', got {name!r}")
-    return dtypes[name]
 
 
 class SourceNet(nn.Module):

@@ -1,6 +1,9 @@
 """Content encoder and pitch classifier (counterpart of
 `tinyvc_tpu/models/encoder.py`). Layout ``[B, T, C]``: spectrogram frames in,
-768-dim content features and f0 out."""
+768-dim content features and f0 out. Both stacks compute in
+``cfg.compute_dtype`` and return it, as JAX's do: under "bfloat16" the
+content features and the logits are bf16 (``serving_config()`` keeps the
+encoder in fp32, because bf16 content flips kNN neighbours)."""
 
 from __future__ import annotations
 
@@ -9,7 +12,7 @@ from torch import nn
 
 from ..config import AudioConfig, EncoderConfig
 from ..ops.retrieval import top_k_small
-from .layers import ConvNeXtStack
+from .layers import ConvNeXtStack, compute_dtype
 
 
 def freq2id(f: torch.Tensor, num_classes: int = 512, classes_per_octave: int = 48,
@@ -43,8 +46,8 @@ class PitchEstimator(nn.Module):
     def __init__(self, cfg: EncoderConfig, in_features: int):
         super().__init__()
         self.stack = ConvNeXtStack(
-            in_features, cfg.pitch_channels, cfg.num_pitch_classes, (1,) * cfg.pitch_num_layers
-        )
+            in_features, cfg.pitch_channels, cfg.num_pitch_classes, (1,) * cfg.pitch_num_layers,
+            dtype=compute_dtype(cfg.compute_dtype))
 
     def forward(self, spec: torch.Tensor) -> torch.Tensor:
         return self.stack(spec)
@@ -55,7 +58,8 @@ class SSLFeatureEstimator(nn.Module):
 
     def __init__(self, cfg: EncoderConfig, in_features: int):
         super().__init__()
-        self.stack = ConvNeXtStack(in_features, cfg.ssl_channels, cfg.ssl_dim, cfg.ssl_dilations)
+        self.stack = ConvNeXtStack(in_features, cfg.ssl_channels, cfg.ssl_dim, cfg.ssl_dilations,
+                                   dtype=compute_dtype(cfg.compute_dtype))
 
     def forward(self, spec: torch.Tensor) -> torch.Tensor:
         return self.stack(spec)
@@ -64,13 +68,6 @@ class SSLFeatureEstimator(nn.Module):
 class Encoder(nn.Module):
     def __init__(self, cfg: EncoderConfig = EncoderConfig(), audio: AudioConfig = AudioConfig()):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            # serving_config() keeps the encoder in fp32: bf16 content
-            # features flip kNN neighbours
-            raise NotImplementedError(
-                f"Encoder compute_dtype {cfg.compute_dtype!r}: only 'float32' is ported "
-                "(ROADMAP.md, section 1)"
-            )
         self.cfg = cfg
         self.ssl_feature_estimator = SSLFeatureEstimator(cfg, audio.fft_bin)
         self.pitch_estimator = PitchEstimator(cfg, audio.fft_bin)

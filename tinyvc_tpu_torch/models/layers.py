@@ -35,6 +35,14 @@ def replicate_pad_time(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
 BF16 = torch.bfloat16
 
 
+def compute_dtype(name: str) -> torch.dtype:
+    """A config's ``compute_dtype`` name -> the torch dtype."""
+    dtypes = {"float32": torch.float32, "bfloat16": BF16}
+    if name not in dtypes:
+        raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', got {name!r}")
+    return dtypes[name]
+
+
 class Dense(nn.Module):
     """Channels-last dense layer (flax ``nn.Dense``): ``x @ W.T + b``."""
 
@@ -47,7 +55,7 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.dtype == BF16:
             return torch.matmul(x.to(BF16), self.weight.to(BF16).T) + self.bias.to(BF16)
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(x.to(self.dtype), self.weight, self.bias)  # flax casts the input
 
 
 class Dense1x1CF(nn.Module):
@@ -212,17 +220,20 @@ class ConvNeXtLayer(nn.Module):
 
 
 class ConvNeXtStack(nn.Module):
-    """Input 1x1 -> LN -> ConvNeXt blocks -> output 1x1."""
+    """Input 1x1 -> LN -> ConvNeXt blocks -> output 1x1, every one of them in
+    ``dtype`` (the JAX stack's ``dtype``)."""
 
     def __init__(self, in_features: int, channels: int, out_features: int,
-                 dilations: Sequence[int], kernel_size: int = 7):
+                 dilations: Sequence[int], kernel_size: int = 7,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.input_layer = Dense(in_features, channels)
-        self.norm = ChannelLayerNorm(channels)
+        self.input_layer = Dense(in_features, channels, dtype)
+        self.norm = ChannelLayerNorm(channels, dtype=dtype)
         for i, d in enumerate(dilations):
-            self.add_module(f"layer_{i}", ConvNeXtLayer(channels, kernel_size, dilation=d))
+            self.add_module(f"layer_{i}",
+                            ConvNeXtLayer(channels, kernel_size, dilation=d, dtype=dtype))
         self.num_layers = len(dilations)
-        self.output_layer = Dense(channels, out_features)
+        self.output_layer = Dense(channels, out_features, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.norm(self.input_layer(x))

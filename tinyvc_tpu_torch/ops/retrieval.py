@@ -13,7 +13,9 @@ import torch
 
 def _similarities(source: torch.Tensor, reference: torch.Tensor, metric: str) -> torch.Tensor:
     """source ``[B, T, C]``, reference ``[N, C]`` or ``[B, N, C]`` ->
-    ``[B, T, N]``."""
+    ``[B, T, N]``, in the promoted dtype (bf16 content of the bf16 encoder
+    against an fp32 dictionary: fp32, as JAX's einsum promotes)."""
+    source = source.to(torch.promote_types(source.dtype, reference.dtype))
     ref_t = reference.transpose(-1, -2)
     if metric == "IP":
         return torch.matmul(source, ref_t)
@@ -47,13 +49,13 @@ def match_features(
     alpha: float = 0.0, metric: str = "cos",
 ) -> torch.Tensor:
     """source ``[B, T, C]``, reference ``[N, C]`` or ``[B, N, C]`` ->
-    matched ``[B, T, C]``."""
+    matched ``[B, T, C]`` in the source's dtype (JAX's cast)."""
     _, idx = top_k_small(_similarities(source, reference, metric), k)  # [B, T, k]
     if reference.dim() == 2:
         neigh = reference[idx]  # [B, T, k, C]
     else:
         neigh = torch.stack([reference[b][idx[b]] for b in range(reference.shape[0])])
-    result = neigh.mean(dim=2)
+    result = neigh.mean(dim=2).to(source.dtype)
     if alpha == 0.0:
         return result
     return result * (1.0 - alpha) + source * alpha

@@ -42,7 +42,7 @@ import torch
 from ..config import TinyVCConfig
 from ..dsp.energy import estimate_energy
 from ..dsp.stft import spectrogram
-from ..infer.generator import exact_fp32
+from ..infer.generator import _resolve_device, exact_fp32
 from ..models.decoder import Decoder
 from ..models.discriminator import Discriminator, fused_mrd_valid_counts
 from ..models.encoder import Encoder
@@ -123,10 +123,12 @@ on the CPU from ``generator``."""
                 sub.beta.zero_()
 
 
-def init_state(cfg: TinyVCConfig, seed: int, device="cpu") -> TrainState:
+def init_state(cfg: TinyVCConfig, seed: int, device="cuda") -> TrainState:
     """A fresh train state: the decoder, then the discriminator, drawn by
     :func:`init_params` from ``torch.Generator().manual_seed(seed)``; zero
-    moments."""
+    moments. On CUDA unless ``device`` asks for the CPU (it raises without
+    a card)."""
+    device = _resolve_device(device)
     generator = torch.Generator().manual_seed(seed)
     dec = Decoder(cfg.decoder, cfg.audio)
     init_params(dec, generator)

@@ -30,7 +30,7 @@ import torch.distributed as dist
 from ..config import TinyVCConfig
 from ..dsp.interp import linear_interp_time
 from ..dsp.stft import spectrogram
-from ..infer.generator import exact_fp32
+from ..infer.generator import _resolve_device, exact_fp32
 from ..models.encoder import Encoder, freq2id
 from ..parallel.mesh import data_mean, global_rows
 from ..utils import prng
@@ -49,9 +49,11 @@ class EncoderTrainState:
     step: int = 0
 
 
-def init_state(cfg: TinyVCConfig, seed: int, device="cpu") -> EncoderTrainState:
+def init_state(cfg: TinyVCConfig, seed: int, device="cuda") -> EncoderTrainState:
     """A fresh state: the encoder drawn by `decoder_train.init_params` (flax's
-    initializers) from ``torch.Generator().manual_seed(seed)``, zero moments."""
+    initializers) from ``torch.Generator().manual_seed(seed)``, zero moments.
+    On CUDA unless ``device`` asks for the CPU (it raises without a card)."""
+    device = _resolve_device(device)
     enc = Encoder(cfg.encoder, cfg.audio)
     init_params(enc, torch.Generator().manual_seed(seed))
     enc = enc.train().to(device)

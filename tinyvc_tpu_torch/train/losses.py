@@ -2,20 +2,22 @@
 multi-scale STFT loss, the log-mel L1 loss, and the GAN's LSGAN and
 feature-matching losses.
 
-The multi-scale STFT loss takes the fp32 rfft magnitude, the JAX package's
-``impl="rfft"`` (its choice off the TPU). Its ``impl="matmul"`` form, a
-bf16 windowed-DFT product, is a lowering choice of the TPU's matrix unit
-and is not ported (`ROADMAP.md` §1).
+The multi-scale STFT loss takes the fp32 rfft magnitude by default
+(``impl="auto"``), the JAX package's choice off the TPU, on the CPU and on
+CUDA alike; ``impl="matmul"``, the bf16 windowed-DFT product that JAX
+takes on the TPU (`dsp/stft.py::stft_magnitude_matmul`), only when asked
+for.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence
 
 import torch
 
 from ..dsp.mel import mel_spectrogram
-from ..dsp.stft import stft_magnitude
+from ..dsp.stft import stft_magnitude, stft_magnitude_matmul
 
 
 def _safe_log(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -24,14 +26,24 @@ def _safe_log(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 def multi_scale_stft_loss(
     x: torch.Tensor, y: torch.Tensor, scales: Sequence[int] = (16, 32, 64, 128, 256, 512),
+    impl: str = "auto",
 ) -> torch.Tensor:
     """L2 on magnitude + L1 on log magnitude, averaged over scales (hop s,
-    n_fft 4s, frame 0 kept, the gradient-safe magnitude)."""
+    n_fft 4s, frame 0 kept, the gradient-safe magnitude). ``impl``: "rfft"
+    (what "auto" resolves to) or "matmul"."""
+    if impl == "auto":
+        impl = "rfft"
+    if impl == "rfft":
+        mag = functools.partial(stft_magnitude, grad_safe=True)
+    elif impl == "matmul":
+        mag = stft_magnitude_matmul
+    else:
+        raise ValueError(f"impl must be 'auto', 'rfft' or 'matmul', got {impl!r}")
     x, y = x.float(), y.float()
     loss = 0.0
     for s in scales:
-        xs = torch.nan_to_num(stft_magnitude(x, s * 4, s, grad_safe=True))
-        ys = torch.nan_to_num(stft_magnitude(y, s * 4, s, grad_safe=True))
+        xs = torch.nan_to_num(mag(x, s * 4, s))
+        ys = torch.nan_to_num(mag(y, s * 4, s))
         loss = loss + torch.mean((xs - ys) ** 2) + torch.mean(
             torch.abs(_safe_log(xs) - _safe_log(ys)))
     return loss / len(scales)
